@@ -1,0 +1,149 @@
+"""Per-frame render-scene assembly (port of the voxel + static-geometry parts
+of ``impact_tpu/scene/assembly.py``; ref: impact_scene lib.rs:160).
+
+Each voxel object's compacted, material-baked mesh is transformed by its
+rigid body's current and previous pose, and the static geometry's
+corner-major fields (baked once at setup) are appended — elementwise work
+only, no per-frame triangle-index gathers."""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ..math import quaternion as quat
+from ..render.pipeline import RenderScene
+from ..voxel.mesh import CompactMesh
+from ..voxel.object import VoxelObjectPool
+
+
+class StaticGeometry(NamedTuple):
+    """Non-voxel geometry (ground planes) with its corner-major bake."""
+
+    vert_pos: torch.Tensor  # f32[Vs,3] world
+    vert_normal: torch.Tensor  # f32[Vs,3]
+    vert_albedo: torch.Tensor  # f32[Vs,3]
+    vert_f0: torch.Tensor  # f32[Vs,3]
+    vert_roughness: torch.Tensor  # f32[Vs]
+    vert_emissive: torch.Tensor  # f32[Vs,3]
+    vert_material: torch.Tensor  # i32[Vs]
+    tri_indices: torch.Tensor  # i64[Ts,3]
+    tri_active: torch.Tensor  # bool[Ts]
+    corners: dict | None = None  # tri_pos/tri_normal/... [Ts,9|3]
+
+
+def empty_static_geometry(device=None) -> StaticGeometry:
+    z3 = torch.zeros((0, 3), dtype=torch.float32, device=device)
+    return StaticGeometry(
+        vert_pos=z3, vert_normal=z3, vert_albedo=z3, vert_f0=z3,
+        vert_roughness=torch.zeros(0, device=device), vert_emissive=z3,
+        vert_material=torch.zeros(0, dtype=torch.int32, device=device),
+        tri_indices=torch.zeros((0, 3), dtype=torch.int64, device=device),
+        tri_active=torch.zeros(0, dtype=torch.bool, device=device),
+    )
+
+
+def ground_plane_geometry(y: float = 0.0, half_size: float = 100.0,
+                          albedo=(0.35, 0.35, 0.38), roughness: float = 0.9,
+                          device=None) -> StaticGeometry:
+    """A 2-triangle y-up quad wound so its +y face survives backface culling."""
+    v = torch.tensor([[-half_size, y, -half_size], [half_size, y, -half_size],
+                      [half_size, y, half_size], [-half_size, y, half_size]],
+                     dtype=torch.float32, device=device)
+    return StaticGeometry(
+        vert_pos=v,
+        vert_normal=torch.tensor([[0.0, 1.0, 0.0]], device=device).repeat(4, 1),
+        vert_albedo=torch.tensor([albedo], dtype=torch.float32, device=device).repeat(4, 1),
+        vert_f0=torch.full((4, 3), 0.04, device=device),
+        vert_roughness=torch.full((4,), roughness, device=device),
+        vert_emissive=torch.zeros((4, 3), device=device),
+        vert_material=torch.full((4,), -1, dtype=torch.int32, device=device),
+        tri_indices=torch.tensor([[0, 2, 1], [0, 3, 2]], device=device),
+        tri_active=torch.ones(2, dtype=torch.bool, device=device),
+    )
+
+
+def concat_static_geometry(parts) -> StaticGeometry:
+    """Concatenate StaticGeometry parts with vertex-index offsets."""
+    out = parts[0]
+    for p in parts[1:]:
+        base = out.vert_pos.shape[0]
+        out = StaticGeometry(*(torch.cat([a, b]) for a, b in zip(out[:7], p[:7])),
+                             tri_indices=torch.cat([out.tri_indices, p.tri_indices + base]),
+                             tri_active=torch.cat([out.tri_active, p.tri_active]))
+    return out
+
+
+def bake_static_geometry_corners(sg: StaticGeometry) -> StaticGeometry:
+    """Precompute the corner-major field dict once at setup."""
+    ti = sg.tri_indices
+
+    def g(a):
+        parts = [a[ti[:, c]] for c in range(3)]
+        return torch.stack(parts, dim=-1) if a.ndim == 1 else torch.cat(parts, dim=-1)
+
+    pos = g(sg.vert_pos)
+    return sg._replace(corners=dict(
+        tri_pos=pos, tri_pos_prev=pos, tri_normal=g(sg.vert_normal),
+        tri_albedo=g(sg.vert_albedo), tri_f0=g(sg.vert_f0),
+        tri_roughness=g(sg.vert_roughness), tri_emissive=g(sg.vert_emissive),
+        tri_material=g(sg.vert_material),
+    ))
+
+
+def static_geometry_corners(sg: StaticGeometry) -> dict:
+    if sg.corners is None:
+        sg = bake_static_geometry_corners(sg)
+    return dict(**sg.corners, tri_active=sg.tri_active,
+                tri_shadow=torch.ones_like(sg.tri_active))
+
+
+def _rotate9(q, pos9):
+    return torch.cat([quat.rotate(q, pos9[..., 3 * c:3 * c + 3]) for c in range(3)], dim=-1)
+
+
+def build_render_scene(pool: VoxelObjectPool, meshes: CompactMesh, body_position,
+                       body_orientation, body_position_prev, body_orientation_prev,
+                       static_geometry: StaticGeometry,
+                       tris_per_object: int = 0) -> RenderScene:
+    """Flatten voxel meshes [O,Tc,...] + static geometry into one corner-major
+    RenderScene. ``tris_per_object`` > 0 keeps only each object's leading
+    triangle slots (compaction packs actives to the front)."""
+    if 0 < tris_per_object < meshes.tri_pos.shape[1]:
+        k = tris_per_object
+        meshes = meshes._replace(**{
+            f: getattr(meshes, f)[:, :k]
+            for f in ("tri_active", "tri_pos", "tri_normal", "tri_type", "tri_albedo",
+                      "tri_f0", "tri_rough", "tri_emissive")
+        })
+    local9 = (meshes.tri_pos * pool.voxel_extent[:, None, None]
+              + pool.origin.repeat(1, 3)[:, None, :])
+    bi = pool.body_index
+    q = body_orientation[bi][:, None, :]
+    x = body_position[bi].repeat(1, 3)[:, None, :]
+    qp = body_orientation_prev[bi][:, None, :]
+    xp = body_position_prev[bi].repeat(1, 3)[:, None, :]
+    world9 = _rotate9(q, local9) + x
+    world9_prev = _rotate9(qp, local9) + xp
+    normal9 = _rotate9(q, meshes.tri_normal)
+    tri_ok = meshes.tri_active & pool.alive[:, None]
+    # no texture arrays in the port: voxel surfaces take the untextured path,
+    # as the reference does with tpu.textured_voxels off
+    mat3 = torch.full_like(meshes.tri_type, -1)
+    parts = [dict(
+        tri_pos=world9.reshape(-1, 9),
+        tri_pos_prev=world9_prev.reshape(-1, 9),
+        tri_normal=normal9.reshape(-1, 9),
+        tri_albedo=meshes.tri_albedo.reshape(-1, 9),
+        tri_f0=meshes.tri_f0.reshape(-1, 9),
+        tri_roughness=meshes.tri_rough.reshape(-1, 3),
+        tri_emissive=meshes.tri_emissive.reshape(-1, 9),
+        tri_material=mat3.reshape(-1, 3),
+        tri_active=tri_ok.reshape(-1),
+        tri_shadow=(tri_ok & pool.casts_shadows[:, None]).reshape(-1),
+    )]
+    if static_geometry.tri_active.shape[0] > 0:
+        parts.append(static_geometry_corners(static_geometry))
+    return RenderScene(**{k: torch.cat([p[k].to(parts[0][k].dtype) for p in parts])
+                          for k in parts[0]})

@@ -1,0 +1,117 @@
+"""Engine configuration: the port's copy of the ``impact_tpu/utils/config.py``
+fields the render slice reads, with the same names and defaults (ref:
+engine.rs:86-99 sub-configs; ``tpu`` holds the static capacities)."""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Any
+
+
+@dataclass
+class ShadowMappingConfig:
+    enabled: bool = True
+    omnidirectional_light_shadow_map_resolution: int = 1024
+
+
+@dataclass
+class AmbientOcclusionConfig:
+    enabled: bool = True
+    sample_count: int = 4
+    sample_radius: float = 1.0
+    intensity: float = 2.0
+    contrast: float = 0.75
+
+
+@dataclass
+class TemporalAntiAliasingConfig:
+    enabled: bool = True
+    current_frame_weight: float = 0.1
+    variance_clipping_threshold: float = 1.0
+
+
+@dataclass
+class ExposureBounds:
+    lower: float = 1e-6
+    upper: float = 1e-2
+
+
+@dataclass
+class CameraSettings:
+    relative_aperture: float = 4.0
+    shutter_duration: float = 0.005
+    # None = auto exposure; {"ev_compensation": x} or {"iso": x} (Manual)
+    sensitivity: Any = None
+    exposure_bounds: ExposureBounds = field(default_factory=ExposureBounds)
+
+
+@dataclass
+class LuminanceBounds:
+    lower: float = 100.0
+    upper: float = 1e7
+
+
+@dataclass
+class AverageLuminanceConfig:
+    luminance_bounds: LuminanceBounds = field(default_factory=LuminanceBounds)
+    current_frame_weight: float = 0.02
+
+
+@dataclass
+class BloomConfig:
+    enabled: bool = True
+    n_downsamplings: int = 4
+    blurred_luminance_weight: float = 0.04
+
+
+@dataclass
+class DynamicRangeCompressionConfig:
+    tone_mapping_method: str = "ACES"
+
+
+@dataclass
+class CapturingCameraConfig:
+    settings: CameraSettings = field(default_factory=CameraSettings)
+    average_luminance_computation: AverageLuminanceConfig = field(
+        default_factory=AverageLuminanceConfig)
+    bloom: BloomConfig = field(default_factory=BloomConfig)
+    dynamic_range_compression: DynamicRangeCompressionConfig = field(
+        default_factory=DynamicRangeCompressionConfig)
+
+
+@dataclass
+class RenderingConfig:
+    shadow_mapping: ShadowMappingConfig = field(default_factory=ShadowMappingConfig)
+    ambient_occlusion: AmbientOcclusionConfig = field(default_factory=AmbientOcclusionConfig)
+    temporal_anti_aliasing: TemporalAntiAliasingConfig = field(
+        default_factory=TemporalAntiAliasingConfig)
+    capturing_camera: CapturingCameraConfig = field(default_factory=CapturingCameraConfig)
+
+
+@dataclass
+class TpuConfig:
+    """Static capacities and render switches (names kept from the reference)."""
+
+    max_bodies: int = 1024
+    max_voxel_objects: int = 64
+    voxel_grid_size: int = 32
+    render_width: int = 256
+    render_height: int = 192
+    csm_cascades: int = 1
+    max_render_triangles: int = 65536
+    mesh_vert_cap: int = 0  # 0 = auto: min(4096, (G-1)³)
+    mesh_tri_cap: int = 0  # 0 = auto: min(8192, 6·(G-1)³)
+    mesh_merge_levels: int = 2
+    render_tris_per_object: int = 0
+    procedural_sky: bool = False
+    sdf_encoding: str = "f32"  # "f32" | "i8"
+    orthographic_camera: bool = False
+    sky_luminance: tuple = (3000.0, 4500.0, 9000.0)
+    raster_backend: str = "kernel"  # "kernel" (K1) | "raster" (plain tile raster)
+    view_culling: bool = True
+
+
+@dataclass
+class EngineConfig:
+    rendering: RenderingConfig = field(default_factory=RenderingConfig)
+    tpu: TpuConfig = field(default_factory=TpuConfig)

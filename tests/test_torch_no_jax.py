@@ -1,0 +1,52 @@
+"""The port must run where JAX is not installed: every module of
+impact_tpu_torch, and chip_smoke.py, import with ``jax`` blocked, and no
+source file of the port imports the reference package."""
+
+import ast
+import pathlib
+import subprocess
+import sys
+
+import pytest
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "impact_tpu_torch"
+MODULES = sorted(
+    ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(".__init__")
+    for p in PORT.rglob("*.py")
+)
+
+
+def test_port_modules_import_with_jax_blocked():
+    code = (
+        "import sys, importlib\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['impact_tpu'] = None\n"
+        f"sys.path.insert(0, {str(ROOT)!r})\n"
+        f"for m in {MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "import chip_smoke\n"
+        "assert 'jax' not in {k.split('.')[0] for k, v in sys.modules.items() if v is not None}\n"
+        "print('ok', len(" + repr(MODULES) + "))\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          cwd=str(ROOT), timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("ok")
+
+
+def _imports(path):
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_reference_or_jax_import(path):
+    for name in _imports(path):
+        top = name.split(".")[0]
+        assert top not in ("jax", "jaxlib", "impact_tpu"), f"{path}: imports {name}"
