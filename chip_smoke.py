@@ -3,13 +3,24 @@
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It builds the port's CUDA kernels from ``impact_tpu_torch/csrc`` (one nvcc
-call), checks the tile rasterizer K1 against its plain PyTorch version,
-renders the bench scene (62 voxel boxes of 26³ voxels in 64 slots of 32³ i8
-grids; 1920x1080, shadow maps 512², AO, TAA, bloom, ACES) through
-``HeadlessRuntime.render`` and checks the frames. Every phase prints one
-flushed line with its seconds; any failure exits non-zero. The last lines
-are a ``{"kernels": [...]}`` record and the ``{"ok": true, ...}`` result.
-It needs a CUDA device and the rest of the repository beside it.
+call), checks the connected-component kernel K2 and the tile rasterizer K1
+against their plain PyTorch versions, then drives three paths through the
+port's entry points:
+
+1. the bench scene's render (62 voxel boxes of 26³ voxels in 64 slots of
+   32³ i8 grids; 1920x1080, shadow maps 512², AO, TAA, bloom, ACES) through
+   ``HeadlessRuntime.render``, with frame checks;
+2. the same bench scene stepped (``HeadlessRuntime.step``, jacobi at dt
+   0.005) and rendered at 1080p (``step_and_render``);
+3. the reference's fracture bench (a radius-5 voxel sphere at 18 m/s into a
+   fracturable 14-voxel box; 208 slots, up to 192 fragments) stepped through
+   its fracture event and the split detection after it, which runs K2.
+
+Kernel launch counts are zeroed just before each path and read just after
+it. Every phase prints one flushed line with its seconds; any failure exits
+non-zero. The last lines are a ``{"kernels": [...]}`` record and the
+``{"ok": true, ...}`` result. It needs a CUDA device and the rest of the
+repository beside it.
 """
 
 from __future__ import annotations
@@ -29,6 +40,18 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 ATTR_ATOL = 1e-5
 # frame parity between two implementations (the repo's parity bar)
 PARITY_BAR = 0.95
+# K2 sweeps integer labels exactly as its plain version does: labels and
+# sweep counts must be equal, after 16 sweeps and at the fixpoint
+K2_SWEEPS = 16
+TUMBLER_STEPS = 80
+FRACTURE_MAX_STEPS = 400
+STEPS_AFTER_EVENT = 8
+# card vs CPU at reduced depth: the same uniforms go to both runs, but the
+# card's sin/cos/pow round differently in the last bit, which can move a
+# Voronoi near-tie voxel to its other seed; at most this share of the
+# fractured voxels may sit in another slot
+SMALL_FRAGMENTS = 12
+MOVED_VOXEL_SHARE = 1e-3
 
 
 def log(msg: str) -> None:
@@ -92,6 +115,62 @@ def compare_k1(got, ref, n_attr, what):
     return err
 
 
+def serpentine(g):
+    """One 6-connected path snaking through the k = 0 plane: rows i = 0, 2, 4,
+    ... joined at alternate ends; the labels need ~g²/2 sweeps to settle."""
+    import numpy as np
+
+    occ = np.zeros((g, g, g), bool)
+    occ[0::2, :, 0] = True
+    for i in range(1, g, 2):
+        occ[i, g - 1 if (i // 2) % 2 == 0 else 0, 0] = True
+    return occ
+
+
+def check_k2(occ, what):
+    """Hold K2 against its plain version after K2_SWEEPS sweeps and at the
+    fixpoint on a bool batch [B,G,G,G]; returns (fixpoint sweep counts, max
+    abs label error)."""
+    import torch
+
+    from impact_tpu_torch.ops import ccl_pallas as k2
+
+    g = occ.shape[-1]
+    lab0 = k2.initial_labels(occ)
+    err = 0
+    for n in (K2_SWEEPS, g ** 3):
+        got, got_sw = k2.ccl_sweeps(occ, lab0, n)
+        ref, ref_sw = k2.ccl_sweeps_plain(occ, lab0, n)
+        torch.cuda.synchronize()
+        err = max(err, int((got - ref).abs().max()))
+        if not (torch.equal(got, ref) and torch.equal(got_sw, ref_sw)):
+            bad = int((got != ref).sum())
+            raise AssertionError(f"K2 {what}, {n} sweeps: {bad} labels differ from the plain "
+                                 f"version (sweeps {got_sw.tolist()} vs {ref_sw.tolist()})")
+    return got_sw, float(err)
+
+
+def time_k2(occ, reps=20):
+    """(kernel ms, plain ms, bound ms, bound_by, sweeps) of one fixpoint call."""
+    from impact_tpu_torch.ops import ccl_pallas as k2
+
+    g = occ.shape[-1]
+    lab0 = k2.initial_labels(occ)
+    _, sweeps = k2.ccl_sweeps(occ, lab0, g ** 3)
+    ms = cuda_time_ms(lambda: k2.ccl_sweeps(occ, lab0, g ** 3), reps=reps)
+    plain = cuda_time_ms(lambda: k2.ccl_sweeps_plain(occ, lab0, g ** 3), reps=2, warmup=1)
+    bound, by = k2.bound_ms(occ, sweeps)
+    return ms, plain, bound, by, sweeps.tolist()
+
+
+def body_state_finite(sim):
+    import torch
+
+    b = sim.phys.bodies
+    return all(bool(torch.isfinite(getattr(b, f)).all()) for f in
+               ("position", "orientation", "momentum", "angular_momentum"))
+
+
 def main() -> int:
     t_all = time.perf_counter()
     import numpy as np
@@ -144,6 +223,26 @@ def main() -> int:
         _build.load()
         log(f"build: {lib_path.name} in {time.perf_counter() - t0:.2f} s "
             f"(nvcc {_build.build_seconds:.2f} s)")
+
+    from impact_tpu_torch.ops import ccl_pallas as k2
+
+    with Phase("K2 vs plain version, G=32: random fills, serpentine, empty, full"):
+        rng = np.random.default_rng(0)
+        g = 32
+        grids = [rng.uniform(size=(g, g, g)) < f for f in (0.2, 0.35, 0.5, 0.7)]
+        grids += [serpentine(g), np.zeros((g, g, g), bool), np.ones((g, g, g), bool)]
+        occ = torch.tensor(np.stack(grids), device=dev)
+        sweeps, _ = check_k2(occ, "synthetic grids")
+        log(f"K2 labels and sweep counts equal the plain version after {K2_SWEEPS} sweeps and "
+            f"at the fixpoint; fixpoint sweeps (fill 0.2/0.35/0.5/0.7, serpentine, empty, "
+            f"full): {sweeps.tolist()}")
+        if sweeps[4] < 256:
+            raise AssertionError(f"the serpentine settled in {int(sweeps[4])} sweeps")
+        for name, sel in (("batch of 4 random fills", slice(0, 4)), ("1 grid, serpentine",
+                                                                     slice(4, 5))):
+            ms, plain, bound, by, sw = time_k2(occ[sel])
+            log(f"K2 {name}: {ms:.4f} ms per launch (sweeps {sw}), plain {plain:.4f} ms, "
+                f"bound {bound:.6f} ms ({by})")
 
     log(f"K1 vs plain version: depth, z and valid equal; interp and near within atol "
         f"{ATTR_ATOL}; drops equal")
@@ -312,6 +411,179 @@ def main() -> int:
         record["parity_480x270_kernel_vs_plain"] = score
         if score < PARITY_BAR:
             raise AssertionError(f"480x270 parity {score:.4f} < {PARITY_BAR}")
+
+    from impact_tpu_torch.models.bench import (
+        bench_fracture_config,
+        bench_fracture_scene,
+        bench_step_scene,
+    )
+    from impact_tpu_torch.voxel.object import nonempty_counts
+
+    with Phase(f"tumbler bench stepped (boxes spaced 11.5 m): {TUMBLER_STEPS} steps, then "
+               f"step_and_render at 1080p"):
+        cfg = bench_config(WIDTH, HEIGHT)
+        rt = HeadlessRuntime(compile_scene(bench_step_scene(), cfg, device=dev), cfg,
+                             enable_fracturing=False)
+        n_active = int(nonempty_counts(rt.sim.voxels).sum())
+        rt.step(2)  # warm-up: the first steps build cuBLAS/cuSOLVER handles
+        rp.LAUNCHES.reset()
+        k2.LAUNCHES.reset()
+        syncs0 = rt.host_syncs
+        rt.step(TUMBLER_STEPS)
+        steps_ms = rt.step_ms
+        steps_per_s = TUMBLER_STEPS / (steps_ms / 1e3)
+        t0 = time.perf_counter()
+        img = rt.step_and_render()
+        torch.cuda.synchronize()
+        frame_ms = (time.perf_counter() - t0) * 1e3
+        tumbler_launches = {**dict(rp.LAUNCHES), **dict(k2.LAUNCHES)}
+        syncs = (rt.host_syncs - syncs0) / (TUMBLER_STEPS + 1)
+        if not body_state_finite(rt.sim):
+            raise AssertionError("non-finite body state after stepping the tumbler")
+        if tuple(img.shape) != (HEIGHT, WIDTH, 3) or img.float().std().item() < 1.0:
+            raise AssertionError(f"stepped 1080p image {tuple(img.shape)} is flat")
+        if rp.LAUNCHES["k1_raster_attributes"] == 0 or rp.LAUNCHES["k1_raster_depth"] == 0:
+            raise AssertionError(f"K1 was not launched on the stepped frame: {tumbler_launches}")
+        geo_drops, shadow_drops = rt.last_drops
+        drop_v, drop_t = rt.dropped_mesh_elements()
+        ys = rt.sim.phys.bodies.position[rt.sim.voxels.body_index][:62, 1]
+        log(f"tumbler: {n_active} active voxels; {TUMBLER_STEPS} steps in {steps_ms:.1f} ms = {steps_per_s:.2f} steps/s "
+            f"({steps_ms / TUMBLER_STEPS:.3f} ms per step), {syncs:.2f} host syncs per step; "
+            f"box heights {ys.min().item():.3f}..{ys.max().item():.3f}")
+        log(f"tumbler step_and_render at 1080p: {frame_ms:.2f} ms (step {rt.step_ms:.2f} ms; "
+            + ", ".join(f"{k} {v:.2f} ms" for k, v in rt.stage_ms.items()) + ")")
+        log(f"tumbler stepped state: broad_phase_overflow {rt.broad_phase_overflow()}, "
+            f"dropped_mesh_elements ({drop_v}, {drop_t}), raster drops geometry {geo_drops} "
+            f"shadows {shadow_drops}; launches {tumbler_launches}")
+        record["tumbler"] = dict(steps_per_s=steps_per_s, step_ms=steps_ms / TUMBLER_STEPS,
+                                 frame_ms=frame_ms, stage_ms=rt.stage_ms, host_syncs=syncs,
+                                 broad_phase_overflow=rt.broad_phase_overflow(),
+                                 geometry_drops=geo_drops, shadow_drops=shadow_drops)
+
+    with Phase("fracture bench: step through the fracture event and the splits after it"):
+        fcfg = bench_fracture_config()
+        frt = HeadlessRuntime(compile_scene(bench_fracture_scene(), fcfg, device=dev), fcfg)
+        k2_grids = []
+        run_sweeps = k2.ccl_sweeps
+
+        def rec_sweeps(occ, labels, max_sweeps):
+            k2_grids.append(occ.clone())
+            return run_sweeps(occ, labels, max_sweeps)
+
+        alive0 = int(frt.sim.voxels.alive.sum())
+        log(f"fracture: {int(nonempty_counts(frt.sim.voxels).sum())} active voxels in "
+            f"{alive0} objects")
+        step_ms, event_step, peak = [], None, 0
+        rp.LAUNCHES.reset()
+        k2.LAUNCHES.reset()
+        syncs0 = frt.host_syncs
+        k2.ccl_sweeps = rec_sweeps
+        try:
+            for i in range(1, FRACTURE_MAX_STEPS + 1):
+                torch.cuda.reset_peak_memory_stats(dev)
+                frt.step(1)
+                step_ms.append(frt.step_ms)
+                if int(frt.sim.voxels.alive.sum()) > alive0:
+                    event_step = i
+                    peak = torch.cuda.max_memory_allocated(dev)
+                    break
+            if event_step is None:
+                raise AssertionError(f"no fracture event within {FRACTURE_MAX_STEPS} steps")
+            n_fragments = int(frt.sim.voxels.alive.sum()) - alive0
+            k2_at_event = k2.LAUNCHES["k2_ccl"]
+            frt.step(STEPS_AFTER_EVENT)
+            after_ms = frt.step_ms / STEPS_AFTER_EVENT
+        finally:
+            k2.ccl_sweeps = run_sweeps
+        img = frt.render()
+        torch.cuda.synchronize()
+        fracture_launches = {**dict(rp.LAUNCHES), **dict(k2.LAUNCHES)}
+        n_steps = event_step + STEPS_AFTER_EVENT
+        syncs = (frt.host_syncs - syncs0) / n_steps
+        steady = sorted(step_ms[-6:-1])[2] if len(step_ms) >= 6 else min(step_ms[:-1] or [0.0])
+        pending = int(frt.sim.voxels.split_pending.sum())
+        if n_fragments < 2:
+            raise AssertionError(f"the event made {n_fragments} fragments")
+        if k2.LAUNCHES["k2_ccl"] - k2_at_event <= 0:
+            raise AssertionError("K2 was not launched on the steps after the fracture event")
+        if not body_state_finite(frt.sim):
+            raise AssertionError("non-finite body state in the fracture bench")
+        geo_drops, shadow_drops = frt.last_drops
+        log(f"fracture: event at step {event_step}, {n_fragments} fragments "
+            f"(alive {alive0} -> {alive0 + n_fragments}); event step {step_ms[-1]:.2f} ms, "
+            f"steady step {steady:.2f} ms (median of the 5 before), event - steady "
+            f"{step_ms[-1] - steady:.2f} ms; peak memory of the event step "
+            f"{peak / 2**30:.3f} GiB; {STEPS_AFTER_EVENT} steps after it {after_ms:.2f} ms each, "
+            f"{pending} objects still split-pending")
+        log(f"fracture: {(event_step - 1) / (sum(step_ms[:-1]) / 1e3 or 1):.2f} steps/s before the "
+            f"event; {syncs:.2f} host syncs per step; K2 launches {k2.LAUNCHES['k2_ccl']} "
+            f"({k2.LAUNCHES['k2_ccl'] - k2_at_event} after the event) on "
+            f"{sum(x.shape[0] for x in k2_grids)} grids; 320x200 frame drops geometry "
+            f"{geo_drops} shadows {shadow_drops}; "
+            + ", ".join(f"{k} {v:.2f} ms" for k, v in frt.stage_ms.items()))
+        record["fracture"] = dict(event_step=event_step, fragments=n_fragments,
+                                  event_ms=step_ms[-1], steady_ms=steady,
+                                  event_minus_steady_ms=step_ms[-1] - steady,
+                                  peak_gib=peak / 2**30, after_event_ms=after_ms,
+                                  host_syncs=syncs, launches=fracture_launches)
+
+    with Phase(f"fracture scene at reduced depth ({SMALL_FRAGMENTS} fragment slots): the card "
+               f"vs the port on the CPU, same uniforms"):
+        from impact_tpu_torch.voxel.interaction import draw_fracture_uniforms
+
+        scfg = bench_fracture_config(SMALL_FRAGMENTS)
+        uniforms = draw_fracture_uniforms(torch.Generator().manual_seed(0), SMALL_FRAGMENTS)
+        runs = {}
+        for where in ("cuda", "cpu"):
+            r = HeadlessRuntime(
+                compile_scene(bench_fracture_scene(), scfg, device=where), scfg,
+                fracture_uniforms=lambda gen, n, w=where: tuple(u.to(w) for u in uniforms))
+            a0, event = int(r.sim.voxels.alive.sum()), None
+            for i in range(1, FRACTURE_MAX_STEPS + 1):
+                r.step(1)
+                if event is None and int(r.sim.voxels.alive.sum()) > a0:
+                    event = i
+                if event is not None and i >= event + 4:
+                    break
+            v = r.sim.voxels
+            runs[where] = dict(event=event, alive=v.alive.cpu(),
+                               counts=(v.sdf < 0).sum(dim=(1, 2, 3)).cpu(),
+                               pos=r.sim.phys.bodies.position.cpu())
+        c, p = runs["cuda"], runs["cpu"]
+        moved = int((c["counts"] - p["counts"]).abs().sum()) // 2
+        total = int(p["counts"].sum())
+        dpos = (c["pos"] - p["pos"]).abs().max().item()
+        log(f"reduced fracture: event at step {c['event']} on the card, {p['event']} on the CPU; "
+            f"alive {int(c['alive'].sum())} / {int(p['alive'].sum())}; {moved} of {total} "
+            f"voxels in another slot (bar {MOVED_VOXEL_SHARE:g} of them); body positions "
+            f"differ by at most {dpos:.3g} m")
+        if c["event"] is None or c["event"] != p["event"]:
+            raise AssertionError(f"event step {c['event']} on the card, {p['event']} on the CPU")
+        if not torch.equal(c["alive"], p["alive"]):
+            raise AssertionError("the card and the CPU keep different object slots alive")
+        if moved > MOVED_VOXEL_SHARE * total:
+            raise AssertionError(f"{moved} voxels sit in another slot on the card")
+        record["reduced_fracture_card_vs_cpu"] = dict(event=c["event"], moved_voxels=moved,
+                                                      max_position_diff=dpos)
+
+    with Phase("K2 vs plain version on the grids the fracture bench labelled"):
+        batches = [x for x in k2_grids if x.shape[0] > 0]
+        occ = torch.cat(batches)
+        sweeps, k2_err = check_k2(occ, "fracture-bench grids")
+        log(f"K2 equal to its plain version on {occ.shape[0]} labelled grids in "
+            f"{len(batches)} launches; fixpoint sweeps min {int(sweeps.min())} max "
+            f"{int(sweeps.max())}")
+        four = next((x for x in batches if x.shape[0] == 4), batches[0])
+        ms4, plain4, bound4, by4, sw4 = time_k2(four)
+        ms1, plain1, bound1, by1, sw1 = time_k2(four[:1])
+        log(f"K2 on fracture grids, batch of {four.shape[0]}: {ms4:.4f} ms per launch (sweeps "
+            f"{sw4}), plain {plain4:.4f} ms, bound {bound4:.6f} ms ({by4}); 1 grid: "
+            f"{ms1:.4f} ms (sweeps {sw1}), plain {plain1:.4f} ms, bound {bound1:.6f} ms ({by1})")
+        kernels.append(dict(
+            name="k2_ccl", route="cuda", source="impact_tpu_torch/csrc/ccl.cu",
+            replaces="impact_tpu/ops/ccl_pallas.py:45", launches=fracture_launches["k2_ccl"],
+            max_abs_err=k2_err, ms=ms4, plain_ms=plain4, bound_ms=bound4, bound_by=by4,
+            library_ms=None))
 
     log(f"total wall time {time.perf_counter() - t_all:.1f} s")
     log("record: " + json.dumps(record))

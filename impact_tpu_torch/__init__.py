@@ -6,8 +6,9 @@ compared with stated tolerances). It imports ``torch`` and never ``jax`` or
 ``impact_tpu``: host-side helpers it needs are kept as its own copies.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``. The
-one hand-written kernel of this slice, the tile rasterizer K1
-(``csrc/raster.cu``), is built with ``nvcc`` at first use (``_build.py``) and
-called through ``render/raster_pallas.py``; on CPU tensors its wrappers run
-the kernel's plain PyTorch version instead.
+hand-written kernels — the tile rasterizer K1 (``csrc/raster.cu``, called
+through ``render/raster_pallas.py``) and the connected-component labeller K2
+(``csrc/ccl.cu``, called through ``ops/ccl_pallas.py``) — are built with one
+``nvcc`` call at first use (``_build.py``); on CPU tensors their wrappers run
+the kernels' plain PyTorch versions instead.
 """

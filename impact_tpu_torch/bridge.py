@@ -1,4 +1,5 @@
-"""Carry state between the JAX reference and the port as numpy arrays.
+"""Carry state between the JAX reference and the port as numpy arrays: the
+render inputs, and the whole engine state (``SimState``, ``EngineParams``).
 
 The tests feed both packages the same inputs through here. Like the port's
 other entry points, the functions put tensors on ``cuda`` unless the caller
@@ -12,11 +13,19 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .physics.collision import CollidablePools
+from .physics.driven_motion import MotionDriverPools
+from .physics.forces import ForcePools
+from .physics.solver import JointPools, SolverCache
+from .physics.state import BodyState
+from .physics.step import PhysicsParams, PhysicsState
 from .render.camera import Camera
 from .render.lights import LightPools
 from .render.pipeline import RenderScene, RenderState
+from .runtime.engine import EngineParams, SimState
 from .runtime.setup import SceneBuild
 from .scene.assembly import StaticGeometry
+from .voxel.collision import VoxelProbes
 from .voxel.mesh import CompactMesh
 from .voxel.object import VoxelObjectPool
 
@@ -57,41 +66,91 @@ def lights_from_reference(lp, device="cuda") -> LightPools:
     return _tuple(LightPools, lp, device)
 
 
-def scene_build_from_reference(build, device="cuda") -> SceneBuild:
-    """The reference's SceneBuildResult → the port's SceneBuild: the voxel
-    pool, batched compact meshes, body poses, lights, camera, static geometry
-    (with its corner bake), material table and initial render state."""
-    sim, params = build.sim, build.params
-    v = sim.voxels
-    pool = VoxelObjectPool(
-        alive=to_torch(v.alive, device), body_index=to_torch(v.body_index, device).long(),
-        voxel_extent=to_torch(v.voxel_extent, device), origin=to_torch(v.origin, device),
-        sdf=to_torch(v.sdf, device), vtype=to_torch(v.vtype, device),
-        casts_shadows=to_torch(v.casts_shadows, device))
-    meshes = _tuple(CompactMesh, sim.meshes, device, cast={"tri_indices": torch.int64})
+_INDEX_FIELDS = ("body_index", "drag_map_index", "body_a", "body_b")
+
+
+def _field(name, x, device):
+    """One reference array as a port tensor: u32 keys and i32 body indices
+    become int64 (torch indexes, sorts and searches int64)."""
+    t = to_torch(x, device)
+    if t.dtype == torch.uint32 or (t.dtype == torch.int32 and (
+            name.endswith("_body") or name in _INDEX_FIELDS)):
+        t = t.to(torch.int64)
+    return t
+
+
+def tuple_from_reference(cls, obj, device="cuda", **override):
+    """A reference NamedTuple → the port's ``cls``, field by field by name."""
+    return cls(**{f: override[f] if f in override else _field(f, getattr(obj, f), device)
+                  for f in cls._fields})
+
+
+def _generator_from_key(key, device):
+    """A generator seeded from the reference's PRNG key. The port draws
+    other numbers than threefry from the same key (ROADMAP Queue 3)."""
+    k = np.asarray(key).astype(np.uint64).reshape(-1)
+    g = torch.Generator(device=torch.device(device))
+    g.manual_seed(int(k[0]) << 32 | int(k[-1]))
+    return g
+
+
+def sim_state_from_reference(sim, device="cuda") -> SimState:
+    """The reference's SimState (dense path) → the port's."""
+    phys = sim.phys
+    r = sim.render
+    return SimState(
+        phys=PhysicsState(bodies=tuple_from_reference(BodyState, phys.bodies, device),
+                          solver_cache=tuple_from_reference(SolverCache, phys.solver_cache, device),
+                          time=to_torch(phys.time, device)),
+        voxels=tuple_from_reference(VoxelObjectPool, sim.voxels, device),
+        meshes=_tuple(CompactMesh, sim.meshes, device, cast={"tri_indices": torch.int64}),
+        probes=tuple_from_reference(VoxelProbes, sim.probes, device),
+        render=RenderState(history_luminance=to_torch(r.history_luminance, device),
+                           avg_luminance=to_torch(r.avg_luminance, device),
+                           frame_index=int(np.asarray(r.frame_index)),
+                           n_raster_drops=to_torch(r.n_raster_drops, device).long()),
+        prev_position=to_torch(sim.prev_position, device),
+        prev_orientation=to_torch(sim.prev_orientation, device),
+        rng=_generator_from_key(sim.rng, device),
+    )
+
+
+def engine_params_from_reference(params, device="cuda") -> EngineParams:
+    """The reference's EngineParams → the port's. Absorbers, distance rules
+    and mesh-model entities are not ported: a scene that uses them raises."""
+    for name, masks in (("absorbers", (params.absorbers.sph_mask, params.absorbers.cap_mask)),
+                        ("distance rules", (params.dist_rules.mask,))):
+        if any(np.asarray(m).any() for m in masks):
+            raise NotImplementedError(f"{name} are not ported yet")
+    if np.asarray(params.mesh_instances.vert_active).any():
+        raise NotImplementedError("mesh-model entities are not ported yet")
+    pp = params.phys_params
     sg = params.static_geometry
     static = _tuple(StaticGeometry, sg, device, fields=StaticGeometry._fields[:-1],
                     cast={"tri_indices": torch.int64})
     if sg.corners is not None:
         static = static._replace(corners={k: to_torch(a, device) for k, a in sg.corners.items()})
-    r = sim.render
-    render = RenderState(
-        history_luminance=to_torch(r.history_luminance, device),
-        avg_luminance=to_torch(r.avg_luminance, device),
-        frame_index=int(np.asarray(r.frame_index)),
-        n_raster_drops=to_torch(r.n_raster_drops, device).long(),
-    )
-    bodies = sim.phys.bodies
-    return SceneBuild(
-        pool=pool, meshes=meshes,
-        body_position=to_torch(bodies.position, device),
-        body_orientation=to_torch(bodies.orientation, device),
-        prev_position=to_torch(sim.prev_position, device),
-        prev_orientation=to_torch(sim.prev_orientation, device),
+    return EngineParams(
+        phys_params=PhysicsParams(
+            collidables=tuple_from_reference(CollidablePools, pp.collidables, device),
+            forces=tuple_from_reference(ForcePools, pp.forces, device),
+            drivers=tuple_from_reference(MotionDriverPools, pp.drivers, device),
+            joints=tuple_from_reference(JointPools, pp.joints, device)),
         lights=lights_from_reference(params.lights, device),
+        type_density=to_torch(params.type_density, device),
+        voxel_response=to_torch(params.voxel_response, device),
+        fracturable=to_torch(params.fracturable, device),
+        fracture_threshold=to_torch(params.fracture_threshold, device),
+        fracture_radius=to_torch(params.fracture_radius, device),
         camera=camera_from_reference(params.camera, device),
         static_geometry=static,
         material_table=to_torch(params.material_table, device),
-        render=render,
-        info=dict(build.info),
     )
+
+
+def scene_build_from_reference(build, device="cuda") -> SceneBuild:
+    """The reference's SceneBuildResult → the port's SceneBuild (state,
+    scene constants and info)."""
+    return SceneBuild(sim=sim_state_from_reference(build.sim, device),
+                      params=engine_params_from_reference(build.params, device),
+                      info=dict(build.info))

@@ -40,7 +40,8 @@ def conjugate(q):
     return q * torch.tensor([-1.0, -1.0, -1.0, 1.0], dtype=q.dtype, device=q.device)
 
 
-def _cross(a, b):
+def cross(a, b):
+    """Cross product over the last axis, broadcasting the leading axes."""
     a, b = torch.broadcast_tensors(a, b)
     return torch.linalg.cross(a, b, dim=-1)
 
@@ -50,12 +51,24 @@ def rotate(q, v):
     (v' = v + w·t + u×t with t = 2·u×v)."""
     u = q[..., :3]
     w = q[..., 3:4]
-    t = 2.0 * _cross(u, v)
-    return v + w * t + _cross(u, t)
+    t = 2.0 * cross(u, v)
+    return v + w * t + cross(u, t)
 
 
 def inverse_rotate(q, v):
     return rotate(conjugate(q), v)
+
+
+def from_axis_angle(axis, angle):
+    """Unit quaternion rotating by ``angle`` (radians) about unit ``axis``."""
+    half = 0.5 * angle
+    return torch.cat([axis * torch.sin(half)[..., None], torch.cos(half)[..., None]], dim=-1)
+
+
+def integrate_angular_velocity(q, omega, dt):
+    """q ← normalize(q + dt·½ ω ⊗ q) (ref: rigid_body.rs:734-744)."""
+    omega_q = torch.cat([omega, torch.zeros_like(omega[..., :1])], dim=-1)
+    return normalize(q + dt * (0.5 * mul(omega_q, q)))
 
 
 def to_rotation_matrix(q):

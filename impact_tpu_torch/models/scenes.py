@@ -1,11 +1,12 @@
-"""Built-in scenes as plain data (port of the tumbler part of
-``impact_tpu/models/scenes.py``).
+"""Built-in scenes as plain data (port of the tumbler and fracturing
+scenes of ``impact_tpu/models/scenes.py``).
 
 The reference builds an ECS world; the port has no ECS, so a scene is a
 :class:`Scene` record holding exactly what ``runtime.setup.compile_scene``
-reads. ``voxel_box_tumbler`` makes the same ``np.random.default_rng(seed)``
-draws in the same order as the reference, so both packages place the same
-boxes.
+reads, with voxel objects in the reference's entity order (which fixes
+their object and body slots). ``voxel_box_tumbler`` makes the same
+``np.random.default_rng(seed)`` draws in the same order as the reference,
+so both packages place the same boxes.
 """
 
 from __future__ import annotations
@@ -43,15 +44,32 @@ class UniLight:
 
 
 @dataclass
-class VoxelBoxSpec:
+class GroundPlane:
+    """A static y-up planar collidable (ref scene helper ``_ground``)."""
+
+    y: float = 0.0
+    restitution: float = 0.3
+    static_friction: float = 0.7
+    dynamic_friction: float = 0.5
+
+
+@dataclass
+class VoxelObjectSpec:
+    """A dynamic voxel object: a box (``size`` = extents in voxels) or a
+    sphere (``size`` = (radius,) in voxels), with its motion, contact
+    response, gravity and fracture properties."""
+
     position: tuple
-    orientation: tuple
-    angular_velocity: tuple
     voxel_extent: float
-    extent_x: float
-    extent_y: float
-    extent_z: float
+    shape: str = "box"  # "box" | "sphere"
+    size: tuple = (10.0, 10.0, 10.0)
+    orientation: tuple = (0.0, 0.0, 0.0, 1.0)
     voxel_type: int = 0
+    linear_velocity: tuple = (0.0, 0.0, 0.0)
+    angular_velocity: tuple = (0.0, 0.0, 0.0)
+    response: tuple = (0.3, 0.7, 0.5)  # restitution, static and dynamic friction
+    acceleration: tuple | None = (0.0, -9.81, 0.0)  # constant acceleration (gravity)
+    fracture: tuple | None = None  # (impulse_threshold, fracture_radius)
     casts_shadows: bool = True
 
 
@@ -61,8 +79,8 @@ class Scene:
     ambient_illuminance: tuple = (0.0, 0.0, 0.0)
     omni_lights: list = field(default_factory=list)
     uni_lights: list = field(default_factory=list)
-    ground_planes: list = field(default_factory=list)  # y displacement per y-up plane
-    boxes: list = field(default_factory=list)
+    ground_planes: list = field(default_factory=list)  # GroundPlane
+    voxel_objects: list = field(default_factory=list)  # VoxelObjectSpec
 
 
 def _camera(scene: Scene, eye, target, fov=np.pi / 3):
@@ -86,30 +104,53 @@ def _standard_lights(scene: Scene):
     ))
 
 
-def _ground(scene: Scene, y=0.0):
-    scene.ground_planes.append(float(y))
+def _ground(scene: Scene, y=0.0, restitution=0.3):
+    scene.ground_planes.append(GroundPlane(y=float(y), restitution=restitution))
 
 
-def voxel_box_tumbler(n_boxes: int = 4, seed: int = 0, box_extent: float = 10.0) -> Scene:
-    """Ref scene VoxelBoxTumbler: dynamic voxel boxes over a floor.
-    ``box_extent`` (voxels per side) is what the bench sets to 26."""
+def voxel_box_tumbler(n_boxes: int = 4, seed: int = 0, box_extent: float = 10.0,
+                      spacing: float = 5.0) -> Scene:
+    """Ref scene VoxelBoxTumbler: dynamic voxel boxes over a floor, box i at
+    height 6 + spacing·i. ``box_extent`` (voxels per side) is what the bench
+    sets to 26; ``spacing`` is the reference's 5 m unless a caller clears
+    larger boxes (see ``models/bench.py``)."""
     rng = np.random.default_rng(seed)
     s = Scene()
     _camera(s, (0.0, 14.0, 34.0), (0.0, 2.0, 0.0))
     _standard_lights(s)
     _ground(s, y=0.0)
     for i in range(n_boxes):
-        pos = (float(rng.uniform(-6, 6)), float(6.0 + 5.0 * i), float(rng.uniform(-6, 6)))
+        pos = (float(rng.uniform(-6, 6)), float(6.0 + spacing * i), float(rng.uniform(-6, 6)))
         axis = rng.normal(size=3)
         axis /= np.linalg.norm(axis)
         angle = rng.uniform(0, np.pi)
         q = np.concatenate([axis * np.sin(angle / 2), [np.cos(angle / 2)]])
         ang = rng.uniform(-2, 2, 3).astype(np.float32)
-        s.boxes.append(VoxelBoxSpec(
+        s.voxel_objects.append(VoxelObjectSpec(
             position=pos,
             orientation=tuple(float(x) for x in q.astype(np.float32)),
             angular_velocity=tuple(float(x) for x in ang),
-            voxel_extent=0.25, extent_x=box_extent, extent_y=box_extent,
-            extent_z=box_extent, voxel_type=0,
+            voxel_extent=0.25, shape="box", size=(box_extent,) * 3, voxel_type=0,
+            response=(0.3, 0.7, 0.5),
         ))
+    return s
+
+
+def fracturing(impulse_threshold: float = 30.0, fracture_radius: float = 2.5) -> Scene:
+    """Ref experiment Fracturing: a voxel ball fired at a fracturable voxel
+    box over a floor. ``bench.py:bench_fracture`` sets the box's impulse
+    threshold to 5.0 (see ``models/bench.py``)."""
+    s = Scene()
+    _camera(s, (0.0, 10.0, 30.0), (0.0, 2.0, 0.0))
+    _standard_lights(s)
+    _ground(s, y=0.0)
+    s.voxel_objects.append(VoxelObjectSpec(
+        position=(0.0, 3.2, 0.0), voxel_extent=0.25, shape="box", size=(14.0, 14.0, 14.0),
+        voxel_type=0, response=(0.1, 0.8, 0.6),
+        fracture=(float(impulse_threshold), float(fracture_radius)),
+    ))
+    s.voxel_objects.append(VoxelObjectSpec(
+        position=(-12.0, 4.0, 0.0), voxel_extent=0.25, shape="sphere", size=(5.0,),
+        voxel_type=1, linear_velocity=(18.0, 1.0, 0.0), response=(0.1, 0.6, 0.4),
+    ))
     return s

@@ -1,0 +1,359 @@
+"""Impulse-based contact and joint solver (port of
+``impact_tpu/physics/solver.py``; ref: impact_physics/src/constraint/
+solver.rs and contact.rs:233-520).
+
+The ``jacobi`` mode is ported: every contact computes its impulse from the
+same velocities, and the under-relaxed deltas accumulate per body. The
+accumulation keeps the reference's two paths: below
+SEGMENT_ACCUMULATION_MIN_BODIES bodies a one-hot incidence product
+(``torch.matmul`` in float32, TF32 off), at or above it a sort by body once
+per solve and per-body differences of a prefix sum. The warm start scatters
+with ``index_add``, whose float sums on CUDA run in atomic order, so results
+are held to a tolerance, not to equality. The sequential ``scan`` mode
+(Gauss-Seidel) waits for a later slice and raises.
+
+Warm starting is a sorted join on contact keys (both frames' compacted
+buffers hold ascending keys).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ..math import quaternion as quat
+from ..math.quaternion import cross
+from .collision import EMPTY_KEY, ContactBuffer
+from .state import BodyState, compute_velocities, synchronize_momenta, world_inv_inertia
+
+NORMAL_SPEED_FOR_BOUNCE = 0.4  # ref: contact.rs:236
+SQUARED_SLIP_SPEED_FOR_DYNAMIC_FRICTION = 1e-4  # ref: contact.rs:238
+WARM_START_DIRECTION_THRESHOLD = 1e-2  # ref: contact.rs:318
+SEGMENT_ACCUMULATION_MIN_BODIES = 128
+JACOBI_RELAXATION = 0.8
+
+
+class SolverCache(NamedTuple):
+    """Warm-start impulses carried across steps, and the last solve's contact
+    bodies and points (read by fracturing)."""
+
+    key: torch.Tensor  # i64[C] ascending; EMPTY_KEY = empty
+    impulses: torch.Tensor  # f32[C,3] accumulated (normal, tangent, bitangent)
+    normal: torch.Tensor  # f32[C,3]
+    tangent: torch.Tensor  # f32[C,3]
+    active: torch.Tensor  # bool[C]
+    body_a: torch.Tensor  # i64[C]
+    body_b: torch.Tensor  # i64[C]
+    position: torch.Tensor  # f32[C,3] contact point at prepare time
+
+
+def empty_solver_cache(max_contacts: int, device=None) -> SolverCache:
+    z3 = torch.zeros((max_contacts, 3), device=device)
+    zi = torch.zeros(max_contacts, dtype=torch.int64, device=device)
+    return SolverCache(
+        key=torch.full((max_contacts,), EMPTY_KEY, dtype=torch.int64, device=device),
+        impulses=z3, normal=z3.clone(), tangent=z3.clone(),
+        active=torch.zeros(max_contacts, dtype=torch.bool, device=device),
+        body_a=zi, body_b=zi.clone(), position=z3.clone(),
+    )
+
+
+class PreparedContacts(NamedTuple):
+    active: torch.Tensor
+    body_a: torch.Tensor
+    body_b: torch.Tensor
+    normal: torch.Tensor
+    tangent: torch.Tensor
+    bitangent: torch.Tensor
+    disp_a: torch.Tensor  # contact point − COM_a (world, at prepare)
+    disp_b: torch.Tensor
+    local_a: torch.Tensor  # deepest point on A in A's body frame
+    local_b: torch.Tensor  # deepest point on B in B's body frame
+    eff_mass: torch.Tensor  # f32[C,3] (n, t, b)
+    friction_coef: torch.Tensor
+    target_sep_vel: torch.Tensor
+    warm_impulses: torch.Tensor
+    key: torch.Tensor
+
+
+def _construct_tangents(normal):
+    """Tangent basis (ref: contact.rs:813-830)."""
+    nx, ny, nz = normal.unbind(-1)
+    zero = torch.zeros_like(nx)
+    t_yz = torch.stack([zero, nz, -ny], dim=-1)
+    t_xy = torch.stack([ny, -nx, zero], dim=-1)
+    t1 = torch.where((nx.abs() < 0.57735)[..., None], t_yz, t_xy)
+    t1 = t1 / torch.clamp(torch.linalg.vector_norm(t1, dim=-1, keepdim=True), min=1e-12)
+    return t1, cross(normal, t1)
+
+
+def _effective_mass(inv_mass_a, inv_mass_b, inv_in_a, inv_in_b, disp_a, disp_b, direction):
+    """1 / (mA⁻¹ + mB⁻¹ + (rA×d)ᵀIA⁻¹(rA×d) + (rB×d)ᵀIB⁻¹(rB×d))."""
+    ca = cross(disp_a, direction)
+    cb = cross(disp_b, direction)
+    denom = (inv_mass_a + inv_mass_b
+             + (ca * torch.einsum("...ij,...j->...i", inv_in_a, ca)).sum(dim=-1)
+             + (cb * torch.einsum("...ij,...j->...i", inv_in_b, cb)).sum(dim=-1))
+    return 1.0 / torch.clamp(denom, min=1e-12)
+
+
+def prepare_contacts(bodies: BodyState, contacts: ContactBuffer, cache: SolverCache,
+                     config) -> PreparedContacts:
+    """Contact preparation on pre-force velocities (ref: contact.rs:233-316)
+    and the warm-start join."""
+    v, w = compute_velocities(bodies)
+    inv_inertia = world_inv_inertia(bodies)
+    ia, ib = contacts.body_a, contacts.body_b
+    disp_a = contacts.position - bodies.position[ia]
+    disp_b = contacts.position - bodies.position[ib]
+    normal = contacts.normal
+    t1, t2 = _construct_tangents(normal)
+    pos_on_a = contacts.position - contacts.depth[:, None] * normal
+    local_a = quat.inverse_rotate(bodies.orientation[ia], pos_on_a - bodies.position[ia])
+    local_b = quat.inverse_rotate(bodies.orientation[ib], contacts.position - bodies.position[ib])
+    em = torch.stack([
+        _effective_mass(bodies.inv_mass[ia], bodies.inv_mass[ib], inv_inertia[ia],
+                        inv_inertia[ib], disp_a, disp_b, d)
+        for d in (normal, t1, t2)], dim=-1)
+
+    rel_vel = (v[ia] + cross(w[ia], disp_a)) - (v[ib] + cross(w[ib], disp_b))
+    sep_vel = (normal * rel_vel).sum(dim=-1)
+    target_sep_vel = torch.where(sep_vel.abs() >= NORMAL_SPEED_FOR_BOUNCE,
+                                 -contacts.response[:, 0] * sep_vel, 0.0)
+    slip2 = (t1 * rel_vel).sum(dim=-1) ** 2 + (t2 * rel_vel).sum(dim=-1) ** 2
+    friction = torch.where(slip2 >= SQUARED_SLIP_SPEED_FOR_DYNAMIC_FRICTION,
+                           contacts.response[:, 2], contacts.response[:, 1])
+
+    # warm-start join: both key arrays ascend
+    idx = torch.clamp(torch.searchsorted(cache.key, contacts.key), 0, cache.key.shape[0] - 1)
+    matched = (cache.key[idx] == contacts.key) & contacts.active
+    thr = 1.0 - WARM_START_DIRECTION_THRESHOLD
+    can_warm = (((normal * cache.normal[idx]).sum(dim=-1) > thr)
+                & ((t1 * cache.tangent[idx]).sum(dim=-1) > thr))
+    warm = torch.where((matched & can_warm)[:, None],
+                       cache.impulses[idx] * config.old_impulse_weight, 0.0)
+    return PreparedContacts(
+        active=contacts.active, body_a=ia, body_b=ib, normal=normal, tangent=t1,
+        bitangent=t2, disp_a=disp_a, disp_b=disp_b, local_a=local_a, local_b=local_b,
+        eff_mass=em, friction_coef=friction, target_sep_vel=target_sep_vel,
+        warm_impulses=warm, key=contacts.key,
+    )
+
+
+def _clamp_impulses(imp, friction_coef):
+    """Unilateral normal + Coulomb cone clamp (ref: contact.rs:371-397)."""
+    n = torch.clamp(imp[..., 0], min=0.0)
+    max_t = friction_coef * n
+    t_mag = torch.sqrt(imp[..., 1] ** 2 + imp[..., 2] ** 2)
+    scale = torch.where(t_mag > max_t, max_t / torch.clamp(t_mag, min=1e-12), 1.0)
+    return torch.stack([n, imp[..., 1] * scale, imp[..., 2] * scale], dim=-1)
+
+
+def _momentum_change(prep: PreparedContacts, imp):
+    return (imp[..., 0:1] * prep.normal + imp[..., 1:2] * prep.tangent
+            + imp[..., 2:3] * prep.bitangent)
+
+
+def _accumulator(prep: PreparedContacts, n: int, inv_mass, inv_inertia):
+    """[C,3] world momentum changes → per-body (dv [N,3], dw [N,3])."""
+    ia, ib, act = prep.body_a, prep.body_b, prep.active
+    if n < SEGMENT_ACCUMULATION_MIN_BODIES:
+        # one-hot incidence products, built once per solve
+        body_ids = torch.arange(n, device=ia.device)
+        oh_a = ((ia[:, None] == body_ids[None, :]) & act[:, None]).float()  # [C,N]
+        oh_b = ((ib[:, None] == body_ids[None, :]) & act[:, None]).float()
+
+        def accumulate(dp):
+            lin = oh_a.T @ dp - oh_b.T @ dp
+            ang = oh_a.T @ cross(prep.disp_a, dp) - oh_b.T @ cross(prep.disp_b, dp)
+            return inv_mass[:, None] * lin, torch.einsum("nij,nj->ni", inv_inertia, ang)
+
+        return accumulate
+
+    # 2C sided (body, ±Δp) entries sorted by body once per solve; each call
+    # reduces with a prefix sum and per-body boundary differences
+    sid = torch.cat([torch.where(act, ia, n), torch.where(act, ib, n)])
+    sid_sorted, order = torch.sort(sid, stable=True)
+    body_ids = torch.arange(n, device=ia.device)
+    seg_start = torch.searchsorted(sid_sorted, body_ids, side="left")
+    seg_end = torch.searchsorted(sid_sorted, body_ids, side="right")
+
+    def accumulate(dp):
+        vals = torch.cat([torch.cat([dp, cross(prep.disp_a, dp)], -1),
+                          -torch.cat([dp, cross(prep.disp_b, dp)], -1)])[order]
+        csum = torch.cat([torch.zeros((1, 6), device=dp.device), torch.cumsum(vals, dim=0)])
+        seg = csum[seg_end] - csum[seg_start]
+        return inv_mass[:, None] * seg[:, :3], torch.einsum("nij,nj->ni", inv_inertia,
+                                                            seg[:, 3:])
+
+    return accumulate
+
+
+def solve_contacts(bodies: BodyState, prep: PreparedContacts, config, mode: str = "jacobi",
+                   jacobi_relaxation: float = JACOBI_RELAXATION):
+    """Velocity iterations + positional correction → (bodies, cache)
+    (ref: solver.rs:296 compute_and_apply_constrained_state)."""
+    if mode != "jacobi":
+        raise NotImplementedError(
+            f"solver mode {mode!r} is not ported yet: only 'jacobi' runs in impact_tpu_torch")
+    v, w = compute_velocities(bodies)
+    inv_inertia = world_inv_inertia(bodies)
+    inv_mass = bodies.inv_mass
+    ia, ib, act = prep.body_a, prep.body_b, prep.active
+    act3 = act[:, None]
+
+    # warm start (scatter-add)
+    acc = prep.warm_impulses * act3
+    dp = _momentum_change(prep, acc) * act3
+    v = v.index_add(0, ia, inv_mass[ia, None] * dp)
+    v = v.index_add(0, ib, -inv_mass[ib, None] * dp)
+    w = w.index_add(0, ia, torch.einsum("cij,cj->ci", inv_inertia[ia], cross(prep.disp_a, dp)))
+    w = w.index_add(0, ib, -torch.einsum("cij,cj->ci", inv_inertia[ib],
+                                         cross(prep.disp_b, dp)))
+
+    accumulate = _accumulator(prep, bodies.n, inv_mass, inv_inertia)
+    for _ in range(max(config.n_iterations, 1) * 4):
+        rel = (v[ia] + cross(w[ia], prep.disp_a)) - (v[ib] + cross(w[ib], prep.disp_b))
+        imp = torch.stack([
+            -prep.eff_mass[:, 0] * ((prep.normal * rel).sum(dim=-1) - prep.target_sep_vel),
+            -prep.eff_mass[:, 1] * (prep.tangent * rel).sum(dim=-1),
+            -prep.eff_mass[:, 2] * (prep.bitangent * rel).sum(dim=-1),
+        ], dim=-1)
+        new_acc = _clamp_impulses(acc + jacobi_relaxation * imp, prep.friction_coef)
+        dv, dw = accumulate(_momentum_change(prep, torch.where(act3, new_acc - acc, 0.0)))
+        v, w = v + dv, w + dw
+        acc = torch.where(act3, new_acc, acc)
+
+    # positional correction: parallel pseudo-impulses, same accumulation
+    pos, ori = bodies.position, bodies.orientation
+    corr = config.positional_correction_factor
+    for _ in range(config.n_positional_correction_iterations):
+        pa = pos[ia] + quat.rotate(ori[ia], prep.local_a)
+        pb = pos[ib] + quat.rotate(ori[ib], prep.local_b)
+        depth = (prep.normal * (pb - pa)).sum(dim=-1)
+        em = _effective_mass(inv_mass[ia], inv_mass[ib], inv_inertia[ia], inv_inertia[ib],
+                             pb - pos[ia], pb - pos[ib], prep.normal)
+        pseudo = em * corr * depth * (act & (depth > 0.0)) * jacobi_relaxation
+        dpos, dw = accumulate(pseudo[:, None] * prep.normal)
+        pos = pos + dpos
+        ori = quat.integrate_angular_velocity(ori, dw, 1.0)
+    return _finalize(bodies, prep, v, w, acc, pos, ori)
+
+
+def _participants(n, ia, ib, act):
+    part = torch.zeros(n + 1, dtype=torch.bool, device=ia.device)
+    part[torch.where(act, ia, n)] = True
+    part[torch.where(act, ib, n)] = True
+    return part[:n, None]
+
+
+def _finalize(bodies: BodyState, prep: PreparedContacts, v, w, acc, pos, ori):
+    # only bodies in ≥1 active constraint are written back (the reference's
+    # ConstrainedBodyManager holds exactly those)
+    pm = _participants(bodies.n, prep.body_a, prep.body_b, prep.active)
+    bodies = bodies._replace(position=torch.where(pm, pos, bodies.position),
+                             orientation=torch.where(pm, ori, bodies.orientation))
+    synced = synchronize_momenta(bodies, v, w)
+    bodies = bodies._replace(
+        momentum=torch.where(pm, synced.momentum, bodies.momentum),
+        angular_momentum=torch.where(pm, synced.angular_momentum, bodies.angular_momentum),
+        velocity=torch.where(pm, synced.velocity, bodies.velocity),
+        angular_velocity=torch.where(pm, synced.angular_velocity, bodies.angular_velocity),
+    )
+    cache = SolverCache(
+        key=prep.key, impulses=acc, normal=prep.normal, tangent=prep.tangent,
+        active=prep.active, body_a=prep.body_a, body_b=prep.body_b,
+        position=bodies.position[prep.body_b] + prep.disp_b,
+    )
+    return bodies, cache
+
+
+# --- spherical joints (ref: constraint/spherical_joint.rs) ---------------------
+
+
+class JointPools(NamedTuple):
+    """Ball joints: body-frame anchors that must coincide."""
+
+    body_a: torch.Tensor  # i64[J]
+    body_b: torch.Tensor  # i64[J]
+    anchor_a: torch.Tensor  # f32[J,3]
+    anchor_b: torch.Tensor  # f32[J,3]
+    mask: torch.Tensor  # bool[J]
+
+
+def empty_joint_pools(cap: int = 16, device=None) -> JointPools:
+    zi = torch.zeros(cap, dtype=torch.int64, device=device)
+    return JointPools(body_a=zi, body_b=zi.clone(), anchor_a=torch.zeros((cap, 3), device=device),
+                      anchor_b=torch.zeros((cap, 3), device=device),
+                      mask=torch.zeros(cap, dtype=torch.bool, device=device))
+
+
+def _skew(v):
+    zero = torch.zeros_like(v[..., 0])
+    return torch.stack([
+        torch.stack([zero, -v[..., 2], v[..., 1]], -1),
+        torch.stack([v[..., 2], zero, -v[..., 0]], -1),
+        torch.stack([-v[..., 1], v[..., 0], zero], -1),
+    ], -2)
+
+
+def solve_joints(bodies: BodyState, joints: JointPools, config) -> BodyState:
+    """Velocity + positional solve for ball joints (unclamped 3D impulses),
+    run after the contacts each step. Masked-off joints change nothing."""
+    if joints is None or joints.mask.shape[0] == 0:
+        return bodies
+    v, w = compute_velocities(bodies)
+    inv_inertia = world_inv_inertia(bodies)
+    inv_mass = bodies.inv_mass
+    ia, ib, act = joints.body_a, joints.body_b, joints.mask
+    act3 = act[:, None]
+    eye = torch.eye(3, device=ia.device)
+
+    def anchors(pos, ori):
+        return (pos[ia] + quat.rotate(ori[ia], joints.anchor_a),
+                pos[ib] + quat.rotate(ori[ib], joints.anchor_b))
+
+    def k_inv(pos, ori):
+        pa, pb = anchors(pos, ori)
+        ra, rb = pa - pos[ia], pb - pos[ib]
+        sa, sb = _skew(ra), _skew(rb)
+        k = ((inv_mass[ia] + inv_mass[ib])[:, None, None] * eye
+             + torch.einsum("jik,jkl,jml->jim", sa, inv_inertia[ia], sa)
+             + torch.einsum("jik,jkl,jml->jim", sb, inv_inertia[ib], sb))
+        return torch.linalg.inv(k + eye * 1e-9), ra, rb
+
+    kinv, ra, rb = k_inv(bodies.position, bodies.orientation)
+    for _ in range(config.n_iterations):
+        rel = (v[ia] + cross(w[ia], ra)) - (v[ib] + cross(w[ib], rb))
+        imp = -torch.einsum("jik,jk->ji", kinv, rel) * act3
+        v = v.index_add(0, ia, inv_mass[ia, None] * imp)
+        v = v.index_add(0, ib, -inv_mass[ib, None] * imp)
+        w = w.index_add(0, ia, torch.einsum("jik,jk->ji", inv_inertia[ia], cross(ra, imp)))
+        w = w.index_add(0, ib, -torch.einsum("jik,jk->ji", inv_inertia[ib], cross(rb, imp)))
+
+    pos, ori = bodies.position, bodies.orientation
+    for _ in range(config.n_positional_correction_iterations):
+        kinv_c, ra_c, rb_c = k_inv(pos, ori)
+        pa, pb = anchors(pos, ori)
+        pseudo = -torch.einsum("jik,jk->ji", kinv_c, pa - pb) * (
+            config.positional_correction_factor * act)[:, None]
+        pos = pos.index_add(0, ia, inv_mass[ia, None] * pseudo)
+        pos = pos.index_add(0, ib, -inv_mass[ib, None] * pseudo)
+        dwa = torch.einsum("jik,jk->ji", inv_inertia[ia], cross(ra_c, pseudo))
+        dwb = -torch.einsum("jik,jk->ji", inv_inertia[ib], cross(rb_c, pseudo))
+        # masked-off joints rewrite their (non-participating) bodies, which
+        # the write-back below leaves untouched
+        ori = ori.index_copy(0, ia, quat.integrate_angular_velocity(ori[ia], dwa * act3, 1.0))
+        ori = ori.index_copy(0, ib, quat.integrate_angular_velocity(ori[ib], dwb * act3, 1.0))
+
+    pm = _participants(bodies.n, ia, ib, act)
+    bodies = bodies._replace(position=torch.where(pm, pos, bodies.position),
+                             orientation=torch.where(pm, ori, bodies.orientation))
+    synced = synchronize_momenta(bodies, v, w)
+    return bodies._replace(
+        momentum=torch.where(pm, synced.momentum, bodies.momentum),
+        angular_momentum=torch.where(pm, synced.angular_momentum, bodies.angular_momentum),
+        velocity=torch.where(pm, v, bodies.velocity),
+        angular_velocity=torch.where(pm, w, bodies.angular_velocity),
+    )

@@ -1,12 +1,13 @@
-"""Headless runtime: renders frames of a compiled scene without a window.
+"""Headless runtime: steps and renders a compiled scene without a window.
 
-Port of the render side of ``impact_tpu/runtime/headless.py``
-(ref: engine/src/runtime/headless.rs). ``render()`` runs the four stages —
-scene assembly + geometry pass, shadow pass, deferred shading, postprocess —
-in float32 and records each stage's wall milliseconds in ``stage_ms``,
+Port of ``impact_tpu/runtime/headless.py`` (ref: engine/src/runtime/
+headless.rs). ``step(n)`` advances the engine step n times; ``render()``
+runs the four render stages — scene assembly + geometry pass, shadow pass,
+deferred shading, postprocess — in float32 on the current state;
+``step_and_render()`` does one of each. Wall milliseconds are recorded in
+``stage_ms`` (render stages) and ``step_ms`` (the last ``step`` call),
 measured between ``torch.cuda.synchronize()`` calls when the scene lives on
-the card. The engine step is not part of this slice: frames render the
-compiled scene's initial state.
+the card.
 """
 
 from __future__ import annotations
@@ -25,52 +26,93 @@ from ..render.pipeline import (
 )
 from ..scene.assembly import build_render_scene
 from ..utils.config import EngineConfig
+from ..voxel.collision import GRID_BROAD_PHASE_MIN_OBJECTS, bounding_radii, broad_phase_pairs
+from .engine import make_engine_step
 from .setup import SceneBuild, render_config_from_engine_config
 
 
 class HeadlessRuntime:
-    """Owns the compiled scene and renders frames of it."""
+    """Owns the simulation state, the engine step and the render."""
 
-    def __init__(self, build: SceneBuild, config: EngineConfig):
+    def __init__(self, build: SceneBuild, config: EngineConfig, enable_fracturing: bool = True,
+                 enable_splitting: bool = True, fracture_uniforms=None):
         self.config = config
-        self.build = build
-        self.render_state = build.render
+        self.params = build.params
+        self.info = build.info
+        self.sim = build.sim
+        self._initial_sim = build.sim
+        self._initial_rng = build.sim.rng.get_state()
         self.render_config = render_config_from_engine_config(config)
+        self._step = make_engine_step(
+            self.params, config, self.info["mesh_vert_cap"], self.info["mesh_tri_cap"],
+            enable_splitting=enable_splitting, enable_fracturing=enable_fracturing,
+            fracture_uniforms=fracture_uniforms)
         self.stage_ms: dict = {}
+        self.step_ms = 0.0
         self.last_gbuffer = None
         self.last_hdr = None
+        self.last_drops = (0, 0)  # (geometry, shadow) raster drops of the last render
+
+    @property
+    def host_syncs(self) -> int:
+        """Device reads the engine step has made for its branches so far."""
+        return self._step.host_syncs
 
     def _sync(self):
-        if self.build.body_position.is_cuda:
-            torch.cuda.synchronize(self.build.body_position.device)
+        pos = self.sim.phys.bodies.position
+        if pos.is_cuda:
+            torch.cuda.synchronize(pos.device)
+
+    def step(self, n: int = 1):
+        """Advance the simulation ``n`` steps (no rendering)."""
+        self._sync()
+        t0 = time.perf_counter()
+        with fp32_render():  # the jacobi one-hot products in full float32
+            for _ in range(n):
+                self.sim = self._step(self.sim)
+        self._sync()
+        self.step_ms = (time.perf_counter() - t0) * 1e3
+        return self.sim
+
+    def step_and_render(self):
+        """One step, then a render of the new state → u8 image [H,W,3]."""
+        self.step(1)
+        return self.render()
+
+    def reset_world(self):
+        """Restore the initial scene state and the fracture generator
+        (ref: SystemAdminCommand::ResetWorld)."""
+        self.sim = self._initial_sim
+        self.sim.rng.set_state(self._initial_rng)
 
     def scene(self):
         """The compacted corner-major RenderScene of the current state."""
-        b = self.build
+        s, p = self.sim, self.params
+        b = s.phys.bodies
         scene = build_render_scene(
-            b.pool, b.meshes, b.body_position, b.body_orientation,
-            b.prev_position, b.prev_orientation, b.static_geometry,
+            s.voxels, s.meshes, b.position, b.orientation, s.prev_position,
+            s.prev_orientation, p.static_geometry,
             tris_per_object=self.config.tpu.render_tris_per_object)
         return compact_scene_triangles(scene, self.render_config.max_triangles)
 
     def render(self):
         """Render the current state → u8 image [H,W,3] (on the scene's device)."""
-        b, rc = self.build, self.render_config
-        state = self.render_state
+        p, rc = self.params, self.render_config
+        state = self.sim.render
         times = {}
         with fp32_render():
             self._sync()
             t0 = time.perf_counter()
             scene = self.scene()
-            gb, geo_drops = geometry_pass(scene, b.camera, b.camera, state.frame_index, rc)
+            gb, geo_drops = geometry_pass(scene, p.camera, p.camera, state.frame_index, rc)
             self._sync()
             t1 = time.perf_counter()
             times["geometry"] = (t1 - t0) * 1e3
-            omni, uni, shadow_drops = shadow_pass(scene, b.lights, b.camera, rc)
+            omni, uni, shadow_drops = shadow_pass(scene, p.lights, p.camera, rc)
             self._sync()
             t2 = time.perf_counter()
             times["shadows"] = (t2 - t1) * 1e3
-            lum = deferred_shade(gb, b.lights, b.camera, omni, uni, rc)
+            lum = deferred_shade(gb, p.lights, p.camera, omni, uni, rc)
             self._sync()
             t3 = time.perf_counter()
             times["shade"] = (t3 - t2) * 1e3
@@ -79,13 +121,37 @@ class HeadlessRuntime:
             img, hdr, state = postprocess(lum, gb.motion, state, rc)
             self._sync()
             times["post"] = (time.perf_counter() - t3) * 1e3
-        self.render_state = state
+        self.sim = self.sim._replace(render=state)
         self.last_gbuffer = gb
         self.last_hdr = hdr
+        self.last_drops = (int(geo_drops), int(shadow_drops))
         self.stage_ms = times
         return img
 
     def dropped_raster_candidates(self) -> int:
         """Cumulative raster candidates lost to window or big-block overflow
         across every rendered view so far (the "no silent caps" counter)."""
-        return int(self.render_state.n_raster_drops)
+        return int(self.sim.render.n_raster_drops)
+
+    def dropped_mesh_elements(self):
+        """(dropped_verts, dropped_tris) summed over objects: active mesh
+        elements that overflowed the compaction caps or the
+        render_tris_per_object slice."""
+        m = self.sim.meshes
+        dropped_tris = int(m.n_dropped_tris.sum())
+        k = self.config.tpu.render_tris_per_object
+        if k > 0:
+            dropped_tris += int(torch.clamp(m.tri_active.sum(dim=-1) - k, min=0).sum())
+        return int(m.n_dropped_verts.sum()), dropped_tris
+
+    def broad_phase_overflow(self) -> int:
+        """Shifted-grid broad-phase cell-run overflow at the current state;
+        nonzero means candidate pairs may have been missed. Always 0 below
+        GRID_BROAD_PHASE_MIN_OBJECTS objects (the dense all-pairs path)."""
+        pool = self.sim.voxels
+        if pool.n_objects < GRID_BROAD_PHASE_MIN_OBJECTS:
+            return 0
+        *_, overflow = broad_phase_pairs(
+            self.sim.phys.bodies.position[pool.body_index], bounding_radii(pool), pool.alive,
+            max_pairs=1, margin=pool.voxel_extent)
+        return int(overflow)

@@ -1,12 +1,18 @@
-"""Scene compilation: a plain-data scene → the device state the render reads.
+"""Scene compilation: a plain-data scene → the simulation state and the
+scene constants.
 
 Port of ``impact_tpu/runtime/setup.py:compile_scene`` for the component kinds
-the tumbler uses — camera, ambient light, shadowable omni and unidirectional
-lights, y-up ground planes and voxel boxes — plus ``_build_static_geometry``
-and ``render_config_from_engine_config``. Slot layout follows the reference:
-voxel object i binds body ``max_bodies - max_voxel_objects + i``; each
-object's body origin is moved to its centre of mass (the grid origin
-compensates); identical shapes are voxelized and meshed once.
+of the tumbler and fracturing scenes — camera, ambient light, shadowable
+omni and unidirectional lights, y-up ground planes (static planar
+collidables) and dynamic voxel boxes and spheres with motion, contact
+response, gravity and fracture properties — plus ``_build_static_geometry``
+and ``render_config_from_engine_config``. Slot layout and order follow the
+reference: voxel object i binds body ``max_bodies - max_voxel_objects + i``;
+ground planes take the regular bodies 0, 1, ...; forces are applied once
+before the voxel bodies' mass sync (so the first step's accumulated gravity
+uses the default unit mass, as the reference's does); each object's body
+origin is moved to its centre of mass; identical shapes are voxelized and
+meshed once.
 """
 
 from __future__ import annotations
@@ -16,10 +22,15 @@ from dataclasses import dataclass
 
 import torch
 
-from ..math import quaternion as quatlib
+from ..physics.collision import CollidablePools
+from ..physics.driven_motion import empty_motion_driver_pools
+from ..physics.forces import apply_forces_and_torques, empty_force_pools
+from ..physics.solver import empty_joint_pools
+from ..physics.state import KIND_DYNAMIC, KIND_KINEMATIC, synchronize_momenta
+from ..physics.step import PhysicsParams, init_physics_state
 from ..render.camera import Camera
 from ..render.lights import LightPools
-from ..render.pipeline import RenderConfig, RenderState, init_render_state
+from ..render.pipeline import RenderConfig, init_render_state
 from ..scene.assembly import (
     StaticGeometry,
     bake_static_geometry_corners,
@@ -30,30 +41,46 @@ from ..scene.assembly import (
 from ..scene.materials import VoxelTypeRegistry, default_registry, material_corner_table
 from ..utils.config import EngineConfig
 from ..voxel import sdf as sdflib
+from ..voxel.collision import extract_probes
 from ..voxel.encoding import encode_sdf_i8, sdf_world
-from ..voxel.inertia import mass_and_com
 from ..voxel.mesh import CompactMesh, bake_mesh_materials, compact_mesh, surface_nets
 from ..voxel.object import VoxelObjectPool, generate_sdf_grid
+from .engine import EngineParams, SimState, _sync_voxel_bodies
 
 
 @dataclass
 class SceneBuild:
-    """Everything ``HeadlessRuntime.render`` reads (the render-side part of
-    the reference's SceneBuildResult: sim.voxels/meshes/bodies/render and
-    params.lights/camera/static_geometry/material_table)."""
+    """The compiled scene: ``sim`` (the state the engine step advances),
+    ``params`` (scene constants) and ``info``. The properties name the parts
+    the render reads."""
 
-    pool: VoxelObjectPool
-    meshes: CompactMesh  # batched [O, ...]
-    body_position: torch.Tensor  # f32[N,3]
-    body_orientation: torch.Tensor  # f32[N,4]
-    prev_position: torch.Tensor
-    prev_orientation: torch.Tensor
-    lights: LightPools
-    camera: Camera
-    static_geometry: StaticGeometry
-    material_table: torch.Tensor  # f32[T,10]
-    render: RenderState
+    sim: SimState
+    params: EngineParams
     info: dict
+
+    @property
+    def pool(self):
+        return self.sim.voxels
+
+    @property
+    def meshes(self):
+        return self.sim.meshes
+
+    @property
+    def body_position(self):
+        return self.sim.phys.bodies.position
+
+    @property
+    def body_orientation(self):
+        return self.sim.phys.bodies.orientation
+
+    @property
+    def lights(self):
+        return self.params.lights
+
+    @property
+    def camera(self):
+        return self.params.camera
 
 
 def _build_static_geometry(ground_planes, device) -> StaticGeometry:
@@ -68,23 +95,68 @@ def _stack_meshes(meshes):
     return CompactMesh(*(torch.stack(f) for f in zip(*meshes)))
 
 
+def _plane_pools(planes, n_bodies_used, dev) -> CollidablePools:
+    """Collidable pools trimmed to the scene's counts (at least one slot of
+    each family, masked off when unused), as the reference trims them."""
+    n_pln = max(1, len(planes))
+
+    def f32(rows, n, width):
+        out = torch.zeros((n, width) if width else (n,), device=dev)
+        for j, r in enumerate(rows):
+            out[j] = torch.tensor(r, dtype=torch.float32, device=dev)
+        return out
+
+    zi = torch.zeros(1, dtype=torch.int64, device=dev)
+    zb = torch.zeros(1, dtype=torch.bool, device=dev)
+    normal = torch.tensor([[0.0, 1.0, 0.0]], device=dev).repeat(n_pln, 1)
+    return CollidablePools(
+        sph_body=zi, sph_center=torch.zeros((1, 3), device=dev), sph_radius=torch.ones(1, device=dev),
+        sph_kind=torch.zeros(1, dtype=torch.int32, device=dev),
+        sph_response=torch.zeros((1, 3), device=dev), sph_mask=zb,
+        pln_body=torch.tensor(n_bodies_used + [0] * (n_pln - len(planes)), dtype=torch.int64,
+                              device=dev),
+        pln_normal=normal,
+        pln_disp=f32([p.y for p in planes], n_pln, 0),
+        pln_kind=torch.ones(n_pln, dtype=torch.int32, device=dev),  # static
+        pln_response=f32([(p.restitution, p.static_friction, p.dynamic_friction)
+                          for p in planes], n_pln, 3),
+        pln_mask=torch.tensor([True] * len(planes) + [False] * (n_pln - len(planes)), device=dev),
+        cap_body=zi.clone(), cap_start=torch.zeros((1, 3), device=dev),
+        cap_end=torch.zeros((1, 3), device=dev), cap_radius=torch.ones(1, device=dev),
+        cap_kind=torch.zeros(1, dtype=torch.int32, device=dev),
+        cap_response=torch.zeros((1, 3), device=dev), cap_mask=zb.clone(),
+    )
+
+
 def compile_scene(scene, config: EngineConfig, registry: VoxelTypeRegistry | None = None,
-                  device="cuda") -> SceneBuild:
-    """Lower a :class:`~impact_tpu_torch.models.scenes.Scene` into device state."""
+                  device="cuda", rng_seed: int = 0) -> SceneBuild:
+    """Lower a :class:`~impact_tpu_torch.models.scenes.Scene` into device
+    state. The fracture generator is a ``torch.Generator`` on the device,
+    seeded with ``rng_seed``."""
     dev = torch.device(device)
     registry = registry or default_registry(dev)
     tc = config.tpu
+    if tc.chunked_remesh is None:
+        tc.chunked_remesh = tc.voxel_grid_size >= 64  # resolved in place, as the reference does
     o_max = tc.max_voxel_objects
     g = tc.voxel_grid_size
     n_regular = tc.max_bodies - o_max
+    objects = scene.voxel_objects
     if n_regular <= 0:
         raise ValueError("max_bodies must exceed max_voxel_objects")
-    if len(scene.boxes) > o_max:
+    if len(objects) > o_max:
         raise ValueError("voxel object pool exhausted")
+    if len(scene.ground_planes) > n_regular:
+        raise ValueError("regular body pool exhausted")
     i8 = tc.sdf_encoding == "i8"
 
-    position = torch.zeros((tc.max_bodies, 3), device=dev)
-    orientation = quatlib.identity((tc.max_bodies,), device=dev)
+    phys = init_physics_state(tc.max_bodies, tc.max_contacts, dev)
+    b = phys.bodies
+    kind, position, orientation = b.kind.clone(), b.position.clone(), b.orientation.clone()
+    velocity, angular_velocity = b.velocity.clone(), b.angular_velocity.clone()
+    forces = empty_force_pools(tc.max_bodies, cap_accel=max(64, tc.max_bodies), device=dev)
+    accel_body, accel, accel_mask = (forces.const_accel_body.clone(), forces.const_accel.clone(),
+                                     forces.const_accel_mask.clone())
     alive = torch.zeros(o_max, dtype=torch.bool, device=dev)
     extent = torch.ones(o_max, device=dev)
     origin = torch.zeros((o_max, 3), device=dev)
@@ -94,21 +166,34 @@ def compile_scene(scene, config: EngineConfig, registry: VoxelTypeRegistry | Non
         sdf = torch.full((o_max, g, g, g), 1e3, dtype=torch.float32, device=dev)
     vtype = torch.zeros((o_max, g, g, g), dtype=torch.int32, device=dev)
     body_index = torch.arange(o_max, device=dev) + n_regular
+    voxel_response = torch.zeros((o_max, 3), device=dev)
+    fracturable = torch.zeros(o_max, dtype=torch.bool, device=dev)
+    fracture_threshold = torch.full((o_max,), math.inf, device=dev)
+    fracture_radius = torch.ones(o_max, device=dev)
 
-    # --- voxel objects (identical shapes voxelized once) ------------------------
+    def vec(x):
+        return torch.tensor(x, dtype=torch.float32, device=dev)
+
+    # --- pass 1: voxel objects (identical shapes voxelized once) ----------------
     cache: dict = {}
-    uniq: list = []  # (sdf codes, vtype, extent)
+    uniq: list = []  # (sdf codes, vtype, extent, origin)
     uidx = []
-    for oi, box in enumerate(scene.boxes):
-        ve = float(box.voxel_extent)
-        sig = (box.extent_x, box.extent_y, box.extent_z, ve, box.voxel_type)
+    n_accel = 0
+    for oi, ob in enumerate(objects):
+        ve = float(ob.voxel_extent)
+        sig = (ob.shape, tuple(ob.size), ve, ob.voxel_type)
         if sig not in cache:
-            graph = sdflib.box((box.extent_x * ve, box.extent_y * ve, box.extent_z * ve))
+            if ob.shape == "box":
+                graph = sdflib.box(tuple(e * ve for e in ob.size))
+            elif ob.shape == "sphere":
+                graph = sdflib.sphere(ob.size[0] * ve)
+            else:
+                raise ValueError(f"voxel object shape {ob.shape!r} is not ported")
             grid, org = generate_sdf_grid(graph, g, ve, device=dev)
             if i8:
                 grid = encode_sdf_i8(grid, ve)
             cache[sig] = len(uniq)
-            uniq.append((grid, torch.full((g, g, g), int(box.voxel_type), dtype=torch.int32,
+            uniq.append((grid, torch.full((g, g, g), int(ob.voxel_type), dtype=torch.int32,
                                           device=dev), ve, org))
         ui = cache[sig]
         uidx.append(ui)
@@ -119,29 +204,48 @@ def compile_scene(scene, config: EngineConfig, registry: VoxelTypeRegistry | Non
         sdf[oi] = grid
         vtype[oi] = vt
         bi = n_regular + oi
-        position[bi] = torch.tensor(box.position, dtype=torch.float32, device=dev)
-        orientation[bi] = torch.tensor(box.orientation, dtype=torch.float32, device=dev)
-    casts = torch.tensor([b.casts_shadows for b in scene.boxes]
-                         + [True] * (o_max - len(scene.boxes)), device=dev)
+        kind[bi] = KIND_DYNAMIC
+        position[bi] = vec(ob.position)
+        orientation[bi] = vec(ob.orientation)
+        velocity[bi] = vec(ob.linear_velocity)
+        angular_velocity[bi] = vec(ob.angular_velocity)
+        voxel_response[oi] = vec(ob.response)
+        if ob.fracture is not None:
+            fracturable[oi] = True
+            fracture_threshold[oi], fracture_radius[oi] = ob.fracture
+        if ob.acceleration is not None:
+            accel_body[n_accel] = bi
+            accel[n_accel] = vec(ob.acceleration)
+            accel_mask[n_accel] = True
+            n_accel += 1
+    casts = torch.tensor([ob.casts_shadows for ob in objects]
+                         + [True] * (o_max - len(objects)), device=dev)
     pool = VoxelObjectPool(alive=alive, body_index=body_index, voxel_extent=extent,
-                           origin=origin, sdf=sdf, vtype=vtype, casts_shadows=casts)
+                           origin=origin, sdf=sdf, vtype=vtype, mesh_dirty=alive.clone(),
+                           split_pending=torch.zeros_like(alive), casts_shadows=casts)
 
-    # --- body origin at the centre of mass (ref: engine._sync_voxel_bodies) ----
-    mass, com = mass_and_com(pool, registry.mass_density)
-    sm = (alive & (mass > 1e-9))[:, None]
-    new_pos = position[body_index] + quatlib.rotate(orientation[body_index], com)
-    position[body_index] = torch.where(sm, new_pos, position[body_index])
-    pool = pool._replace(origin=torch.where(sm, pool.origin - com, pool.origin))
+    # --- pass 2: ground planes take regular bodies 0, 1, ... (kinematic) --------
+    plane_bodies = list(range(len(scene.ground_planes)))
+    for bi in plane_bodies:
+        kind[bi] = KIND_KINEMATIC
+    bodies = b._replace(kind=kind, position=position, orientation=orientation,
+                        velocity=velocity, angular_velocity=angular_velocity)
+    forces = forces._replace(
+        const_accel_body=accel_body, const_accel=accel, const_accel_mask=accel_mask,
+        medium_density=torch.tensor(float(config.physics.medium.mass_density), device=dev),
+        medium_velocity=vec(config.physics.medium.velocity),
+    )
+    phys = phys._replace(bodies=apply_forces_and_torques(bodies, forces))
 
     # --- lights + camera ----------------------------------------------------------
-    amb = torch.tensor(scene.ambient_illuminance, dtype=torch.float32, device=dev)
+    amb = vec(scene.ambient_illuminance)
     n_omni = max(1, len(scene.omni_lights))
     n_uni = max(1, len(scene.uni_lights))
 
     def pool_of(n, rows, width, default):
         out = torch.tensor([default] * n, dtype=torch.float32, device=dev)
         for j, r in enumerate(rows):
-            out[j] = torch.tensor(r, dtype=torch.float32, device=dev)
+            out[j] = vec(r)
         return out if width else out.reshape(n)
 
     uni_dirs = []
@@ -165,41 +269,56 @@ def compile_scene(scene, config: EngineConfig, registry: VoxelTypeRegistry | Non
         uni_mask=torch.tensor([True] * len(un) + [False] * (n_uni - len(un)), device=dev),
     )
     cs = scene.camera
-    camera = Camera(
-        torch.tensor(cs.position, dtype=torch.float32, device=dev),
-        torch.tensor(cs.orientation, dtype=torch.float32, device=dev),
-        torch.tensor(cs.vertical_fov, dtype=torch.float32, device=dev),
-        torch.tensor(cs.near, dtype=torch.float32, device=dev),
-        torch.tensor(cs.far, dtype=torch.float32, device=dev),
-    )
+    camera = Camera(vec(cs.position), vec(cs.orientation), vec(cs.vertical_fov), vec(cs.near),
+                    vec(cs.far))
     material_table = material_corner_table(registry)
+    params = EngineParams(
+        phys_params=PhysicsParams(
+            collidables=_plane_pools(scene.ground_planes, plane_bodies, dev), forces=forces,
+            drivers=empty_motion_driver_pools(device=dev), joints=empty_joint_pools(device=dev)),
+        lights=lights, type_density=registry.mass_density, voxel_response=voxel_response,
+        fracturable=fracturable, fracture_threshold=fracture_threshold,
+        fracture_radius=fracture_radius, camera=camera,
+        static_geometry=_build_static_geometry([p.y for p in scene.ground_planes], dev),
+        material_table=material_table,
+    )
+
+    # --- voxel body sync (mass, inertia, body origin at the COM), then momenta
+    #     from the initial velocities now that every body has its mass -------------
+    phys, pool = _sync_voxel_bodies(phys, pool, registry.mass_density, pool.mesh_dirty)
+    bodies = phys.bodies
+    phys = phys._replace(bodies=synchronize_momenta(bodies, bodies.velocity,
+                                                    bodies.angular_velocity))
 
     # --- initial meshes: each distinct shape once, gathered to object slots ----
     vert_cap = tc.mesh_vert_cap or min(4096, (g - 1) ** 3)
     tri_cap = tc.mesh_tri_cap or min(8192, 6 * (g - 1) ** 3)
     entries = [(grid, vt, ve) for grid, vt, ve, _ in uniq]
-    if len(scene.boxes) < o_max:  # dead slots share one empty-SDF mesh
+    if len(objects) < o_max:  # dead slots share one empty-SDF mesh
         far = torch.full((g, g, g), 127 if i8 else 1e3,
                          dtype=torch.int8 if i8 else torch.float32, device=dev)
         entries.append((far, torch.zeros((g, g, g), dtype=torch.int32, device=dev), 1.0))
-        uidx += [len(entries) - 1] * (o_max - len(scene.boxes))
+        uidx += [len(entries) - 1] * (o_max - len(objects))
     meshes_u = []
     for grid, vt, ve in entries:
         m = compact_mesh(surface_nets(sdf_world(grid, ve), vt, tc.mesh_merge_levels),
                          vert_cap, tri_cap)
         meshes_u.append(bake_mesh_materials(m, material_table))
     meshes = _stack_meshes([meshes_u[i] for i in uidx])
+    pool = pool._replace(mesh_dirty=torch.zeros_like(pool.mesh_dirty))
 
-    render_cfg = render_config_from_engine_config(config)
-    info = dict(mesh_vert_cap=vert_cap, mesh_tri_cap=tri_cap,
-                n_voxel_objects=len(scene.boxes), n_unique_shapes=len(uniq))
-    return SceneBuild(
-        pool=pool, meshes=meshes, body_position=position, body_orientation=orientation,
-        prev_position=position.clone(), prev_orientation=orientation.clone(),
-        lights=lights, camera=camera,
-        static_geometry=_build_static_geometry(scene.ground_planes, dev),
-        material_table=material_table, render=init_render_state(render_cfg, dev), info=info,
+    generator = torch.Generator(device=dev)
+    generator.manual_seed(rng_seed)
+    bodies = phys.bodies
+    sim = SimState(
+        phys=phys, voxels=pool, meshes=meshes, probes=extract_probes(pool, voxel_response),
+        render=init_render_state(render_config_from_engine_config(config), dev),
+        prev_position=bodies.position, prev_orientation=bodies.orientation, rng=generator,
     )
+    info = dict(mesh_vert_cap=vert_cap, mesh_tri_cap=tri_cap,
+                n_voxel_objects=len(objects), n_unique_shapes=len(uniq),
+                n_regular_bodies=len(plane_bodies))
+    return SceneBuild(sim=sim, params=params, info=info)
 
 
 def render_config_from_engine_config(config: EngineConfig) -> RenderConfig:

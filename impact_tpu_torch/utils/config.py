@@ -1,6 +1,7 @@
 """Engine configuration: the port's copy of the ``impact_tpu/utils/config.py``
-fields the render slice reads, with the same names and defaults (ref:
-engine.rs:86-99 sub-configs; ``tpu`` holds the static capacities)."""
+fields the render and the engine step read, with the same names and
+defaults (ref: engine.rs:86-99 sub-configs; ``tpu`` holds the static
+capacities)."""
 
 from __future__ import annotations
 
@@ -89,10 +90,66 @@ class RenderingConfig:
 
 
 @dataclass
+class SimulatorConfig:
+    enabled: bool = True
+    n_substeps: int = 1
+    initial_time_step_duration: float = 0.01667
+
+
+@dataclass
+class ConstraintSolverConfig:
+    enabled: bool = True
+    n_iterations: int = 8
+    old_impulse_weight: float = 0.4
+    n_positional_correction_iterations: int = 3
+    positional_correction_factor: float = 0.2
+
+
+@dataclass
+class MediumConfig:
+    mass_density: float = 0.0
+    velocity: tuple = (0.0, 0.0, 0.0)
+
+
+@dataclass
+class PhysicsConfig:
+    simulator: SimulatorConfig = field(default_factory=SimulatorConfig)
+    constraint_solver: ConstraintSolverConfig = field(default_factory=ConstraintSolverConfig)
+    medium: MediumConfig = field(default_factory=MediumConfig)
+
+
+@dataclass
+class FracturingImpactConfig:
+    boundary_polar_grid_size: int = 3
+    boundary_azimuthal_grid_size: int = 6
+    boundary_angular_jitter: float = 0.8
+    boundary_radial_jitter: float = 0.2
+    max_fragment_count: int = 512
+    radial_falloff_power: float = 2.0
+    angular_falloff_power: float = 0.5
+
+
+@dataclass
+class FracturingConfig:
+    impact: FracturingImpactConfig = field(default_factory=FracturingImpactConfig)
+
+
+@dataclass
+class VoxelInteractionConfig:
+    fracturing: FracturingConfig = field(default_factory=FracturingConfig)
+
+
+@dataclass
+class VoxelConfig:
+    interaction: VoxelInteractionConfig = field(default_factory=VoxelInteractionConfig)
+
+
+@dataclass
 class TpuConfig:
     """Static capacities and render switches (names kept from the reference)."""
 
     max_bodies: int = 1024
+    max_contacts: int = 4096
     max_voxel_objects: int = 64
     voxel_grid_size: int = 32
     render_width: int = 256
@@ -109,9 +166,17 @@ class TpuConfig:
     sky_luminance: tuple = (3000.0, 4500.0, 9000.0)
     raster_backend: str = "kernel"  # "kernel" (K1) | "raster" (plain tile raster)
     view_culling: bool = True
+    solver_mode: str = "scan"  # only "jacobi" is ported; "scan" raises
+    max_fracture_fragments: int = 128
+    max_fracture_events: int = 2
+    max_split_objects: int = 4
+    max_split_regions: int = 3
+    chunked_remesh: bool | None = None  # None = on for G ≥ 64; the chunked path raises
 
 
 @dataclass
 class EngineConfig:
     rendering: RenderingConfig = field(default_factory=RenderingConfig)
+    physics: PhysicsConfig = field(default_factory=PhysicsConfig)
+    voxel: VoxelConfig = field(default_factory=VoxelConfig)
     tpu: TpuConfig = field(default_factory=TpuConfig)

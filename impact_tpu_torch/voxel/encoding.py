@@ -32,10 +32,21 @@ def decode_sdf_i8(codes, voxel_extent):
 def sdf_world(pool_sdf, voxel_extent):
     """Pool SDF (f32 world units or i8 codes) → f32 world units;
     ``voxel_extent`` broadcasts per object ([O] against [O,G,G,G])."""
-    if pool_sdf.dtype != torch.int8:
+    if not is_encoded(pool_sdf):
         return pool_sdf
     scale = sdf_scale(torch.as_tensor(voxel_extent, dtype=torch.float32,
                                       device=pool_sdf.device))
     if scale.ndim == 1 and pool_sdf.ndim == 4:
         scale = scale[:, None, None, None]
     return pool_sdf.to(torch.float32) * scale
+
+
+def is_encoded(sdf) -> bool:
+    return sdf.dtype == torch.int8
+
+
+def far_value(pool_sdf_dtype, voxel_extent):
+    """The 'definitely empty' SDF value in the pool's storage units."""
+    if pool_sdf_dtype == torch.int8:
+        return MAX_CODE
+    return 2.0 * voxel_extent

@@ -55,22 +55,28 @@ def _take_last(x, idx):
 
 
 def surface_nets(sdf, vtype, merge_levels: int = 0) -> SurfaceNetsMesh:
-    """Mesh one [G,G,G] f32 SDF grid; ``merge_levels`` > 0 collapses exactly
-    planar 2×2 quad blocks per level (render-identical, see the reference)."""
-    g = sdf.shape[0]
+    """Mesh one [G,G,G] f32 SDF grid, or a batch [B,G,G,G] (then every field
+    has a leading B: the reference's ``make_surface_nets_batched``);
+    ``merge_levels`` > 0 collapses exactly planar 2×2 quad blocks per level
+    (render-identical, see the reference)."""
+    if sdf.ndim == 3:
+        return SurfaceNetsMesh(*(f[0] for f in surface_nets(sdf[None], vtype[None],
+                                                             merge_levels)))
+    nb = sdf.shape[0]
+    g = sdf.shape[-1]
     gc = g - 1
     dev = sdf.device
 
-    corners = torch.stack(
-        [sdf[dx:dx + gc, dy:dy + gc, dz:dz + gc] for (dx, dy, dz) in _CORNER_OFFSETS],
-        dim=-1,
-    )
+    def cut(grid, off):
+        return grid[:, off[0]:off[0] + gc, off[1]:off[1] + gc, off[2]:off[2] + gc]
+
+    corners = torch.stack([cut(sdf, o) for o in _CORNER_OFFSETS], dim=-1)
     inside = corners < 0.0
     n_inside = inside.sum(dim=-1)
     cell_active = (n_inside > 0) & (n_inside < 8)
 
-    crossings_sum = torch.zeros((gc, gc, gc, 3), dtype=torch.float32, device=dev)
-    crossings_cnt = torch.zeros((gc, gc, gc), dtype=torch.float32, device=dev)
+    crossings_sum = torch.zeros((nb, gc, gc, gc, 3), dtype=torch.float32, device=dev)
+    crossings_cnt = torch.zeros((nb, gc, gc, gc), dtype=torch.float32, device=dev)
     offsets = torch.tensor(_CORNER_OFFSETS, dtype=torch.float32, device=dev)
     for (a, b) in _EDGES:
         da, db = corners[..., a], corners[..., b]
@@ -94,13 +100,11 @@ def surface_nets(sdf, vtype, merge_levels: int = 0) -> SurfaceNetsMesh:
         torch.linalg.vector_norm(normal, dim=-1, keepdim=True), min=1e-12
     )
 
-    corner_types = torch.stack(
-        [vtype[dx:dx + gc, dy:dy + gc, dz:dz + gc] for (dx, dy, dz) in _CORNER_OFFSETS],
-        dim=-1,
-    )
+    corner_types = torch.stack([cut(vtype, o) for o in _CORNER_OFFSETS], dim=-1)
     w_corner = torch.where(inside, torch.clamp(-corners, min=1e-6), 0.0)
     same = corner_types[..., :, None] == corner_types[..., None, :]
     w_type = torch.where(same, w_corner[..., None, :], 0.0).sum(dim=-1)
+    del same
     w_type = torch.where(inside, w_type, -1.0)
     best = torch.argmax(w_type, dim=-1)
     vert_type = _take_last(corner_types, best)
@@ -114,15 +118,16 @@ def surface_nets(sdf, vtype, merge_levels: int = 0) -> SurfaceNetsMesh:
     vert_cweight = w_corner / torch.clamp(w_corner.sum(dim=-1, keepdim=True), min=1e-9)
 
     c = gc * gc * gc
-    cell_linear = torch.arange(c, dtype=torch.int64, device=dev).reshape(gc, gc, gc)
+    cell_linear = torch.arange(c, dtype=torch.int64, device=dev).reshape(1, gc, gc, gc)
+    cell_linear = cell_linear.expand(nb, gc, gc, gc)
 
     tris_idx = []
     tris_act = []
     for axis in range(3):
-        d0 = sdf[1:gc, 1:gc, 1:gc]
+        d0 = sdf[:, 1:gc, 1:gc, 1:gc]
         shifted = [slice(1, gc)] * 3
         shifted[axis] = slice(2, gc + 1)
-        d1 = sdf[tuple(shifted)]
+        d1 = sdf[(slice(None), *shifted)]
         crossing = (d0 < 0.0) != (d1 < 0.0)
         flip = d0 < 0.0
 
@@ -136,7 +141,7 @@ def surface_nets(sdf, vtype, merge_levels: int = 0) -> SurfaceNetsMesh:
                 offs.append(off)
 
         def at(grid, off):
-            return grid[tuple(slice(1 + off[a], gc + off[a]) for a in range(3))]
+            return grid[(slice(None), *(slice(1 + off[a], gc + off[a]) for a in range(3)))]
 
         quad = {
             "emit": crossing,
@@ -171,7 +176,7 @@ def surface_nets(sdf, vtype, merge_levels: int = 0) -> SurfaceNetsMesh:
             )
 
         levels = [quad]
-        axis_u, axis_v = others
+        axis_u, axis_v = others[0] + 1, others[1] + 1  # batch axis leads
         for _ in range(merge_levels):
             levels.append(_merge_quads(levels[-1], axis_u, axis_v))
 
@@ -187,22 +192,22 @@ def surface_nets(sdf, vtype, merge_levels: int = 0) -> SurfaceNetsMesh:
                 torch.stack([q["c00"], q["c10"], q["c11"]], dim=-1),
                 torch.stack([q["c00"], q["c11"], q["c10"]], dim=-1),
             )
-            tris_idx.append(t1.reshape(-1, 3))
-            tris_idx.append(t2.reshape(-1, 3))
-            tris_act.append(q["emit"].reshape(-1))
-            tris_act.append(q["emit"].reshape(-1))
+            tris_idx.append(t1.reshape(nb, -1, 3))
+            tris_idx.append(t2.reshape(nb, -1, 3))
+            tris_act.append(q["emit"].reshape(nb, -1))
+            tris_act.append(q["emit"].reshape(nb, -1))
 
     return SurfaceNetsMesh(
-        vert_active=cell_active.reshape(-1),
-        vert_pos=vert_pos.reshape(-1, 3),
-        vert_normal=normal.reshape(-1, 3),
-        vert_type=vert_type.reshape(-1),
-        vert_type2=vert_type2.reshape(-1),
-        vert_blend=vert_blend.reshape(-1),
-        vert_ctype=corner_types.reshape(-1, 8),
-        vert_cweight=vert_cweight.reshape(-1, 8),
-        tri_active=torch.cat(tris_act, dim=0),
-        tri_indices=torch.cat(tris_idx, dim=0),
+        vert_active=cell_active.reshape(nb, -1),
+        vert_pos=vert_pos.reshape(nb, -1, 3),
+        vert_normal=normal.reshape(nb, -1, 3),
+        vert_type=vert_type.reshape(nb, -1),
+        vert_type2=vert_type2.reshape(nb, -1),
+        vert_blend=vert_blend.reshape(nb, -1),
+        vert_ctype=corner_types.reshape(nb, -1, 8),
+        vert_cweight=vert_cweight.reshape(nb, -1, 8),
+        tri_active=torch.cat(tris_act, dim=1),
+        tri_indices=torch.cat(tris_idx, dim=1),
     )
 
 
@@ -285,46 +290,60 @@ class CompactMesh(NamedTuple):
     n_dropped_tris: torch.Tensor  # i64[]
 
 
+def _take_rows(x, idx):
+    """x [B,N,...] at rows idx [B,K] → [B,K,...]."""
+    return torch.take_along_dim(x, idx.reshape(idx.shape + (1,) * (x.ndim - 2)), dim=1)
+
+
 def compact_mesh(mesh: SurfaceNetsMesh, vert_cap: int, tri_cap: int) -> CompactMesh:
     """Pack active vertices/triangles into fixed-capacity buffers (stable
-    order); overflow is dropped and counted."""
-    v = mesh.vert_active.shape[0]
+    order); overflow is dropped and counted. Takes one mesh or a batch with a
+    leading B (the reference's ``compact_mesh_batched``)."""
+    if mesh.vert_active.ndim == 1:
+        return CompactMesh(*(f[0] for f in compact_mesh(
+            SurfaceNetsMesh(*(f[None] for f in mesh)), vert_cap, tri_cap)))
+    nb, v = mesh.vert_active.shape
     dev = mesh.vert_active.device
-    vorder = torch.argsort((~mesh.vert_active).to(torch.uint8), stable=True)
-    new_of_old = torch.empty(v, dtype=torch.int64, device=dev)
-    new_of_old[vorder] = torch.arange(v, dtype=torch.int64, device=dev)
-    vsel = vorder[:vert_cap]
-    vact = mesh.vert_active[vsel]
+    vorder = torch.argsort((~mesh.vert_active).to(torch.uint8), dim=1, stable=True)
+    new_of_old = torch.empty_like(vorder).scatter_(
+        1, vorder, torch.arange(v, dtype=torch.int64, device=dev).expand(nb, v))
+    vsel = vorder[:, :vert_cap]
+    vact = torch.gather(mesh.vert_active, 1, vsel)
 
-    torder = torch.argsort((~mesh.tri_active).to(torch.uint8), stable=True)
-    tsel = torder[:tri_cap]
-    tact = mesh.tri_active[tsel]
-    tidx = new_of_old[mesh.tri_indices[tsel]]
+    torder = torch.argsort((~mesh.tri_active).to(torch.uint8), dim=1, stable=True)
+    tsel = torder[:, :tri_cap]
+    tact = torch.gather(mesh.tri_active, 1, tsel)
+    tidx = torch.gather(new_of_old, 1, _take_rows(mesh.tri_indices, tsel).reshape(nb, -1))
+    tidx = tidx.reshape(nb, -1, 3)
     tact = tact & torch.all(tidx < vert_cap, dim=-1)
     tidx = torch.clamp(tidx, 0, vert_cap - 1)
 
-    vpos = mesh.vert_pos[vsel]
-    vnrm = mesh.vert_normal[vsel]
-    vtype = mesh.vert_type[vsel]
-    c0, c1, c2 = tidx[:, 0], tidx[:, 1], tidx[:, 2]
-    z9 = torch.zeros((tri_cap, 9), dtype=torch.float32, device=dev)
+    vpos = _take_rows(mesh.vert_pos, vsel)
+    vnrm = _take_rows(mesh.vert_normal, vsel)
+    vtype = torch.gather(mesh.vert_type, 1, vsel)
+    flat = tidx.reshape(nb, -1)
+    tri_pos = _take_rows(vpos, flat).reshape(nb, -1, 9)
+    tri_normal = _take_rows(vnrm, flat).reshape(nb, -1, 9)
+    tri_type = torch.gather(vtype, 1, flat).reshape(nb, -1, 3)
+    n_t = tidx.shape[1]
+    z9 = torch.zeros((nb, n_t, 9), dtype=torch.float32, device=dev)
     return CompactMesh(
         vert_active=vact,
         vert_pos=vpos,
         vert_normal=vnrm,
-        vert_ctype=mesh.vert_ctype[vsel],
-        vert_cweight=mesh.vert_cweight[vsel],
+        vert_ctype=_take_rows(mesh.vert_ctype, vsel),
+        vert_cweight=_take_rows(mesh.vert_cweight, vsel),
         tri_active=tact,
         tri_indices=tidx,
-        tri_pos=torch.cat([vpos[c0], vpos[c1], vpos[c2]], dim=-1),
-        tri_normal=torch.cat([vnrm[c0], vnrm[c1], vnrm[c2]], dim=-1),
-        tri_type=torch.stack([vtype[c0], vtype[c1], vtype[c2]], dim=-1),
+        tri_pos=tri_pos,
+        tri_normal=tri_normal,
+        tri_type=tri_type,
         tri_albedo=z9,
         tri_f0=z9.clone(),
-        tri_rough=torch.zeros((tri_cap, 3), dtype=torch.float32, device=dev),
+        tri_rough=torch.zeros((nb, n_t, 3), dtype=torch.float32, device=dev),
         tri_emissive=z9.clone(),
-        n_dropped_verts=mesh.vert_active.sum() - vact.sum(),
-        n_dropped_tris=mesh.tri_active.sum() - tact.sum(),
+        n_dropped_verts=mesh.vert_active.sum(dim=1) - vact.sum(dim=1),
+        n_dropped_tris=mesh.tri_active.sum(dim=1) - tact.sum(dim=1),
     )
 
 

@@ -1,5 +1,5 @@
-"""Voxel object pool with dense per-object grids (port of the parts of
-``impact_tpu/voxel/object.py`` the render slice reads).
+"""Voxel object pool with dense per-object grids (port of
+``impact_tpu/voxel/object.py`` without the chunk codes of the chunked path).
 
 Voxel (i,j,k) center sits at ``(ijk + 0.5) * voxel_extent + origin`` in the
 object's body frame; a voxel is part of the object iff sdf < 0."""
@@ -21,7 +21,13 @@ class VoxelObjectPool(NamedTuple):
     origin: torch.Tensor  # f32[O,3] grid-origin offset in body frame
     sdf: torch.Tensor  # i8 codes or f32 world units [O,G,G,G]
     vtype: torch.Tensor  # i32[O,G,G,G] material index
+    mesh_dirty: torch.Tensor  # bool[O] re-mesh (and inertia/probe sync) needed
+    split_pending: torch.Tensor  # bool[O] connectivity re-check needed
     casts_shadows: torch.Tensor  # bool[O]
+
+    @property
+    def n_objects(self) -> int:
+        return self.alive.shape[0]
 
     @property
     def grid_size(self) -> int:
@@ -54,6 +60,36 @@ def occupancy(pool: VoxelObjectPool):
     return (sdf_world(pool.sdf, pool.voxel_extent) < 0.0) & pool.alive[:, None, None, None]
 
 
+def nonempty_counts(pool: VoxelObjectPool):
+    return occupancy(pool).sum(dim=(1, 2, 3))
+
+
+def _shift(occ, axis: int, step: int):
+    """occ moved by ``step`` (±1) along ``axis``, zero-filled: out[i] =
+    occ[i + step]."""
+    n = occ.shape[axis]
+    pad = torch.zeros_like(occ.narrow(axis, 0, 1))
+    if step > 0:
+        return torch.cat([occ.narrow(axis, 1, n - 1), pad], dim=axis)
+    return torch.cat([pad, occ.narrow(axis, 0, n - 1)], dim=axis)
+
+
+def adjacency_masks(occ):
+    """Per-voxel face adjacency of [..., G,G,G] occupancy (ref: lib.rs
+    VoxelFlags HAS_ADJACENT_*): ``{x,y,z}_{dn,up}`` is True where the
+    neighbour at −1 / +1 along that axis is occupied."""
+    out = {}
+    for axis, name in ((-3, "x"), (-2, "y"), (-1, "z")):
+        out[f"{name}_dn"] = _shift(occ, axis, -1)
+        out[f"{name}_up"] = _shift(occ, axis, 1)
+    return out
+
+
+def surface_mask(occ):
+    """Occupied voxels with at least one empty face neighbour."""
+    adj = adjacency_masks(occ)
+    covered = adj["x_dn"] & adj["x_up"] & adj["y_dn"] & adj["y_up"] & adj["z_dn"] & adj["z_up"]
+    return occ & ~covered
 
 def voxel_positions_local(pool: VoxelObjectPool):
     """[O,G,G,G,3] voxel centers in each object's body frame."""
