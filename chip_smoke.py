@@ -14,7 +14,17 @@ port's entry points:
    0.005) and rendered at 1080p (``step_and_render``);
 3. the reference's fracture bench (a radius-5 voxel sphere at 18 m/s into a
    fracturable 14-voxel box; 208 slots, up to 192 fragments) stepped through
-   its fracture event and the split detection after it, which runs K2.
+   its fracture event and the split detection after it, which runs K2;
+4. split-detection labelling (``connected_component_labels``) of grids
+   past K2's u16 limit, G = 48 and 63, which runs K2-wide, and the two-level
+   labelling at 64³;
+5. the P1 probe ladder (``devtools.probe_kernel_floor.run_ladder``: five
+   modes over the 8160 tiles of 1080p), each mode held against its plain
+   version on the full output;
+6. the P2 probe ablation (``devtools.probe_kernel_ablate.run_ablation``:
+   six variants at 512² over 262,144 triangles), on the probe's own input
+   (an empty frame) and with its clip z negated, each variant held against
+   its plain version.
 
 Kernel launch counts are zeroed just before each path and read just after
 it. Every phase prints one flushed line with its seconds; any failure exits
@@ -27,7 +37,6 @@ from __future__ import annotations
 
 import json
 import os
-import subprocess
 import sys
 import time
 import traceback
@@ -43,6 +52,13 @@ PARITY_BAR = 0.95
 # K2 sweeps integer labels exactly as its plain version does: labels and
 # sweep counts must be equal, after 16 sweeps and at the fixpoint
 K2_SWEEPS = 16
+# P2's TF32 variants against their plain version, which rounds the plane
+# coefficients to TF32 as the tensor cores take them but sums in float32 in
+# its own order: the repo's raster bars (tests/test_raster_pallas.py),
+# coverage equal on this share of the pixels and z within RASTER_ATOL where
+# both cover; the float32 variants must be equal
+RASTER_COVER_SHARE = 0.99
+RASTER_ATOL = 2e-3
 TUMBLER_STEPS = 80
 FRACTURE_MAX_STEPS = 400
 STEPS_AFTER_EVENT = 8
@@ -73,21 +89,6 @@ class Phase:
         dt = time.perf_counter() - self.t0
         log(f"[phase] {self.name} {'ok' if exc_type is None else 'FAILED'} ({dt:.2f} s)")
         return False
-
-
-def cuda_time_ms(fn, reps=10, warmup=2):
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def compare_k1(got, ref, n_attr, what):
@@ -152,6 +153,7 @@ def check_k2(occ, what):
 
 def time_k2(occ, reps=20):
     """(kernel ms, plain ms, bound ms, bound_by, sweeps) of one fixpoint call."""
+    from impact_tpu_torch.devtools import cuda_time_ms
     from impact_tpu_torch.ops import ccl_pallas as k2
 
     g = occ.shape[-1]
@@ -194,6 +196,7 @@ def main() -> int:
         return 3
 
     from impact_tpu_torch import _build
+    from impact_tpu_torch.devtools import card_line, cuda_time_ms
     from impact_tpu_torch.models.bench import HEIGHT, WIDTH, bench_config, bench_scene
     from impact_tpu_torch.render import raster_pallas as rp
     from impact_tpu_torch.geometry.projection import perspective_projection_matrix
@@ -208,10 +211,7 @@ def main() -> int:
     with Phase("device"):
         kind = torch.cuda.get_device_name(0)
         count = torch.cuda.device_count()
-        smi = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-            capture_output=True, text=True, timeout=60, check=True,
-        ).stdout.strip().splitlines()[0]
+        smi = card_line()
         log(f"device: {kind} (count {count}); torch {torch.__version__}, "
             f"cuda {torch.version.cuda}, python {sys.version.split()[0]}")
         log("card (nvidia-smi name, power.limit):")
@@ -584,6 +584,140 @@ def main() -> int:
             replaces="impact_tpu/ops/ccl_pallas.py:45", launches=fracture_launches["k2_ccl"],
             max_abs_err=k2_err, ms=ms4, plain_ms=plain4, bound_ms=bound4, bound_by=by4,
             library_ms=None))
+
+    from impact_tpu_torch.voxel.interaction import connected_component_labels
+
+    with Phase("K2-wide vs plain version, G=48 and G=63: random fills, serpentine; "
+               "labelling path and the two-level labels at 64^3"):
+        rng = np.random.default_rng(1)
+        wide = {}
+        for g in (48, 63):
+            grids = [rng.uniform(size=(g, g, g)) < f for f in (0.2, 0.35, 0.5)]
+            wide[g] = torch.tensor(np.stack(grids + [serpentine(g)]), device=dev)
+        k2.LAUNCHES.reset()
+        for g, occ in wide.items():
+            labels = connected_component_labels(occ)
+            torch.cuda.synchronize()
+            if tuple(labels.shape) != tuple(occ.shape) or bool((labels[occ] < 0).any()):
+                raise AssertionError(f"labels at G={g}: {tuple(labels.shape)}")
+        wide_launches = k2.LAUNCHES["k2_ccl_wide"]
+        log(f"labelling path at G=48 and G=63: launches {dict(k2.LAUNCHES)}")
+        if wide_launches <= 0 or k2.LAUNCHES["k2_ccl"] != 0:
+            raise AssertionError(f"the wide grids did not go through K2-wide: {dict(k2.LAUNCHES)}")
+        wide_err, wide_rows = 0.0, {}
+        for g, occ in wide.items():
+            sweeps, err = check_k2(occ, f"wide G={g}")
+            wide_err = max(wide_err, err)
+            if sweeps[3] < g * g // 2:
+                raise AssertionError(f"the G={g} serpentine settled in {int(sweeps[3])} sweeps")
+            ms, plain, bound, by, sw = time_k2(occ, reps=5)
+            wide_rows[g] = (ms, plain, bound, by)
+            log(f"K2-wide G={g}, batch of 4 (fills 0.2/0.35/0.5, serpentine): labels and sweeps "
+                f"equal the plain version; {ms:.4f} ms per fixpoint call (sweeps {sw}), plain "
+                f"{plain:.4f} ms, bound {bound:.6f} ms ({by})")
+        occ64 = torch.tensor(np.stack([rng.uniform(size=(64, 64, 64)) < f for f in (0.3, 0.45)]
+                                      + [serpentine(64)]), device=dev)
+        flat, _ = k2.ccl_sweeps_plain(occ64, k2.initial_labels(occ64), 64 ** 3)
+        two = connected_component_labels(occ64)
+        if not torch.equal(two, torch.where(occ64, flat, -1)):
+            raise AssertionError("the two-level labels at 64^3 differ from the flat plain sweep")
+        log("two-level labels at 64^3 (fills 0.3/0.45, serpentine) equal the flat plain sweep's")
+        ms, plain, bound, by = wide_rows[63]
+        kernels.append(dict(
+            name="k2_ccl_wide", route="cuda", source="impact_tpu_torch/csrc/ccl.cu",
+            replaces="impact_tpu/ops/ccl_pallas.py:45", launches=wide_launches,
+            max_abs_err=wide_err, ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
+            library_ms=None))
+        record["k2_wide"] = {str(g): dict(ms=v[0], plain_ms=v[1], bound_ms=v[2])
+                             for g, v in wide_rows.items()}
+
+    from impact_tpu_torch.devtools import probe_kernel_ablate as p2
+    from impact_tpu_torch.devtools import probe_kernel_floor as p1
+
+    with Phase("P1 probe ladder at 1080p (8160 tiles): five modes, each against its plain "
+               "version on every tile"):
+        ranges, payload = p1.reference_inputs(dev)
+        p1.LAUNCHES.reset()
+        ladder = p1.run_ladder(ranges, payload, log=log)
+        p1_launches = dict(p1.LAUNCHES)
+        for mode in p1.MODES:
+            key = f"p1_floor_{mode}"
+            if p1_launches[key] <= 0:
+                raise AssertionError(f"{key} was not launched by the ladder")
+            got = p1.probe_floor(mode, ranges, payload)
+            ref = p1.probe_floor_plain(mode, ranges, payload)
+            torch.cuda.synchronize()
+            if got.shape != (p1.N_TILES, p1.S2, p1.ROWS) or not torch.equal(got, ref):
+                bad = int((got != ref).sum()) if got.shape == ref.shape else -1
+                raise AssertionError(f"P1 {mode}: {bad} outputs differ from the plain version")
+            covered = (got[..., 1] >= 0).float().mean().item() if mode in ("eval", "cond") \
+                else None
+            del got, ref
+            plain = cuda_time_ms(lambda m=mode: p1.probe_floor_plain(m, ranges, payload),
+                                 reps=2, warmup=1)
+            ms, bnd, by = ladder[mode]
+            log(f"P1 {mode}: equal to the plain version on all {p1.N_TILES} tiles"
+                + (f" (covered share {covered:.4f})" if covered is not None else "")
+                + f"; kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {bnd:.4f} ms ({by})")
+            kernels.append(dict(
+                name=key, route="cuda", source="impact_tpu_torch/csrc/probe_floor.cu",
+                replaces="devtools/probe_kernel_floor.py:33", launches=p1_launches[key],
+                max_abs_err=0.0, ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
+                library_ms=None))
+        record["p1"] = {m: dict(ms=v[0], bound_ms=v[1]) for m, v in ladder.items()}
+        del ranges, payload
+
+    with Phase("P2 probe ablation at 512^2 (262,144 triangles): six variants on the probe's "
+               "input and two frames with clip z negated, each against its plain version"):
+        # the probe's own triangles (an empty frame), the same with clip z
+        # negated (about 1 px each: a sparse frame), and those 8x larger (a
+        # dense frame, where the evaluations dominate)
+        inputs = {"as written": p2.reference_inputs(dev, 0),
+                  "clip z negated": p2.reference_inputs(dev, 0, flip_clip_z=True),
+                  "clip z negated, 8x triangles": p2.reference_inputs(
+                      dev, 0, flip_clip_z=True, size_scale=8.0)}
+        p2.LAUNCHES.reset()
+        runs = {}
+        for tag, inp in inputs.items():
+            log(f"P2 input {tag}: {int(inp.ranges[:, 4:].sum())} window candidates")
+            runs[tag] = p2.run_ablation(inp, log=log, tag=f" [{tag}]")
+        p2_launches = dict(p2.LAUNCHES)
+        for name, kw in p2.VARIANTS:
+            key = p2.variant_key(**kw)
+            if p2_launches[key] <= 0:
+                raise AssertionError(f"{key} was not launched by the ablation")
+            errs, plain_ms = [], {}
+            for tag, inp in inputs.items():
+                got = p2.probe_ablate(inp, **kw)
+                ref = p2.probe_ablate_plain(inp, **kw)
+                torch.cuda.synchronize()
+                cov_g, cov_r = got < 1.0, ref < 1.0
+                both = cov_g & cov_r
+                err = (got[both] - ref[both]).abs().max().item() if bool(both.any()) else 0.0
+                agree = (cov_g == cov_r).float().mean().item()
+                errs.append(err)
+                if not kw["mxu"] and not torch.equal(got, ref):
+                    raise AssertionError(f"P2 {name} [{tag}]: {int((got != ref).sum())} pixels "
+                                         f"differ from the plain version")
+                if kw["mxu"] and (agree < RASTER_COVER_SHARE or err > RASTER_ATOL):
+                    raise AssertionError(f"P2 {name} [{tag}]: coverage agrees on {agree:.5f} of "
+                                         f"the pixels, max z error {err:.3g}")
+                if tag == "as written" and not bool((got == 1.0).all()):
+                    raise AssertionError(f"P2 {name}: the probe's own frame is not empty")
+                if tag != "as written" and not bool(cov_g.any()):
+                    raise AssertionError(f"P2 {name} [{tag}]: the frame is empty")
+                plain_ms[tag] = cuda_time_ms(lambda i=inp, k=kw: p2.probe_ablate_plain(i, **k),
+                                             reps=2, warmup=1)
+                log(f"P2 {name} [{tag}]: coverage agrees with the plain version on {agree:.6f} "
+                    f"of the pixels, max abs z error {err:.3g}; plain {plain_ms[tag]:.4f} ms")
+            a = runs["as written"][name]
+            kernels.append(dict(
+                name=key, route="cuda", source="impact_tpu_torch/csrc/probe_ablate.cu",
+                replaces="devtools/probe_kernel_ablate.py:38", launches=p2_launches[key],
+                max_abs_err=max(errs), ms=a["ms"], plain_ms=plain_ms["as written"],
+                bound_ms=a["bound_ms"], bound_by=a["bound_by"], library_ms=None,
+                inputs={tag: dict(runs[tag][name], plain_ms=plain_ms[tag]) for tag in inputs}))
+        record["p2"] = runs
 
     log(f"total wall time {time.perf_counter() - t_all:.1f} s")
     log("record: " + json.dumps(record))

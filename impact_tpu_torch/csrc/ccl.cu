@@ -40,6 +40,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
+
 namespace {
 
 constexpr int kThreads = 1024;
@@ -109,7 +111,109 @@ k2_ccl_kernel(const uint8_t* __restrict__ occ, const int32_t* __restrict__ label
   if (threadIdx.x == 0) sweeps_out[blockIdx.x] = sweeps;
 }
 
+// --- K2-wide: grids past the u16 limit (G^3 > 65535) -----------------------
+//
+// Same function as k2_ccl_kernel, for grids whose labels do not fit u16 or
+// whose two label buffers do not fit one SM's shared memory (G >= 41). The
+// labels stay i32 in two global-memory ping-pong buffers, one thread per
+// voxel, one launch per sweep: the reference's own fixpoint loop
+// (impact_tpu/ops/ccl_pallas.py:connected_component_labels_pallas), which
+// reads "changed" on the host once per group of up to 16 sweeps.
+//
+// flags holds (kGroup + 1) x batch ints for one group: row 0 is "grid b still
+// runs" at the group's start, row s + 1 is "sweep s changed grid b". Grid b
+// sweeps in step s when row 0 holds and, for s > 0, sweep s - 1 changed it;
+// a grid that stops has just had a sweep that changed nothing, so both
+// buffers hold its labels and neither needs a copy. k2_wide_finish folds the
+// group into running[b] and sweeps[b], which the host reads.
+//
+// Bound: the same count as K2's (ops/ccl_pallas.py:bound_ms), operation-
+// bound for a fixpoint that needs more than a sweep or two. This design
+// moves every voxel's seven labels through L2 (a 63^3 grid's two buffers,
+// 2 MB, stay resident) on every sweep and pays one launch per sweep.
+
+constexpr int kWideThreads = 256;
+constexpr int kGroup = 16;
+
+__global__ void __launch_bounds__(kWideThreads)
+k2_wide_sweep(const uint8_t* __restrict__ occ, const int32_t* __restrict__ src,
+              int32_t* __restrict__ dst, int32_t* __restrict__ flags, int batch, int g,
+              int s) {
+  const int n = g * g * g;
+  const int gg = g * g;
+  const long long total = static_cast<long long>(batch) * n;
+  for (long long idx = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
+       idx < total; idx += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const int b = static_cast<int>(idx / n);
+    const int v = static_cast<int>(idx - static_cast<long long>(b) * n);
+    if (!flags[b] || (s > 0 && !flags[s * batch + b])) continue;
+    const int32_t old = src[idx];
+    int32_t m = n;
+    if (occ[idx]) {
+      const int i = v / gg;
+      const int j = (v / g) - i * g;
+      const int k = v - (v / g) * g;
+      m = old;
+      if (i > 0) m = min(m, src[idx - gg]);
+      if (i < g - 1) m = min(m, src[idx + gg]);
+      if (j > 0) m = min(m, src[idx - g]);
+      if (j < g - 1) m = min(m, src[idx + g]);
+      if (k > 0) m = min(m, src[idx - 1]);
+      if (k < g - 1) m = min(m, src[idx + 1]);
+    }
+    dst[idx] = m;
+    if (m != old) flags[(s + 1) * batch + b] = 1;
+  }
+}
+
+__global__ void k2_wide_finish(int32_t* __restrict__ flags, int32_t* __restrict__ running,
+                               int32_t* __restrict__ sweeps, int batch, int n_sweeps) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= batch || !running[b]) return;
+  int done = 0;
+  int run = 1;
+  for (int s = 0; s < n_sweeps && run; ++s) {
+    ++done;
+    run = flags[(s + 1) * batch + b];
+  }
+  sweeps[b] += done;
+  running[b] = run;
+}
+
+__global__ void k2_wide_start(const int32_t* __restrict__ running, int32_t* __restrict__ flags,
+                              int batch) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e < (kGroup + 1) * batch) flags[e] = e < batch ? running[e] : 0;
+}
+
 }  // namespace
+
+// Up to 16 sweeps of K2-wide from buffer a (parity 0) or b (parity 1); sweep
+// s writes the other buffer. running/sweeps (i32[batch]) carry the fixpoint
+// state between calls; flags is i32[17 * batch] scratch.
+extern "C" int k2_ccl_wide(const void* occ, void* labels_a, void* labels_b, void* flags,
+                           void* running, void* sweeps, int batch, int g, int parity,
+                           int n_sweeps, void* stream) {
+  const long long total = static_cast<long long>(batch) * g * g * g;
+  if (batch <= 0 || g <= 0 || n_sweeps <= 0 || n_sweeps > kGroup || total >= (1LL << 31))
+    return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int32_t* f = static_cast<int32_t*>(flags);
+  int32_t* bufs[2] = {static_cast<int32_t*>(labels_a), static_cast<int32_t*>(labels_b)};
+  const int fb = ((kGroup + 1) * batch + 255) / 256;
+  k2_wide_start<<<fb, 256, 0, st>>>(static_cast<const int32_t*>(running), f, batch);
+  const int blocks = static_cast<int>(std::min<long long>((total + kWideThreads - 1) / kWideThreads,
+                                                          132LL * 16));
+  for (int s = 0; s < n_sweeps; ++s) {
+    const int from = (parity + s) & 1;
+    k2_wide_sweep<<<blocks, kWideThreads, 0, st>>>(static_cast<const uint8_t*>(occ), bufs[from],
+                                                   bufs[from ^ 1], f, batch, g, s);
+  }
+  k2_wide_finish<<<(batch + 255) / 256, 256, 0, st>>>(f, static_cast<int32_t*>(running),
+                                                      static_cast<int32_t*>(sweeps), batch,
+                                                      n_sweeps);
+  return cudaGetLastError();
+}
 
 extern "C" int k2_ccl_sweeps(const void* occ, const void* labels_in, void* labels_out,
                              void* sweeps_out, int batch, int g, int max_sweeps,

@@ -17,9 +17,13 @@ wherever two components touch only along an edge or corner (ROADMAP Queue
 ``ccl_sweeps`` runs up to ``max_sweeps`` sweeps on a batch of grids and stops
 a grid at the first sweep that changes nothing (its fixpoint), so a run with
 ``max_sweeps`` ≥ the distance the labels travel returns the labels. On CUDA
-tensors it launches K2 (``csrc/ccl.cu``: one thread block per grid, both
-label buffers in shared memory as u16, the fixpoint test on the card); on
-CPU tensors it runs the plain version below. There is no fallback.
+tensors it launches K2 (``csrc/ccl.cu``): for G³ ≤ 65535 (G ≤ 40) the
+shared-memory kernel (one thread block per grid, both label buffers in
+shared memory as u16, the fixpoint test on the card); for larger grids
+K2-wide (i32 labels in two global-memory buffers, one launch per sweep, the
+host reading the grids' "changed" flags once per 16 sweeps, as the
+reference's fixpoint loop does). On CPU tensors it runs the plain version
+below, at any G. There is no fallback.
 """
 
 from __future__ import annotations
@@ -28,9 +32,12 @@ import torch
 
 from ..render.raster_pallas import LaunchCounter
 
-LAUNCHES = LaunchCounter(k2_ccl=0)
-# labels and ``big`` = G³ must fit the kernel's u16 shared-memory buffers
+LAUNCHES = LaunchCounter(k2_ccl=0, k2_ccl_wide=0)
+# labels and ``big`` = G³ must fit the shared-memory kernel's u16 buffers;
+# larger grids take K2-wide
 MAX_GRID_VOXELS = 65535
+# sweeps per K2-wide call: the host reads the fixpoint flags once per group
+WIDE_GROUP = 16
 
 
 def initial_labels(occ):
@@ -40,10 +47,12 @@ def initial_labels(occ):
     return torch.where(occ, lin, g ** 3)
 
 
-def _sweep(occ, labels, big: int):
-    """One Jacobi 6-neighbour min sweep of [B,G,G,G] labels."""
+def min_sweep(occ, labels, big: int, axes=(1, 2, 3)):
+    """One Jacobi 6-neighbour min sweep of [B,G,G,G] labels: ``big`` past
+    the border of each of ``axes`` (the chunks' axes of a reshaped grid
+    confine the sweep to chunks) and for empty voxels."""
     m = labels
-    for axis in (1, 2, 3):
+    for axis in axes:
         n = labels.shape[axis]
         pad = torch.full_like(labels.narrow(axis, 0, 1), big)
         fwd = torch.cat([labels.narrow(axis, 1, n - 1), pad], dim=axis)
@@ -60,7 +69,7 @@ def ccl_sweeps_plain(occ, labels, max_sweeps: int):
     running = torch.ones(occ.shape[0], dtype=torch.bool, device=occ.device)
     sweeps = torch.zeros(occ.shape[0], dtype=torch.int32, device=occ.device)
     for _ in range(max_sweeps):
-        new = _sweep(occ, labels, big)
+        new = min_sweep(occ, labels, big)
         changed = (new != labels).flatten(1).any(dim=1)
         labels = torch.where(running[:, None, None, None], new, labels)
         sweeps = sweeps + running.to(torch.int32)
@@ -78,28 +87,27 @@ def _check(occ, labels):
                          f"{labels.dtype}")
     if labels.shape != occ.shape or labels.device != occ.device:
         raise ValueError("labels must match the occupancy's shape and device")
-    if occ.shape[-1] ** 3 > MAX_GRID_VOXELS:
-        raise ValueError(f"K2 holds labels as u16: G³ = {occ.shape[-1] ** 3} exceeds "
-                         f"{MAX_GRID_VOXELS}")
 
 
 def ccl_sweeps(occ, labels, max_sweeps: int):
-    """K2 on CUDA tensors, its plain version on CPU tensors. ``occ`` bool
-    [B,G,G,G]; ``labels`` i32 [B,G,G,G] with values in [0, G³]. Returns
-    (labels, sweeps) as ``ccl_sweeps_plain``."""
+    """K2 on CUDA tensors (K2-wide where G³ > 65535), its plain version on
+    CPU tensors. ``occ`` bool [B,G,G,G]; ``labels`` i32 [B,G,G,G] with values
+    in [0, G³]. Returns (labels, sweeps) as ``ccl_sweeps_plain``."""
     _check(occ, labels)
     if occ.device.type == "cpu":
         return ccl_sweeps_plain(occ, labels, max_sweeps)
     if occ.device.type != "cuda":
         raise ValueError(f"K2 runs on cuda or cpu tensors, not {occ.device}")
+    nb, g = occ.shape[0], occ.shape[-1]
+    if nb == 0:
+        return torch.empty_like(labels), torch.empty(0, dtype=torch.int32, device=occ.device)
+    if g ** 3 > MAX_GRID_VOXELS:
+        return _ccl_sweeps_wide(occ, labels, max_sweeps)
     from .. import _build
 
     lib = _build.load()
-    nb, g = occ.shape[0], occ.shape[-1]
     out = torch.empty_like(labels)
     sweeps = torch.empty(nb, dtype=torch.int32, device=occ.device)
-    if nb == 0:
-        return out, sweeps
     occ_u8 = occ.to(torch.uint8).contiguous()
     lab_in = labels.contiguous()
     rc = lib.k2_ccl_sweeps(occ_u8.data_ptr(), lab_in.data_ptr(), out.data_ptr(),
@@ -109,6 +117,37 @@ def ccl_sweeps(occ, labels, max_sweeps: int):
         raise RuntimeError(f"k2_ccl_sweeps launch failed: cudaError {rc}")
     LAUNCHES["k2_ccl"] += 1
     return out, sweeps
+
+
+def _ccl_sweeps_wide(occ, labels, max_sweeps: int):
+    """K2-wide: groups of up to ``WIDE_GROUP`` sweeps, one ``k2_ccl_wide``
+    call each, until no grid runs (one host read per group) or
+    ``max_sweeps`` sweeps ran."""
+    from .. import _build
+
+    lib = _build.load()
+    nb, g = occ.shape[0], occ.shape[-1]
+    dev = occ.device
+    occ_u8 = occ.to(torch.uint8).contiguous()
+    bufs = (labels.contiguous().clone(), torch.empty_like(labels))
+    flags = torch.empty((WIDE_GROUP + 1) * nb, dtype=torch.int32, device=dev)
+    running = torch.ones(nb, dtype=torch.int32, device=dev)
+    sweeps = torch.zeros(nb, dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    done = 0
+    while done < max_sweeps:
+        n = min(WIDE_GROUP, max_sweeps - done)
+        rc = lib.k2_ccl_wide(occ_u8.data_ptr(), bufs[0].data_ptr(), bufs[1].data_ptr(),
+                             flags.data_ptr(), running.data_ptr(), sweeps.data_ptr(), nb, g,
+                             done % 2, n, stream)
+        if rc != 0:
+            raise RuntimeError(f"k2_ccl_wide launch failed: cudaError {rc}")
+        LAUNCHES["k2_ccl_wide"] += 1
+        done += n
+        if not bool(running.any()):
+            break
+    # a stopped grid holds its labels in both buffers; running ones in the last written
+    return bufs[done % 2], sweeps
 
 
 def connected_component_labels_batched(occ):

@@ -5,7 +5,9 @@ interaction/fracturing.rs).
 
 * Split detection labels occupied voxels by min-label propagation to a
   fixpoint; on the card that is the hand-written kernel K2
-  (``ops/ccl_pallas.py``).
+  (``ops/ccl_pallas.py``), K2-wide for G ≥ 41. Grids of G ≥ 64 with G a
+  multiple of 16 take the reference's two-level labelling instead, in plain
+  PyTorch as the reference's is XLA.
 * Extraction moves a disconnected component into a free pooled object slot
   with masks; the rigid-body pool gains a body the same way.
 * Fracturing assigns each voxel within the fracture radius to its nearest
@@ -22,22 +24,74 @@ import math
 import torch
 
 from ..math.quaternion import cross
-from ..ops.ccl_pallas import connected_component_labels_batched
+from ..ops.ccl_pallas import connected_component_labels_batched, initial_labels, min_sweep
 from .encoding import far_value
-from .object import VoxelObjectPool, occupancy, voxel_positions_local
+from .object import CHUNK_SIZE, VoxelObjectPool, occupancy, voxel_positions_local
 
 
 def connected_component_labels(occ):
     """Labels of a bool [G,G,G] grid or [B,G,G,G] batch: i32, the minimum
-    linear index of each 6-connected component, −1 where empty."""
+    linear index of each 6-connected component, −1 where empty. Routed as
+    the reference routes (interaction.py:connected_component_labels): the
+    two-level labelling for G ≥ 64 with G a multiple of the chunk size, the
+    flat fixpoint sweep (K2) for every other G."""
+    batch = occ if occ.ndim == 4 else occ[None]
     g = occ.shape[-1]
-    if g >= 64:
-        raise NotImplementedError(
-            "grids of 64³ and up take the two-level CCL of the chunked path, which is not "
-            "ported yet")
-    if occ.ndim == 3:
-        return connected_component_labels_batched(occ[None])[0]
-    return connected_component_labels_batched(occ)
+    if g >= 64 and g % CHUNK_SIZE == 0:
+        labels = connected_component_labels_two_level(batch)
+    else:
+        labels = connected_component_labels_batched(batch)
+    return labels if occ.ndim == 4 else labels[0]
+
+
+def connected_component_labels_two_level(occ):
+    """Two-level labelling of a bool [B,G,G,G] batch, G a multiple of
+    ``CHUNK_SIZE`` (port of the reference's XLA function of that name; ref:
+    split_detection.rs:15-35). Phase 1 sweeps each 16³ chunk to its own
+    fixpoint; phase 2 takes each chunk component's label as a graph node,
+    relaxes the edges across chunk faces by scatter-min and pointer-jumps
+    the label table to its fixpoint. Labels equal the flat sweep's: the
+    minimum linear index of each component, −1 where empty."""
+    nb, g = occ.shape[0], occ.shape[-1]
+    ch = CHUNK_SIZE
+    nc = g // ch
+    n = g ** 3
+    dev = occ.device
+    occ6 = occ.reshape(nb, nc, ch, nc, ch, nc, ch)
+    labels = initial_labels(occ).reshape(occ6.shape)
+    for _ in range(ch ** 3):  # the within-chunk serpentine bound
+        new = min_sweep(occ6, labels, n, axes=(2, 4, 6))
+        changed = bool((new != labels).any())
+        labels = new
+        if not changed:
+            break
+    labels = labels.reshape(nb, g, g, g)
+
+    # phase 2: edges (la, lb) between chunk-component labels across chunk
+    # faces, offset by b·(n + 1) into one table of every grid's labels plus
+    # a sink slot per grid for the empty ends
+    hi = torch.arange(ch - 1, g - 1, ch, device=dev)
+    lo = hi + 1
+    la = torch.cat([labels.index_select(ax, hi).flatten(1) for ax in (1, 2, 3)], dim=1)
+    lb = torch.cat([labels.index_select(ax, lo).flatten(1) for ax in (1, 2, 3)], dim=1)
+    both = (la < n) & (lb < n)
+    off = (torch.arange(nb, device=dev) * (n + 1))[:, None]
+    ia = (torch.where(both, la, n) + off).flatten().long()
+    ib = (torch.where(both, lb, n) + off).flatten().long()
+    both = both.flatten()
+    table = torch.arange(n + 1, dtype=torch.int32, device=dev).repeat(nb)
+    for _ in range(n):
+        m = torch.where(both, torch.minimum(table[ia], table[ib]), n)
+        t2 = table.scatter_reduce(0, ia, m, "amin").scatter_reduce(0, ib, m, "amin")
+        t2 = t2.reshape(nb, n + 1)
+        t2 = torch.minimum(t2, torch.gather(t2, 1, t2.long()))  # pointer jumping
+        t2 = t2.flatten()
+        changed = bool((t2 != table).any())
+        table = t2
+        if not changed:
+            break
+    final = torch.gather(table.reshape(nb, n + 1), 1, labels.flatten(1).long())
+    return torch.where(occ, final.reshape(nb, g, g, g), -1)
 
 
 def _set_row(t, i, value, cond):

@@ -13,6 +13,8 @@ import torch
 from . import sdf as sdflib
 from .encoding import sdf_world
 
+CHUNK_SIZE = 16  # ref: object.rs:199-207; the two-level labelling's chunk
+
 
 class VoxelObjectPool(NamedTuple):
     alive: torch.Tensor  # bool[O]

@@ -133,8 +133,12 @@ def test_wrapper_checks_inputs():
     occ = torch.zeros((1, 8, 8, 8), dtype=torch.bool)
     with pytest.raises(ValueError):
         k2.ccl_sweeps(occ, k2.initial_labels(occ).long(), 4)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        k2.ccl_sweeps(occ.to("meta"), k2.initial_labels(occ).to("meta"), 4)
+    # the u16 limit guards only the shared-memory launch: past it the CPU
+    # takes the plain sweep, and 64³ the two-level labelling
     big = torch.zeros((1, 41, 41, 41), dtype=torch.bool)
-    with pytest.raises(ValueError, match="u16"):
-        k2.ccl_sweeps(big, k2.initial_labels(big), 4)
-    with pytest.raises(NotImplementedError):
-        connected_component_labels(torch.zeros((64, 64, 64), dtype=torch.bool))
+    lab, sweeps = k2.ccl_sweeps(big, k2.initial_labels(big), 4)
+    assert bool((lab == 41 ** 3).all()) and sweeps.tolist() == [1]
+    assert bool((connected_component_labels(torch.zeros((64, 64, 64), dtype=torch.bool))
+                 == -1).all())

@@ -1,15 +1,18 @@
-"""K2's CUDA kernel against its plain PyTorch version on the card.
+"""K2's CUDA kernels (K2 to 40³, K2-wide from 41³) against their plain
+PyTorch version on the card.
 
 Needs an NVIDIA GPU with nvcc (the kernel has no CPU or interpret mode), so
 these tests skip elsewhere; they import no JAX, so they run on the GPU host:
 ``python -m pytest --noconftest -q -m cuda tests/test_torch_k2_cuda.py``.
-Labels and sweep counts are integers: they must be equal."""
+Labels and sweep counts are integers: they must be equal; the two-level
+labelling at 64³ must equal the flat sweep's."""
 
 import numpy as np
 import pytest
 import torch
 
 from impact_tpu_torch.ops import ccl_pallas as k2
+from impact_tpu_torch.voxel.interaction import connected_component_labels
 
 
 @pytest.fixture
@@ -31,8 +34,8 @@ def _grids(g, seed):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("g", [8, 16, 32])
-@pytest.mark.parametrize("max_sweeps", [1, 16, None])
+@pytest.mark.parametrize("g", [8, 16, 32, 41, 48, 63])
+@pytest.mark.parametrize("max_sweeps", [1, 16, 17, None])
 def test_kernel_matches_plain_on_card(cuda_device, g, max_sweeps):
     occ = torch.tensor(_grids(g, g), device=cuda_device)
     lab0 = k2.initial_labels(occ)
@@ -41,7 +44,10 @@ def test_kernel_matches_plain_on_card(cuda_device, g, max_sweeps):
     got, got_sw = k2.ccl_sweeps(occ, lab0, n)
     ref, ref_sw = k2.ccl_sweeps_plain(occ, lab0, n)
     torch.cuda.synchronize()
-    assert k2.LAUNCHES["k2_ccl"] == 1
+    if g ** 3 <= k2.MAX_GRID_VOXELS:
+        assert k2.LAUNCHES["k2_ccl"] == 1 and k2.LAUNCHES["k2_ccl_wide"] == 0
+    else:  # one K2-wide call per group of up to 16 sweeps
+        assert k2.LAUNCHES["k2_ccl"] == 0 and k2.LAUNCHES["k2_ccl_wide"] >= 1
     assert torch.equal(got, ref)
     assert torch.equal(got_sw, ref_sw)
 
@@ -66,3 +72,11 @@ def test_labels_wrapper_on_card(cuda_device):
     got = k2.connected_component_labels_batched(occ)
     ref = k2.connected_component_labels_batched(occ.cpu())
     assert torch.equal(got.cpu(), ref)
+
+
+@pytest.mark.cuda
+def test_two_level_on_card_equals_flat(cuda_device):
+    occ = torch.tensor(_grids(64, 1)[[0, 1, 2, 4]], device=cuda_device)
+    two = connected_component_labels(occ)
+    assert torch.equal(two, k2.connected_component_labels_batched(occ))
+    assert torch.equal(two.cpu(), connected_component_labels(occ.cpu()))
