@@ -3,9 +3,9 @@
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It builds the port's CUDA kernels from ``impact_tpu_torch/csrc`` (one nvcc
-call), checks the connected-component kernel K2 and the tile rasterizer K1
-against their plain PyTorch versions, then drives three paths through the
-port's entry points:
+per source, all started together), checks the connected-component kernel K2
+and the tile rasterizer K1 against their plain PyTorch versions, then drives
+three paths through the port's entry points:
 
 1. the bench scene's render (62 voxel boxes of 26³ voxels in 64 slots of
    32³ i8 grids; 1920x1080, shadow maps 512², AO, TAA, bloom, ACES) through
@@ -31,10 +31,18 @@ it. Every phase prints one flushed line with its seconds; any failure exits
 non-zero. The last lines are a ``{"kernels": [...]}`` record and the
 ``{"ok": true, ...}`` result. It needs a CUDA device and the rest of the
 repository beside it.
+
+K1 is timed two ways on every view of a bench frame: the kernel's own device
+time (``kernel_ms``: torch.profiler's device time of the kernel's launches,
+which the ``kernels`` record reports as ``ms``) and the wrapper call between
+two CUDA events (``wrapper``), which also holds the wrapper's host work.
+``--k1-only`` stops after the K1 phases (the K1 parts of the record, then the
+same last line), so two trees' K1 kernels can be timed in turns in one call.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import sys
@@ -116,6 +124,34 @@ def compare_k1(got, ref, n_attr, what):
     return err
 
 
+def kernel_ms(fn, kernel, reps=20, warmup=2):
+    """Mean device ms of one launch of the CUDA kernel whose name contains
+    ``kernel``, from torch.profiler over ``reps`` calls of ``fn``, each of
+    which launches it once: the kernel alone, without the wrapper's host
+    work or any other launch."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    # the profiler now and then loses launch records (1 of 20, once all 20 of
+    # one profile): take the mean over the recorded launches, and profile
+    # again when fewer than half were recorded
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        hits = [e for e in prof.key_averages() if kernel in e.key
+                and getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
+        n = sum(e.count for e in hits)
+        us = sum(getattr(e, "self_device_time_total", 0.0) for e in hits)
+        if reps // 2 <= n <= reps and us > 0.0:
+            return us / n / 1e3
+    raise AssertionError(f"the profiler saw {n} launches of {kernel} ({us} us) in {reps} calls")
+
+
 def serpentine(g):
     """One 6-connected path snaking through the k = 0 plane: rows i = 0, 2, 4,
     ... joined at alternate ends; the labels need ~g²/2 sweeps to settle."""
@@ -173,7 +209,11 @@ def body_state_finite(sim):
                ("position", "orientation", "momentum", "angular_momentum"))
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description="Chip smoke test of the PyTorch/CUDA port.")
+    ap.add_argument("--k1-only", action="store_true",
+                    help="stop after the K1 phases (kernel vs plain version, timings)")
+    k1_only = ap.parse_args(argv).k1_only
     t_all = time.perf_counter()
     import numpy as np
     import torch
@@ -268,15 +308,18 @@ def main() -> int:
         covered = (d_k < 1.0).float().mean().item()
         if covered == 0.0 or not bool(a_k[3].any()):
             raise AssertionError("the 256x256 soup covers no pixel")
-        ms_d = cuda_time_ms(lambda: rp.raster_depth(bd))
+        ms_d = kernel_ms(lambda: rp.raster_depth(bd), "k1_depth_kernel")
+        wr_d = cuda_time_ms(lambda: rp.raster_depth(bd))
         ms_dp = cuda_time_ms(lambda: rp.raster_depth_plain(bd), reps=3, warmup=1)
-        ms_a = cuda_time_ms(lambda: rp.raster_attributes(ba, a_dim))
+        ms_a = kernel_ms(lambda: rp.raster_attributes(ba, a_dim), "k1_attr_kernel")
+        wr_a = cuda_time_ms(lambda: rp.raster_attributes(ba, a_dim))
         ms_ap = cuda_time_ms(lambda: rp.raster_attributes_plain(ba, a_dim), reps=3, warmup=1)
         log(f"K1 depth 256x256: coverage {covered:.4f}, max abs err {err_d:.3g}, "
-            f"drops {int(bd.n_drop)}; kernel {ms_d:.4f} ms, plain {ms_dp:.4f} ms")
+            f"drops {int(bd.n_drop)}; kernel alone {ms_d:.4f} ms, wrapper {wr_d:.4f} ms, "
+            f"plain {ms_dp:.4f} ms")
         log(f"K1 attributes 256x256: coverage {a_k[3].float().mean().item():.4f}, "
-            f"max abs err {err_a:.3g}, "
-            f"drops {int(ba.n_drop)}; kernel {ms_a:.4f} ms, plain {ms_ap:.4f} ms")
+            f"max abs err {err_a:.3g}, drops {int(ba.n_drop)}; kernel alone {ms_a:.4f} ms, "
+            f"wrapper {wr_a:.4f} ms, plain {ms_ap:.4f} ms")
 
     with Phase("scene build (bench tumbler: 62 boxes of 26^3 voxels, 64 slots, 32^3 i8)"):
         cfg = bench_config(WIDTH, HEIGHT)
@@ -341,8 +384,11 @@ def main() -> int:
         finally:
             rp.raster_depth, rp.raster_attributes = run_depth, run_attr
         kernels = []
+        kernel_names = {"k1_raster_attributes": "k1_attr_kernel",
+                        "k1_raster_depth": "k1_depth_kernel"}
         for name, recorded in views.items():
-            errs, ms, plain_ms, bounds, bound_by = [], [], [], [], []
+            errs, ms, wrapper_ms, plain_ms, bounds, bound_by = [], [], [], [], [], []
+            per_view = []
             for i, (b, n_attr) in enumerate(recorded):
                 if n_attr:
                     def kern(b=b, n=n_attr):
@@ -364,25 +410,43 @@ def main() -> int:
                     cover = (got < 1.0).float().mean().item()
                 err = compare_k1(got, plain(), n_attr, f"{name} view {i}")
                 errs.append(err)
-                ms.append(cuda_time_ms(kern))
+                ms.append(kernel_ms(kern, kernel_names[name]))
+                wrapper_ms.append(cuda_time_ms(kern))
                 plain_ms.append(cuda_time_ms(plain, reps=3, warmup=1))
                 bnd, by = rp.bound_ms(b, n_attr)
                 bounds.append(bnd)
                 bound_by.append(by)
                 n_cand = int(b.ranges[:, 4:].sum())
+                per_tile = b.ranges[:, 4:].sum(dim=1) + b.big_have.sum()
+                tile_max, crowded = int(per_tile.max()), int((per_tile >= 256).sum())
+                per_view.append(dict(view=i, window_candidates=n_cand,
+                                     big=int(b.big_have.sum()), drops=int(b.n_drop),
+                                     tile_max=tile_max, tiles_256_up=crowded,
+                                     coverage=cover, max_abs_err=err, ms=ms[-1],
+                                     wrapper_ms=wrapper_ms[-1], plain_ms=plain_ms[-1],
+                                     bound_ms=bnd, bound_by=by))
                 log(f"{name} view {i} ({b.height}x{b.width}): {n_cand} window candidates, "
-                    f"{int(b.big_have.sum())} big, drops {int(b.n_drop)}; coverage {cover:.6f}, "
-                    f"max abs err {err:.3g}; kernel {ms[-1]:.4f} ms, plain {plain_ms[-1]:.4f} ms, "
-                    f"bound {bnd:.4f} ms ({by})")
+                    f"{int(b.big_have.sum())} big, drops {int(b.n_drop)}, at most {tile_max} "
+                    f"a tile, {crowded} of {per_tile.numel()} tiles with 256 or more; "
+                    f"coverage {cover:.6f}, "
+                    f"max abs err {err:.3g}; kernel alone {ms[-1]:.4f} ms, wrapper "
+                    f"{wrapper_ms[-1]:.4f} ms, plain {plain_ms[-1]:.4f} ms, bound {bnd:.4f} ms "
+                    f"({by}), {bnd / ms[-1]:.3f} of it")
             n = len(recorded)
             kernels.append(dict(
                 name=name, route="cuda", source="impact_tpu_torch/csrc/raster.cu",
-                replaces="impact_tpu/render/raster_pallas.py:495", launches=launches[name],
+                replaces="impact_tpu/render/raster_pallas.py:781", launches=launches[name],
                 max_abs_err=max(errs), ms=sum(ms) / n, plain_ms=sum(plain_ms) / n,
                 bound_ms=sum(bounds) / n,
-                bound_by=max(set(bound_by), key=bound_by.count), library_ms=None))
-            log(f"{name}: {n} launches per frame, mean kernel {sum(ms) / n:.4f} ms, "
-                f"plain {sum(plain_ms) / n:.4f} ms, bound {sum(bounds) / n:.4f} ms")
+                bound_by=max(set(bound_by), key=bound_by.count), library_ms=None,
+                wrapper_ms=sum(wrapper_ms) / n))
+            record[name] = per_view
+            log(f"{name}: {n} launches per frame, mean kernel alone {sum(ms) / n:.4f} ms, "
+                f"wrapper {sum(wrapper_ms) / n:.4f} ms, plain {sum(plain_ms) / n:.4f} ms, "
+                f"bound {sum(bounds) / n:.4f} ms")
+
+    if k1_only:
+        return finish(t_all, record, kernels, kind, count)
 
     with Phase("1080p frame 0: K1 path vs the plain tile raster (render/raster.py) on the card"):
         cfg_r = bench_config(WIDTH, HEIGHT, "raster")
@@ -719,6 +783,10 @@ def main() -> int:
                 inputs={tag: dict(runs[tag][name], plain_ms=plain_ms[tag]) for tag in inputs}))
         record["p2"] = runs
 
+    return finish(t_all, record, kernels, kind, count)
+
+
+def finish(t_all, record, kernels, kind, count) -> int:
     log(f"total wall time {time.perf_counter() - t_all:.1f} s")
     log("record: " + json.dumps(record))
     log(json.dumps({"kernels": kernels}))

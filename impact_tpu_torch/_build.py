@@ -1,9 +1,10 @@
 """Build and load the package's CUDA kernels.
 
-One ``nvcc`` call compiles every ``csrc/*.cu`` into one shared library with a
-plain C interface (no PyTorch headers, so the build takes seconds, not
-minutes), written to ``_build/`` beside this file and keyed by a hash of the
-sources and flags. It runs at first use; ``load()`` returns the library with
+One ``nvcc`` per ``csrc/*.cu``, all started together, compiles the sources
+to objects, and one more links them into a shared library with a plain C
+interface (no PyTorch headers, so the build takes seconds, not minutes),
+written to ``_build/`` beside this file and keyed by a hash of the sources
+and flags. It runs at first use; ``load()`` returns the library with
 every entry point's ``argtypes`` declared. There is no fallback: a missing
 ``nvcc`` or a failed build raises.
 """
@@ -21,8 +22,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 ]
 
 _P = ctypes.c_void_p
@@ -39,7 +39,7 @@ SIGNATURES = {
 }
 
 _lib = None
-build_seconds = None  # wall seconds of the nvcc run in this process, or 0.0 if cached
+build_seconds = None  # wall seconds of the nvcc runs in this process, or 0.0 if cached
 
 
 def _nvcc() -> str:
@@ -61,8 +61,20 @@ def library_path() -> Path:
     return BUILD_DIR / f"libimpact_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run(procs):
+    """Wait for every (cmd, Popen); raise on the first that failed."""
+    failed = None
+    for cmd, proc in procs:
+        out, err = proc.communicate()
+        if proc.returncode != 0 and failed is None:
+            failed = f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}\n{err}"
+    if failed:
+        raise RuntimeError(failed)
+
+
 def build() -> Path:
-    """Compile csrc/*.cu with one nvcc call unless the hashed library exists."""
+    """Compile csrc/*.cu (one nvcc per source, in parallel) and link them,
+    unless the hashed library exists."""
     global build_seconds
     out = library_path()
     if out.exists():
@@ -70,16 +82,26 @@ def build() -> Path:
             build_seconds = 0.0
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    srcs = [str(s) for s in sorted(CSRC.glob("*.cu"))]
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *srcs]
+    tag = f"{out.stem}.{os.getpid()}"
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    objs, procs = [], []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.PIPE, text=True)))
+        objs.append(obj)
+    try:
+        _run(procs)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
+        _run([(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                     text=True))])
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     build_seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}"
-        )
     os.replace(tmp, out)
     return out
 

@@ -43,6 +43,8 @@ _ZKEY_SCALE = float((1 << _ZKEY_BITS) - 2)
 COARSE_FACTOR = 4
 _N_WINDOWS = 4
 _KEY_INF = 0x7FFFFFFF
+_MAX_PAYLOAD_ROWS = 1 << 28  # the attribute kernel flags big-block winners with bit 28
+_MAX_ATTR = 2048  # csrc/raster.cu:kMaxAttr
 
 
 class LaunchCounter(dict):
@@ -216,7 +218,8 @@ class Binned:
         self.payload = payload  # f32[P, R] candidate-major, sorted by (bin, zq)
         self.ranges = ranges  # i32[n_tiles, 8]: 4 window starts, 4 counts
         self.big = big  # f32[nb, R] nearest-first big block
-        self.big_have = big_have  # bool[nb]
+        # bool[nb]: one byte of 0 or 1 per slot, which K1 reads as it is
+        self.big_have = big_have
         self.n_drop = n_drop  # i64[] candidates lost to window/big overflow
         self.th, self.tw, self.tile = th, tw, tile
         self.k_per_range = k_per_range
@@ -470,6 +473,10 @@ def _check_binned(b: Binned):
         raise ValueError("K1 ranges must be int32 [n_tiles, 8]")
     if b.big.shape[0] > _LANES or b.big_have.shape != (b.big.shape[0],):
         raise ValueError("K1 big block holds at most 128 candidates")
+    if b.big_have.dtype != torch.bool or not b.big_have.is_contiguous():
+        raise ValueError("K1 big_have must be contiguous bool")
+    if b.payload.shape[0] >= _MAX_PAYLOAD_ROWS:
+        raise ValueError(f"K1 takes fewer than {_MAX_PAYLOAD_ROWS} payload rows")
     if b.tile not in (16, 32):
         raise ValueError(f"K1 supports tiles of 16 or 32 px, not {b.tile}")
     devs = {t.device for t in (b.payload, b.ranges, b.big, b.big_have)}
@@ -497,9 +504,8 @@ def raster_depth(b: Binned):
 
     lib = _build.load()
     out = torch.empty((b.height, b.width), dtype=torch.float32, device=b.payload.device)
-    have = b.big_have.to(torch.uint8).contiguous()
     rc = lib.k1_raster_depth(
-        _ptr(b.payload), b.rows, _ptr(b.ranges), _ptr(b.big), _ptr(have),
+        _ptr(b.payload), b.rows, _ptr(b.ranges), _ptr(b.big), _ptr(b.big_have),
         b.big.shape[0], out.data_ptr(), b.height, b.width, b.tile, b.tw, b.th * b.tw,
         torch.cuda.current_stream(b.payload.device).cuda_stream,
     )
@@ -513,10 +519,12 @@ def raster_attributes(b: Binned, n_attr: int):
     if b.payload.device.type == "cpu":
         return raster_attributes_plain(b, n_attr)
     _check_binned(b)
-    if b.payload.device.type != "cuda":
-        raise ValueError(f"K1 runs on cuda or cpu tensors, not {b.payload.device}")
     if b.rows != GEOM_ROWS + 3 * n_attr:
         raise ValueError(f"payload rows {b.rows} != 12 + 3*{n_attr}")
+    if not 1 <= n_attr <= _MAX_ATTR:
+        raise ValueError(f"K1 takes 1 to {_MAX_ATTR} attributes, not {n_attr}")
+    if b.payload.device.type != "cuda":
+        raise ValueError(f"K1 runs on cuda or cpu tensors, not {b.payload.device}")
     from .. import _build
 
     lib = _build.load()
@@ -525,17 +533,16 @@ def raster_attributes(b: Binned, n_attr: int):
     interp = torch.empty((h, w, n_attr), dtype=torch.float32, device=dev)
     near = torch.empty((h, w, n_attr), dtype=torch.float32, device=dev)
     z = torch.empty((h, w), dtype=torch.float32, device=dev)
-    valid = torch.empty((h, w), dtype=torch.uint8, device=dev)
-    have = b.big_have.to(torch.uint8).contiguous()
+    valid = torch.empty((h, w), dtype=torch.bool, device=dev)  # written as bytes 0 or 1
     rc = lib.k1_raster_attributes(
-        _ptr(b.payload), b.rows, _ptr(b.ranges), _ptr(b.big), _ptr(have),
+        _ptr(b.payload), b.rows, _ptr(b.ranges), _ptr(b.big), _ptr(b.big_have),
         b.big.shape[0], n_attr, b.n_blocks, b.pos_bits,
         interp.data_ptr(), near.data_ptr(), z.data_ptr(), valid.data_ptr(),
         h, w, b.tile, b.tw, b.th * b.tw, torch.cuda.current_stream(dev).cuda_stream,
     )
     _launch_check(rc, "k1_raster_attributes")
     LAUNCHES["k1_raster_attributes"] += 1
-    return interp, near, z, valid.bool()
+    return interp, near, z, valid
 
 
 # --- public wrappers (same signatures as the reference's) ----------------------

@@ -209,3 +209,28 @@ def test_bound_counts_each_referenced_row_once():
     px = np.array([min(32, W - (t % b.tw) * 32) * min(32, H - (t // b.tw) * 32)
                    for t in range(b.th * b.tw)])
     assert by == "operations" and ms == pytest.approx(14 * float((cand * px).sum()) * 1e3)
+
+
+def test_kernel_inputs_need_no_conversion():
+    """The prologue hands K1 its big-block mask as contiguous bool (one byte
+    of 0 or 1 a slot, read by the kernel as it is); the launch checks refuse
+    a mask of another type, and A past the kernel's exact run division."""
+    pos9, attrs, active = _soup(0)
+    b, a = trp.bin_attributes_pos(torch.from_numpy(pos9), torch.from_numpy(active),
+                                  torch.from_numpy(attrs), torch.from_numpy(_vp()), H, W,
+                                  tile=32, k_per_range=K, big_budget=BIG)
+    assert b.big_have.dtype == torch.bool and b.big_have.is_contiguous()
+    assert b.big_have.untyped_storage().nbytes() == b.big_have.numel()
+    trp._check_binned(b)
+    b.big_have = b.big_have.to(torch.uint8)
+    with pytest.raises(ValueError, match="big_have"):
+        trp._check_binned(b)
+    a = trp._MAX_ATTR + 1
+    rows = trp.GEOM_ROWS + 3 * a
+    meta = dict(device="meta")
+    wide = trp.Binned(torch.empty((1, rows), **meta),
+                      torch.empty((b.th * b.tw, 8), dtype=torch.int32, **meta),
+                      torch.empty((0, rows), **meta), torch.empty((0,), dtype=torch.bool, **meta),
+                      None, b.th, b.tw, b.tile, K, H, W)
+    with pytest.raises(ValueError, match="attributes"):
+        trp.raster_attributes(wide, a)
