@@ -3,9 +3,9 @@
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It builds the port's CUDA kernels from ``impact_tpu_torch/csrc`` (one nvcc
-per source, all started together), checks the connected-component kernel K2
-and the tile rasterizer K1 against their plain PyTorch versions, then drives
-three paths through the port's entry points:
+per source, all started together), checks the connected-component sweep
+kernel K2 and the tile rasterizer K1 against their plain PyTorch versions,
+then drives these paths through the port's entry points:
 
 1. the bench scene's render (62 voxel boxes of 26³ voxels in 64 slots of
    32³ i8 grids; 1920x1080, shadow maps 512², AO, TAA, bloom, ACES) through
@@ -14,14 +14,17 @@ three paths through the port's entry points:
    0.005) and rendered at 1080p (``step_and_render``);
 3. the reference's fracture bench (a radius-5 voxel sphere at 18 m/s into a
    fracturable 14-voxel box; 208 slots, up to 192 fragments) stepped through
-   its fracture event and the split detection after it, which runs K2;
-4. split-detection labelling (``connected_component_labels``) of grids
-   past K2's u16 limit, G = 48 and 63, which runs K2-wide, and the two-level
-   labelling at 64³;
-5. the P1 probe ladder (``devtools.probe_kernel_floor.run_ladder``: five
+   its fracture event and the split detection after it, which runs the
+   labels kernel (``connected_component_labels_batched``);
+4. the labels kernel against its plain version and timed on the grids the
+   fracture bench labelled and on batches at G = 39, 40, 48, 63 and 72
+   (``connected_component_labels``), and the two-level labelling at 64³;
+5. the sweep function ``ccl_sweeps`` (the port of ``ccl_propagate_sweeps``)
+   on the fracture grids (K2) and at G = 39, 40, 48 and 63 (K2-wide);
+6. the P1 probe ladder (``devtools.probe_kernel_floor.run_ladder``: five
    modes over the 8160 tiles of 1080p), each mode held against its plain
    version on the full output;
-6. the P2 probe ablation (``devtools.probe_kernel_ablate.run_ablation``:
+7. the P2 probe ablation (``devtools.probe_kernel_ablate.run_ablation``:
    six variants at 512² over 262,144 triangles), on the probe's own input
    (an empty frame) and with its clip z negated, each variant held against
    its plain version.
@@ -34,10 +37,17 @@ repository beside it.
 
 K1 is timed two ways on every view of a bench frame: the kernel's own device
 time (``kernel_ms``: torch.profiler's device time of the kernel's launches,
-which the ``kernels`` record reports as ``ms``) and the wrapper call between
-two CUDA events (``wrapper``), which also holds the wrapper's host work.
+which the ``kernels`` record reports as ``ms``; where the profiler records
+none of the launches, CUDA events behind a busy stream, ``busy_events_ms``)
+and the wrapper call between two CUDA events (``wrapper``), which also holds
+the wrapper's host work.
 ``--k1-only`` stops after the K1 phases (the K1 parts of the record, then the
 same last line), so two trees' K1 kernels can be timed in turns in one call.
+``--ccl-only`` runs only the labelling: the fracture bench to record its
+grids, then the two labels phases (CUDA events around the labels call, 20
+calls after 2). It also runs on trees from before the labels kernel, to time
+them in turns with this one; there the bound is not printed, and the labels
+at G = 39 and 40 fail.
 """
 
 from __future__ import annotations
@@ -124,20 +134,24 @@ def compare_k1(got, ref, n_attr, what):
     return err
 
 
-def kernel_ms(fn, kernel, reps=20, warmup=2):
+def kernel_ms(fn, kernel, reps=20, warmup=2, events=True):
     """Mean device ms of one launch of the CUDA kernel whose name contains
     ``kernel``, from torch.profiler over ``reps`` calls of ``fn``, each of
     which launches it once: the kernel alone, without the wrapper's host
-    work or any other launch."""
+    work or any other launch.
+
+    The profiler now and then loses launch records (1 of 20; in some runs
+    all of them, in every profile of one kernel): the mean is taken over the
+    recorded launches, and the profile is taken again when fewer than half
+    were recorded. After three such profiles the time comes from
+    ``busy_events_ms`` (device time of the whole call, which also holds any
+    other launch of ``fn``) when ``events`` is true, else it is None."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    # the profiler now and then loses launch records (1 of 20, once all 20 of
-    # one profile): take the mean over the recorded launches, and profile
-    # again when fewer than half were recorded
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
@@ -149,7 +163,41 @@ def kernel_ms(fn, kernel, reps=20, warmup=2):
         us = sum(getattr(e, "self_device_time_total", 0.0) for e in hits)
         if reps // 2 <= n <= reps and us > 0.0:
             return us / n / 1e3
-    raise AssertionError(f"the profiler saw {n} launches of {kernel} ({us} us) in {reps} calls")
+    if not events:
+        log(f"kernel_ms: the profiler saw {n} launches of {kernel} ({us} us) in {reps} calls, "
+            f"three times; not timed alone")
+        return None
+    ms = busy_events_ms(fn, reps)
+    log(f"kernel_ms: the profiler saw {n} launches of {kernel} ({us} us) in {reps} calls, "
+        f"three times; timed by CUDA events behind a busy stream instead: {ms:.4f} ms")
+    return ms
+
+
+def busy_events_ms(fn, reps=20, sleep_cycles=200_000_000):
+    """Mean device ms per call of ``fn`` between two CUDA events, with the
+    stream held busy (``torch.cuda._sleep``, about 0.1 s) while the host
+    issues the start event and the ``reps`` calls, so that the calls run
+    back to back and the events see device work only, not the wrapper's
+    host work. Fails if the host took longer to issue than 20 ms, when
+    the sleep may have ended before the calls were queued."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(sleep_cycles)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    issue_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    if issue_s > 0.02:
+        raise AssertionError(f"busy_events_ms: the host took {issue_s * 1e3:.1f} ms to issue "
+                             f"{reps} calls; the stream may have idled between them")
+    return start.elapsed_time(end) / reps
 
 
 def serpentine(g):
@@ -201,6 +249,264 @@ def time_k2(occ, reps=20):
     return ms, plain, bound, by, sweeps.tolist()
 
 
+def labels_plain(occ):
+    """The labels' plain version (``connected_component_labels_plain``): the
+    fixpoint sweep, −1 where empty, spelled with the sweep function so that
+    ``--ccl-only`` runs on trees without the labels kernel too."""
+    import torch
+
+    from impact_tpu_torch.ops import ccl_pallas as k2
+
+    labels, _ = k2.ccl_sweeps_plain(occ, k2.initial_labels(occ), occ.shape[-1] ** 3)
+    return torch.where(occ, labels, -1)
+
+
+def checkerboard(g):
+    """Every voxel with i + j + k even: each its own component."""
+    import numpy as np
+
+    i, j, k = np.indices((g, g, g))
+    return (i + j + k) % 2 == 0
+
+
+def wide_batch(g, dev):
+    """Random fills 0.2/0.35/0.5 and the serpentine: bool [4,G,G,G]."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(g)
+    grids = [rng.uniform(size=(g, g, g)) < f for f in (0.2, 0.35, 0.5)]
+    return torch.tensor(np.stack(grids + [serpentine(g)]), device=dev)
+
+
+def edge_batch(g, dev):
+    """Random fills 0.2/0.35/0.5/0.7, the serpentine, empty, full, the
+    checkerboard and one voxel at each corner: bool [9,G,G,G]."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(g)
+    corners = np.zeros((g, g, g), bool)
+    corners[::g - 1, ::g - 1, ::g - 1] = True
+    grids = [rng.uniform(size=(g, g, g)) < f for f in (0.2, 0.35, 0.5, 0.7)]
+    grids += [serpentine(g), np.zeros((g, g, g), bool), np.ones((g, g, g), bool),
+              checkerboard(g), corners]
+    return torch.tensor(np.stack(grids), device=dev)
+
+
+def fracture_phase(dev, record, full=True):
+    """Step the fracture bench through its fracture event and
+    STEPS_AFTER_EVENT steps after it, recording every batch its split
+    detection labels (at ``connected_component_labels_batched``, where
+    ``voxel/interaction.py`` calls it). With ``full``, also render a frame
+    and hold the launch counts: the labels kernel after the event, no sweep
+    kernel. Returns (the non-empty recorded batches, labels launches)."""
+    import torch
+
+    from impact_tpu_torch.models.bench import bench_fracture_config, bench_fracture_scene
+    from impact_tpu_torch.ops import ccl_pallas as k2
+    from impact_tpu_torch.render import raster_pallas as rp
+    from impact_tpu_torch.runtime import HeadlessRuntime, compile_scene
+    from impact_tpu_torch.voxel import interaction
+    from impact_tpu_torch.voxel.object import nonempty_counts
+
+    with Phase("fracture bench: step through the fracture event and the splits after it"):
+        fcfg = bench_fracture_config()
+        frt = HeadlessRuntime(compile_scene(bench_fracture_scene(), fcfg, device=dev), fcfg)
+        grids = []
+        run_labels = interaction.connected_component_labels_batched
+
+        def rec_labels(occ):
+            grids.append(occ.clone())
+            return run_labels(occ)
+
+        alive0 = int(frt.sim.voxels.alive.sum())
+        log(f"fracture: {int(nonempty_counts(frt.sim.voxels).sum())} active voxels in "
+            f"{alive0} objects")
+        step_ms, event_step, peak = [], None, 0
+        rp.LAUNCHES.reset()
+        k2.LAUNCHES.reset()
+        syncs0 = frt.host_syncs
+        interaction.connected_component_labels_batched = rec_labels
+        try:
+            for i in range(1, FRACTURE_MAX_STEPS + 1):
+                torch.cuda.reset_peak_memory_stats(dev)
+                frt.step(1)
+                step_ms.append(frt.step_ms)
+                if int(frt.sim.voxels.alive.sum()) > alive0:
+                    event_step = i
+                    peak = torch.cuda.max_memory_allocated(dev)
+                    break
+            if event_step is None:
+                raise AssertionError(f"no fracture event within {FRACTURE_MAX_STEPS} steps")
+            n_fragments = int(frt.sim.voxels.alive.sum()) - alive0
+            at_event = dict(k2.LAUNCHES)
+            frt.step(STEPS_AFTER_EVENT)
+            after_ms = frt.step_ms / STEPS_AFTER_EVENT
+        finally:
+            interaction.connected_component_labels_batched = run_labels
+        torch.cuda.synchronize()
+        fracture_launches = {**dict(rp.LAUNCHES), **dict(k2.LAUNCHES)}
+        n_steps = event_step + STEPS_AFTER_EVENT
+        syncs = (frt.host_syncs - syncs0) / n_steps
+        steady = sorted(step_ms[-6:-1])[2] if len(step_ms) >= 6 else min(step_ms[:-1] or [0.0])
+        pending = int(frt.sim.voxels.split_pending.sum())
+        batches = [x for x in grids if x.shape[0] > 0]
+        log(f"fracture: event at step {event_step}, {n_fragments} fragments "
+            f"(alive {alive0} -> {alive0 + n_fragments}); event step {step_ms[-1]:.2f} ms, "
+            f"steady step {steady:.2f} ms (median of the 5 before), event - steady "
+            f"{step_ms[-1] - steady:.2f} ms; peak memory of the event step "
+            f"{peak / 2**30:.3f} GiB; {STEPS_AFTER_EVENT} steps after it {after_ms:.2f} ms each, "
+            f"{pending} objects still split-pending")
+        log(f"fracture: {(event_step - 1) / (sum(step_ms[:-1]) / 1e3 or 1):.2f} steps/s before the "
+            f"event; {syncs:.2f} host syncs per step; {len(grids)} labelling calls on "
+            f"{sum(x.shape[0] for x in grids)} grids (batches {[x.shape[0] for x in grids]}); "
+            f"launches at the event {at_event}, after {STEPS_AFTER_EVENT} more steps "
+            f"{fracture_launches}")
+        if n_fragments < 2:
+            raise AssertionError(f"the event made {n_fragments} fragments")
+        if not batches:
+            raise AssertionError("the split detection labelled no grid")
+        if not full:
+            return batches, None
+        labels_launches = k2.LAUNCHES["k2_labels"]
+        if labels_launches - at_event["k2_labels"] <= 0:
+            raise AssertionError("the labels kernel was not launched on the steps after the "
+                                 "fracture event")
+        if k2.LAUNCHES["k2_ccl"] or k2.LAUNCHES["k2_ccl_wide"]:
+            raise AssertionError(f"the split detection launched a sweep kernel: "
+                                 f"{fracture_launches}")
+        if not body_state_finite(frt.sim):
+            raise AssertionError("non-finite body state in the fracture bench")
+        frt.render()
+        torch.cuda.synchronize()
+        geo_drops, shadow_drops = frt.last_drops
+        log(f"fracture: 320x200 frame drops geometry {geo_drops} shadows {shadow_drops}; "
+            + ", ".join(f"{k} {v:.2f} ms" for k, v in frt.stage_ms.items()))
+        record["fracture"] = dict(event_step=event_step, fragments=n_fragments,
+                                  event_ms=step_ms[-1], steady_ms=steady,
+                                  event_minus_steady_ms=step_ms[-1] - steady,
+                                  peak_gib=peak / 2**30, after_event_ms=after_ms,
+                                  host_syncs=syncs, launches=fracture_launches)
+    return batches, labels_launches
+
+
+def labels_phases(dev, batches, labels_launches, record, kernels):
+    """The labels kernel against its plain version, exactly, and timed
+    (``connected_component_labels_batched`` between CUDA events, 20 calls
+    after 2; its plain version one call, or 2 after 1 on the timed batches)
+    beside ``labels_bound_ms``, each pass's device time alone
+    (torch.profiler) and the host's issue time per call: on the fracture
+    grids, 48³ × 4 and 63³ × 4, 63³ × 4 full and checkerboard (the most and
+    the fewest unions), then on nine edge grids each at G = 39, 40 and 72.
+    Then the routed entry point at every flat G goes through the labels
+    kernel alone, and no labelling call reads from the card."""
+    import numpy as np
+    import torch
+
+    from impact_tpu_torch.devtools import cuda_time_ms
+    from impact_tpu_torch.ops import ccl_pallas as k2
+    from impact_tpu_torch.voxel.interaction import connected_component_labels
+
+    # trees from before the labels kernel have neither its bound nor its passes
+    new_tree = hasattr(k2, "labels_bound_ms")
+    rows, err = {}, 0
+
+    def hold(name, occ, plain_reps):
+        nonlocal err
+        got = k2.connected_component_labels_batched(occ)
+        again = k2.connected_component_labels_batched(occ)
+        ref = labels_plain(occ)
+        torch.cuda.synchronize()
+        if got.shape != ref.shape or got.dtype != torch.int32:
+            raise AssertionError(f"labels {name}: {tuple(got.shape)} {got.dtype}")
+        if ref.numel():
+            err = max(err, int((got.long() - ref.long()).abs().max()))
+        if not torch.equal(got, ref):
+            raise AssertionError(f"labels {name}: {int((got != ref).sum())} labels differ from "
+                                 f"the plain version")
+        if not torch.equal(again, got):
+            raise AssertionError(f"labels {name}: two calls on the same grids differ")
+
+        def call():
+            return k2.connected_component_labels_batched(occ)
+
+        ms = cuda_time_ms(call, reps=20)
+        plain = cuda_time_ms(lambda: labels_plain(occ), reps=plain_reps, warmup=plain_reps - 1)
+        n_comp = [len(torch.unique(x[x >= 0])) for x in got]
+        log(f"labels {name}, batch of {occ.shape[0]} (components {n_comp}): equal to the plain "
+            f"version in two calls; {ms:.4f} ms per call, plain {plain:.4f} ms")
+        rows[name] = dict(ms=ms, plain_ms=plain)
+        if new_tree:
+            bound, by = k2.labels_bound_ms(occ)
+            host = host_us(call)
+            # one call launches all three passes, so a pass the profiler missed
+            # cannot be timed alone by events: it stays None
+            passes = {p: kernel_ms(call, f"k2_labels_{p}", events=False)
+                      for p in ("tile", "faces", "compress")}
+            timed = [v for v in passes.values() if v is not None]
+            log(f"labels {name}: bound {bound:.6f} ms ({by}); passes alone "
+                + ", ".join(f"{p} {v:.4f} ms" if v is not None else f"{p} not timed"
+                            for p, v in passes.items())
+                + f" (sum of the timed {sum(timed):.4f}); host issue {host:.1f} us per call")
+            rows[name].update(bound_ms=bound, bound_by=by, passes_ms=passes, host_us=host)
+
+    with Phase("labels kernel vs plain version, timed: the fracture grids, 48^3 x 4 and "
+               "63^3 x 4 (fills 0.2/0.35/0.5, serpentine), 63^3 x 4 full and checkerboard"):
+        four = next((x for x in batches if x.shape[0] == 4), batches[0])
+        hold("fracture grids", four, 2)
+        for g in (48, 63):
+            hold(f"{g}^3", wide_batch(g, dev), 2)
+        hold("63^3 full", torch.ones((4, 63, 63, 63), dtype=torch.bool, device=dev), 2)
+        hold("63^3 checkerboard", torch.tensor(np.stack([checkerboard(63)] * 4), device=dev), 2)
+
+    with Phase("labels kernel vs plain version at G=39, 40 and 72 (fills, serpentine, empty, "
+               "full, checkerboard, corners); routing; no host read"):
+        edges = {g: edge_batch(g, dev) for g in (39, 40, 72)}
+        for g, occ in edges.items():
+            hold(f"{g}^3 edge grids", occ, 1)
+        k2.LAUNCHES.reset()
+        flat = [four] + [wide_batch(g, dev) for g in (48, 63)] + list(edges.values())
+        for occ in flat:
+            connected_component_labels(occ)
+        torch.cuda.synchronize()
+        log(f"connected_component_labels at G=32, 48, 63, 39, 40, 72: launches "
+            f"{dict(k2.LAUNCHES)}")
+        if dict(k2.LAUNCHES) != dict(k2_ccl=0, k2_ccl_wide=0, k2_labels=len(flat)):
+            raise AssertionError(f"the flat labelling did not go through the labels kernel alone: "
+                                 f"{dict(k2.LAUNCHES)}")
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for occ in flat:
+                k2.connected_component_labels_batched(occ)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        log("no labelling call synchronised with the host (torch.cuda sync debug mode 'error')")
+
+    r = rows["fracture grids"]
+    kernels.append(dict(
+        name="k2_labels", route="cuda", source="impact_tpu_torch/csrc/ccl.cu",
+        replaces="impact_tpu/ops/ccl_pallas.py:45", launches=labels_launches,
+        max_abs_err=float(err), ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r.get("bound_ms"),
+        bound_by=r.get("bound_by"), library_ms=None))
+    record["k2_labels"] = rows
+
+
+def host_us(fn, reps=50):
+    """Host microseconds per call of ``fn`` to issue its work (no sync in
+    the timed loop; the card drains the queue afterwards)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / reps * 1e6
+
+
 def body_state_finite(sim):
     import torch
 
@@ -213,7 +519,10 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Chip smoke test of the PyTorch/CUDA port.")
     ap.add_argument("--k1-only", action="store_true",
                     help="stop after the K1 phases (kernel vs plain version, timings)")
-    k1_only = ap.parse_args(argv).k1_only
+    ap.add_argument("--ccl-only", action="store_true",
+                    help="run only the labelling phases (fracture grids, labels timings)")
+    args = ap.parse_args(argv)
+    k1_only, ccl_only = args.k1_only, args.ccl_only
     t_all = time.perf_counter()
     import numpy as np
     import torch
@@ -265,6 +574,12 @@ def main(argv=None) -> int:
             f"(nvcc {_build.build_seconds:.2f} s)")
 
     from impact_tpu_torch.ops import ccl_pallas as k2
+
+    if ccl_only:
+        kernels = []
+        batches, labels_launches = fracture_phase(dev, record, full=False)
+        labels_phases(dev, batches, labels_launches, record, kernels)
+        return finish(t_all, record, kernels, kind, count)
 
     with Phase("K2 vs plain version, G=32: random fills, serpentine, empty, full"):
         rng = np.random.default_rng(0)
@@ -524,72 +839,7 @@ def main(argv=None) -> int:
                                  broad_phase_overflow=rt.broad_phase_overflow(),
                                  geometry_drops=geo_drops, shadow_drops=shadow_drops)
 
-    with Phase("fracture bench: step through the fracture event and the splits after it"):
-        fcfg = bench_fracture_config()
-        frt = HeadlessRuntime(compile_scene(bench_fracture_scene(), fcfg, device=dev), fcfg)
-        k2_grids = []
-        run_sweeps = k2.ccl_sweeps
-
-        def rec_sweeps(occ, labels, max_sweeps):
-            k2_grids.append(occ.clone())
-            return run_sweeps(occ, labels, max_sweeps)
-
-        alive0 = int(frt.sim.voxels.alive.sum())
-        log(f"fracture: {int(nonempty_counts(frt.sim.voxels).sum())} active voxels in "
-            f"{alive0} objects")
-        step_ms, event_step, peak = [], None, 0
-        rp.LAUNCHES.reset()
-        k2.LAUNCHES.reset()
-        syncs0 = frt.host_syncs
-        k2.ccl_sweeps = rec_sweeps
-        try:
-            for i in range(1, FRACTURE_MAX_STEPS + 1):
-                torch.cuda.reset_peak_memory_stats(dev)
-                frt.step(1)
-                step_ms.append(frt.step_ms)
-                if int(frt.sim.voxels.alive.sum()) > alive0:
-                    event_step = i
-                    peak = torch.cuda.max_memory_allocated(dev)
-                    break
-            if event_step is None:
-                raise AssertionError(f"no fracture event within {FRACTURE_MAX_STEPS} steps")
-            n_fragments = int(frt.sim.voxels.alive.sum()) - alive0
-            k2_at_event = k2.LAUNCHES["k2_ccl"]
-            frt.step(STEPS_AFTER_EVENT)
-            after_ms = frt.step_ms / STEPS_AFTER_EVENT
-        finally:
-            k2.ccl_sweeps = run_sweeps
-        img = frt.render()
-        torch.cuda.synchronize()
-        fracture_launches = {**dict(rp.LAUNCHES), **dict(k2.LAUNCHES)}
-        n_steps = event_step + STEPS_AFTER_EVENT
-        syncs = (frt.host_syncs - syncs0) / n_steps
-        steady = sorted(step_ms[-6:-1])[2] if len(step_ms) >= 6 else min(step_ms[:-1] or [0.0])
-        pending = int(frt.sim.voxels.split_pending.sum())
-        if n_fragments < 2:
-            raise AssertionError(f"the event made {n_fragments} fragments")
-        if k2.LAUNCHES["k2_ccl"] - k2_at_event <= 0:
-            raise AssertionError("K2 was not launched on the steps after the fracture event")
-        if not body_state_finite(frt.sim):
-            raise AssertionError("non-finite body state in the fracture bench")
-        geo_drops, shadow_drops = frt.last_drops
-        log(f"fracture: event at step {event_step}, {n_fragments} fragments "
-            f"(alive {alive0} -> {alive0 + n_fragments}); event step {step_ms[-1]:.2f} ms, "
-            f"steady step {steady:.2f} ms (median of the 5 before), event - steady "
-            f"{step_ms[-1] - steady:.2f} ms; peak memory of the event step "
-            f"{peak / 2**30:.3f} GiB; {STEPS_AFTER_EVENT} steps after it {after_ms:.2f} ms each, "
-            f"{pending} objects still split-pending")
-        log(f"fracture: {(event_step - 1) / (sum(step_ms[:-1]) / 1e3 or 1):.2f} steps/s before the "
-            f"event; {syncs:.2f} host syncs per step; K2 launches {k2.LAUNCHES['k2_ccl']} "
-            f"({k2.LAUNCHES['k2_ccl'] - k2_at_event} after the event) on "
-            f"{sum(x.shape[0] for x in k2_grids)} grids; 320x200 frame drops geometry "
-            f"{geo_drops} shadows {shadow_drops}; "
-            + ", ".join(f"{k} {v:.2f} ms" for k, v in frt.stage_ms.items()))
-        record["fracture"] = dict(event_step=event_step, fragments=n_fragments,
-                                  event_ms=step_ms[-1], steady_ms=steady,
-                                  event_minus_steady_ms=step_ms[-1] - steady,
-                                  peak_gib=peak / 2**30, after_event_ms=after_ms,
-                                  host_syncs=syncs, launches=fracture_launches)
+    batches, labels_launches = fracture_phase(dev, record)
 
     with Phase(f"fracture scene at reduced depth ({SMALL_FRAGMENTS} fragment slots): the card "
                f"vs the port on the CPU, same uniforms"):
@@ -630,8 +880,15 @@ def main(argv=None) -> int:
         record["reduced_fracture_card_vs_cpu"] = dict(event=c["event"], moved_voxels=moved,
                                                       max_position_diff=dpos)
 
-    with Phase("K2 vs plain version on the grids the fracture bench labelled"):
-        batches = [x for x in k2_grids if x.shape[0] > 0]
+    with Phase("ccl_sweeps (K2) on the grids the fracture bench labelled, against its plain "
+               "version"):
+        k2.LAUNCHES.reset()
+        for x in batches:
+            k2.ccl_sweeps(x, k2.initial_labels(x), x.shape[-1] ** 3)
+        torch.cuda.synchronize()
+        sweeps_launches = k2.LAUNCHES["k2_ccl"]
+        if sweeps_launches <= 0 or k2.LAUNCHES["k2_ccl_wide"] != 0:
+            raise AssertionError(f"the fracture grids did not go through K2: {dict(k2.LAUNCHES)}")
         occ = torch.cat(batches)
         sweeps, k2_err = check_k2(occ, "fracture-bench grids")
         log(f"K2 equal to its plain version on {occ.shape[0]} labelled grids in "
@@ -645,27 +902,23 @@ def main(argv=None) -> int:
             f"{ms1:.4f} ms (sweeps {sw1}), plain {plain1:.4f} ms, bound {bound1:.6f} ms ({by1})")
         kernels.append(dict(
             name="k2_ccl", route="cuda", source="impact_tpu_torch/csrc/ccl.cu",
-            replaces="impact_tpu/ops/ccl_pallas.py:45", launches=fracture_launches["k2_ccl"],
+            replaces="impact_tpu/ops/ccl_pallas.py:45", launches=sweeps_launches,
             max_abs_err=k2_err, ms=ms4, plain_ms=plain4, bound_ms=bound4, bound_by=by4,
             library_ms=None))
 
+    labels_phases(dev, batches, labels_launches, record, kernels)
+
     from impact_tpu_torch.voxel.interaction import connected_component_labels
 
-    with Phase("K2-wide vs plain version, G=48 and G=63: random fills, serpentine; "
-               "labelling path and the two-level labels at 64^3"):
-        rng = np.random.default_rng(1)
-        wide = {}
-        for g in (48, 63):
-            grids = [rng.uniform(size=(g, g, g)) < f for f in (0.2, 0.35, 0.5)]
-            wide[g] = torch.tensor(np.stack(grids + [serpentine(g)]), device=dev)
+    with Phase("K2-wide vs plain version, G=39, 40, 48 and 63: random fills, serpentine; "
+               "the two-level labels at 64^3"):
+        wide = {g: wide_batch(g, dev) for g in (39, 40, 48, 63)}
         k2.LAUNCHES.reset()
         for g, occ in wide.items():
-            labels = connected_component_labels(occ)
-            torch.cuda.synchronize()
-            if tuple(labels.shape) != tuple(occ.shape) or bool((labels[occ] < 0).any()):
-                raise AssertionError(f"labels at G={g}: {tuple(labels.shape)}")
+            k2.ccl_sweeps(occ, k2.initial_labels(occ), g ** 3)
+        torch.cuda.synchronize()
         wide_launches = k2.LAUNCHES["k2_ccl_wide"]
-        log(f"labelling path at G=48 and G=63: launches {dict(k2.LAUNCHES)}")
+        log(f"ccl_sweeps at G=39, 40, 48 and 63: launches {dict(k2.LAUNCHES)}")
         if wide_launches <= 0 or k2.LAUNCHES["k2_ccl"] != 0:
             raise AssertionError(f"the wide grids did not go through K2-wide: {dict(k2.LAUNCHES)}")
         wide_err, wide_rows = 0.0, {}
@@ -674,16 +927,20 @@ def main(argv=None) -> int:
             wide_err = max(wide_err, err)
             if sweeps[3] < g * g // 2:
                 raise AssertionError(f"the G={g} serpentine settled in {int(sweeps[3])} sweeps")
+            if g in (39, 40):
+                log(f"K2-wide G={g}: labels and sweeps equal the plain version (sweeps "
+                    f"{sweeps.tolist()})")
+                continue
             ms, plain, bound, by, sw = time_k2(occ, reps=5)
             wide_rows[g] = (ms, plain, bound, by)
             log(f"K2-wide G={g}, batch of 4 (fills 0.2/0.35/0.5, serpentine): labels and sweeps "
                 f"equal the plain version; {ms:.4f} ms per fixpoint call (sweeps {sw}), plain "
                 f"{plain:.4f} ms, bound {bound:.6f} ms ({by})")
+        rng = np.random.default_rng(64)
         occ64 = torch.tensor(np.stack([rng.uniform(size=(64, 64, 64)) < f for f in (0.3, 0.45)]
                                       + [serpentine(64)]), device=dev)
-        flat, _ = k2.ccl_sweeps_plain(occ64, k2.initial_labels(occ64), 64 ** 3)
         two = connected_component_labels(occ64)
-        if not torch.equal(two, torch.where(occ64, flat, -1)):
+        if not torch.equal(two, labels_plain(occ64)):
             raise AssertionError("the two-level labels at 64^3 differ from the flat plain sweep")
         log("two-level labels at 64^3 (fills 0.3/0.45, serpentine) equal the flat plain sweep's")
         ms, plain, bound, by = wide_rows[63]

@@ -1,41 +1,72 @@
-// K2: connected-component min-label propagation, hand-written for Hopper
-// (sm_90a).
+// K2: connected-component labelling, hand-written for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel impact_tpu/ops/ccl_pallas.py:_ccl_kernel
-// (ccl_propagate_sweeps -> pl.pallas_call), which runs n_sweeps sweeps over
-// one VMEM-resident [G,G,G] i32 label grid, and its host fixpoint loop
-// (connected_component_labels_pallas: one kernel call per 16 sweeps until
-// nothing changes). It computes, for each grid of a batch, up to max_sweeps
-// Jacobi sweeps of
-//     new[v] = occ[v] ? min(lab[v], lab[six face neighbours]) : big
-// with big = G^3 past the border, stopping a grid after the first sweep that
-// changes nothing. Labels converge to the minimum linear index of each
-// 6-connected component. (The Pallas kernel composes its three axis passes
-// through the intermediate minimum, which also joins voxels that touch only
-// along an edge or corner; this kernel keeps the 6-connected sweep of the
-// reference's XLA path, whose fixpoint the engine's split detection means.)
+// (:45; ccl_propagate_sweeps -> pl.pallas_call), which runs n_sweeps Jacobi
+// min-sweeps over one VMEM-resident [G,G,G] i32 label grid, and its host
+// fixpoint loop (connected_component_labels_pallas, :75-100: one kernel call
+// per 16 sweeps until nothing changes). This file holds two designs.
 //
-// Design (first, simple version): one 1024-thread block owns one grid;
-// gridDim.x counts the grids. The labels stay in shared memory for every
-// sweep as two u16 buffers (G^3 <= 65535, big included: 2 x 64 KB at G = 32)
-// plus a G^3-bit occupancy mask (4 KB), 132 KB of dynamic shared memory in
-// all, above the 48 KB default and so opted into with
-// cudaFuncSetAttribute. Each sweep reads one buffer and writes the other,
-// and ends in __syncthreads_or(changed), which is both the barrier between
-// sweeps and the fixpoint test: the loop that the TPU ran from the host, one
-// launch and one device-to-host read of "changed" per 16 sweeps, runs on the
-// card in one launch.
+// 1. The labels (k2_ccl_labels, the engine's split detection): for each grid
+//    of a batch, i32 labels equal to the sweeps' fixpoint, the minimum linear
+//    index i*G^2 + j*G + k of each voxel's 6-connected component, -1 where
+//    empty. (The Pallas kernel composes its three axis passes through the
+//    intermediate minimum, which also joins voxels that touch only along an
+//    edge or corner; these labels are the 6-connected ones of the
+//    reference's XLA path, whose fixpoint the split detection means.)
 //
-// Bound on the H100 (3.35 TB/s HBM, 67 T/s non-tensor operations), as
-// ops/ccl_pallas.py:bound_ms counts it from each call's data: bytes = 1 B of
-// occupancy + 4 B of labels in + 4 B out per voxel; operations = 8 per voxel
-// and sweep actually run. The work is operation-bound for any fixpoint that
-// needs more than a sweep or two. This design is far from that bound: one
-// block per grid uses as many SMs as there are grids (4 of 132 for the
-// split candidates of one engine step), and every sweep re-reads seven u16
-// per voxel from shared memory with one voxel per thread per pass.
-// Bit-packed occupancy with warp-wide propagation, or union-find in place of
-// sweeps, is the next step.
+//    Design: a union-find whose roots are minima. parent[v] starts at v and
+//    a union hooks the larger root under the smaller with atomicCAS, so
+//    parent[v] <= v always holds and each component's root is its minimum
+//    index: the sweeps' label, whatever order the atomics take. Three
+//    launches over the whole batch, none of which reads anything back to
+//    the host, whatever the data:
+//      tile pass     one 512-thread block per 8^3 tile of one grid (ragged
+//                    tiles masked): each voxel starts under the first voxel
+//                    of its run along k (a warp ballot), the runs of
+//                    neighbouring rows are joined in shared memory, then
+//                    each voxel's tile-local root is written as a grid index
+//                    into the label array, which from then on is the parent
+//                    array;
+//      face pass     one thread per voxel pair across a tile's three low
+//                    faces: a union in global memory;
+//      compress pass one thread per voxel: its root, written in place
+//                    (no other cell written, so a root once written stays).
+//    A label moves by pointer, not one voxel per sweep, so no path through a
+//    grid (a serpentine needs G^2/2 sweeps) costs more than a chain of tile
+//    roots, and every find shortens the chains it walks (each node re-pointed
+//    to its grandparent, as in ECL-CC). A pair of voxels is joined only where
+//    its neighbours one step along the run are not a joined pair already,
+//    so a full grid costs a union per run and not per voxel: the extreme
+//    where every union lands on root 0. Finds in global memory read past L1
+//    (ld.global.cg), which is not coherent across SMs; a stale parent only
+//    costs a retry of the union.
+//
+//    Bound on the H100 (ops/ccl_pallas.py:labels_bound_ms): 1 B of
+//    occupancy in and 4 B of label out per voxel, bytes-bound (0.2 us for
+//    four 32^3 grids). The design moves about 14 B a voxel (occupancy twice,
+//    the labels written, read and rewritten), all of it L2-resident at the
+//    split detection's sizes, and pays three launches of a few microseconds
+//    each, which no bytes bound counts: on small batches the passes are
+//    latency, not bytes. Tiles are 8^3: k-long tiles (4x4x32), which give a
+//    warp a whole row, cost fewer unions on full grids and more face unions
+//    on random fills (PERF.md).
+//
+// 2. The sweeps (k2_ccl_sweeps, k2_ccl_wide: ops/ccl_pallas.py:ccl_sweeps,
+//    the port of ccl_propagate_sweeps): up to max_sweeps sweeps of
+//        new[v] = occ[v] ? min(lab[v], lab[six face neighbours]) : big
+//    from arbitrary start labels, with big = G^3 past the border, stopping a
+//    grid after the first sweep that changes nothing, with sweep counts.
+//    One 1024-thread block owns one grid; gridDim.x counts the grids. The
+//    labels stay in shared memory for every sweep as two u16 buffers (G^3 <=
+//    65535, big included) plus a G^3-bit occupancy mask, opted into with
+//    cudaFuncSetAttribute; that fits a block's 232,448 bytes up to G = 38
+//    (ops/ccl_pallas.py:k2_shared_bytes), and larger grids take K2-wide
+//    below. Each sweep reads one buffer and writes the other, and ends in
+//    __syncthreads_or(changed), both the barrier between sweeps and the
+//    fixpoint test. Bound (ops/ccl_pallas.py:bound_ms): 1 B of occupancy + 4
+//    B of labels in + 4 B out per voxel; 8 operations per voxel and sweep
+//    run. One block per grid uses as many SMs as there are grids, and every
+//    sweep re-reads seven u16 per voxel from shared memory.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -111,10 +142,10 @@ k2_ccl_kernel(const uint8_t* __restrict__ occ, const int32_t* __restrict__ label
   if (threadIdx.x == 0) sweeps_out[blockIdx.x] = sweeps;
 }
 
-// --- K2-wide: grids past the u16 limit (G^3 > 65535) -----------------------
+// --- K2-wide: grids past the shared-memory kernel (G >= 39) -----------------
 //
-// Same function as k2_ccl_kernel, for grids whose labels do not fit u16 or
-// whose two label buffers do not fit one SM's shared memory (G >= 41). The
+// Same function as k2_ccl_kernel, for grids whose two u16 label buffers and
+// occupancy mask do not fit a block's shared memory (G >= 39). The
 // labels stay i32 in two global-memory ping-pong buffers, one thread per
 // voxel, one launch per sweep: the reference's own fixpoint loop
 // (impact_tpu/ops/ccl_pallas.py:connected_component_labels_pallas), which
@@ -186,7 +217,217 @@ __global__ void k2_wide_start(const int32_t* __restrict__ running, int32_t* __re
   if (e < (kGroup + 1) * batch) flags[e] = e < batch ? running[e] : 0;
 }
 
+// --- The labels: min-root union-find ------------------------------------------
+
+// tile shape (i, j, k); k, the contiguous axis, a power of two up to 32
+constexpr int kTileI = 8, kTileJ = 8, kTileK = 8;
+constexpr int kTileJK = kTileJ * kTileK;
+constexpr int kTileVoxels = kTileI * kTileJK;  // a thread each
+constexpr int kFaceI = kTileJ * kTileK, kFaceJ = kTileI * kTileK, kFaceK = kTileI * kTileJ;
+constexpr int kFaceThreads = kFaceI + kFaceJ + kFaceK;  // a tile's three low faces
+constexpr int kCompressThreads = 256;
+static_assert(kTileK <= 32 && (kTileK & (kTileK - 1)) == 0, "a warp holds whole k rows");
+
+// A node's parent changes only in two ways: a root is hooked under a smaller
+// root (atomicCAS, which fails if the root was hooked meanwhile), and a find
+// re-points a node it walks to its grandparent (intermediate pointer
+// jumping, a plain store). Either way the new parent is in the node's set
+// and below the node, so no store can split a set, whatever order the
+// threads take (the hooks and jumps of ECL-CC, with minima as roots).
+
+// Root of x in a tile's parent array while other threads hook roots.
+__device__ __forceinline__ int find_shared(volatile int* par, int x) {
+  int cur = par[x];
+  if (cur == x) return x;
+  int prev = x, next;
+  while (cur > (next = par[cur])) {
+    par[prev] = next;
+    prev = cur;
+    cur = next;
+  }
+  return cur;
+}
+
+// Hooks the larger of a's and b's roots under the smaller; a failed hook
+// hands back the hooked root's new parent, and the loop goes on from it.
+__device__ void union_shared(int* par, int a, int b) {
+  a = find_shared(par, a);
+  b = find_shared(par, b);
+  while (a != b) {
+    if (a > b) {
+      const int t = a;
+      a = b;
+      b = t;
+    }
+    const int old = atomicCAS(par + b, b, a);
+    if (old == b) return;
+    b = old;
+  }
+}
+
+// The same in a grid's label array, reading and writing past the SM's L1.
+__device__ __forceinline__ int find_global(int32_t* lab, int x) {
+  int cur = __ldcg(lab + x);
+  if (cur == x) return x;
+  int prev = x, next;
+  while (cur > (next = __ldcg(lab + cur))) {
+    __stcg(lab + prev, next);
+    prev = cur;
+    cur = next;
+  }
+  return cur;
+}
+
+__device__ void union_global(int32_t* lab, int a, int b) {
+  a = find_global(lab, a);
+  b = find_global(lab, b);
+  while (a != b) {
+    if (a > b) {
+      const int t = a;
+      a = b;
+      b = t;
+    }
+    const int old = atomicCAS(lab + b, b, a);
+    if (old == b) return;
+    b = old;
+  }
+}
+
+// Block -> (grid b, tile ti, tj, tk).
+struct Tile {
+  int base, i0, j0, k0, ti, tj, tk;
+};
+
+__device__ __forceinline__ Tile tile_of_block(int g) {
+  const int nti = (g + kTileI - 1) / kTileI, ntj = (g + kTileJ - 1) / kTileJ;
+  const int ntk = (g + kTileK - 1) / kTileK;
+  const int per_grid = nti * ntj * ntk;
+  const int b = blockIdx.x / per_grid;
+  int t = blockIdx.x - b * per_grid;
+  Tile r;
+  r.ti = t / (ntj * ntk);
+  t -= r.ti * ntj * ntk;
+  r.tj = t / ntk;
+  r.tk = t - r.tj * ntk;
+  r.base = b * g * g * g;
+  r.i0 = r.ti * kTileI;
+  r.j0 = r.tj * kTileJ;
+  r.k0 = r.tk * kTileK;
+  return r;
+}
+
+__global__ void __launch_bounds__(kTileVoxels)
+k2_labels_tile(const uint8_t* __restrict__ occ, int32_t* __restrict__ lab, int g) {
+  __shared__ int par[kTileVoxels];
+  const Tile t = tile_of_block(g);
+  const int l = threadIdx.x;
+  const int ii = l / kTileJK, jj = (l / kTileK) % kTileJ, kk = l % kTileK;
+  const int i = t.i0 + ii, j = t.j0 + jj, k = t.k0 + kk;
+  const bool in = i < g && j < g && k < g;
+  const int v = t.base + (i * g + j) * g + k;
+  const bool o = in && occ[v];
+  // a warp holds 32 / kTileK whole rows along k; each voxel starts under the
+  // first voxel of its run in the row, which needs no atomics
+  const unsigned row = (__ballot_sync(0xffffffffu, o) >> (l & 31 & ~(kTileK - 1))) &
+                       (0xffffffffu >> (32 - kTileK));
+  const unsigned gaps = ~row & ((1u << kk) - 1u);
+  const int start = gaps ? 32 - __clz(gaps) : 0;
+  par[l] = o ? l - kk + start : -1;  // local order is the grid's order inside a tile
+  __syncthreads();
+  // join the runs of neighbouring rows: a pair whose left neighbours along k
+  // are both occupied is joined through them already
+  if (o) {
+    const bool left = kk > start;
+    if (jj > 0 && par[l - kTileK] >= 0 && !(left && par[l - kTileK - 1] >= 0))
+      union_shared(par, l, l - kTileK);
+    const int up = l - kTileJK;
+    if (ii > 0 && par[up] >= 0 && !(left && par[up - 1] >= 0)) union_shared(par, l, up);
+  }
+  __syncthreads();
+  if (o) {
+    const int r = find_shared(par, l);
+    lab[v] = ((t.i0 + r / kTileJK) * g + t.j0 + (r / kTileK) % kTileJ) * g + t.k0 + r % kTileK;
+  } else if (in) {
+    lab[v] = -1;
+  }
+}
+
+// One thread per voxel pair across a tile's low faces. A pair whose
+// neighbours one step along the face (k, or j on the k face) are both
+// occupied is joined through them already: those are adjacent to this pair
+// inside the two tiles, which the tile pass joined.
+__global__ void __launch_bounds__(kFaceThreads)
+k2_labels_faces(const uint8_t* __restrict__ occ, int32_t* __restrict__ lab, int g) {
+  const Tile t = tile_of_block(g);
+  int f = threadIdx.x;
+  int i = t.i0, j = t.j0, k = t.k0, step, along, w;
+  if (f < kFaceI) {
+    if (t.ti == 0) return;
+    w = f % kTileK;
+    j += f / kTileK;
+    k += w;
+    step = g * g;
+    along = 1;
+  } else if ((f -= kFaceI) < kFaceJ) {
+    if (t.tj == 0) return;
+    w = f % kTileK;
+    i += f / kTileK;
+    k += w;
+    step = g;
+    along = 1;
+  } else {
+    f -= kFaceJ;
+    if (t.tk == 0) return;
+    w = f % kTileJ;
+    i += f / kTileJ;
+    j += w;
+    step = 1;
+    along = g;
+  }
+  if (i >= g || j >= g || k >= g) return;
+  const uint8_t* o = occ + t.base;
+  const int v = (i * g + j) * g + k;
+  if (!o[v] || !o[v - step]) return;
+  if (w > 0 && o[v - along] && o[v - along - step]) return;
+  union_global(lab + t.base, v, v - step);
+}
+
+// Each voxel's root, found without stores (a jump store could overwrite a
+// root another thread has just written) and written to its own cell only.
+__global__ void __launch_bounds__(kCompressThreads)
+k2_labels_compress(int32_t* __restrict__ lab, int n, int total) {
+  const int idx = blockIdx.x * kCompressThreads + threadIdx.x;
+  if (idx >= total) return;
+  const int p = __ldcg(lab + idx);
+  if (p < 0) return;
+  const int32_t* grid = lab + idx / n * n;
+  int r = p, next;
+  while (r > (next = __ldcg(grid + r))) r = next;
+  if (r != p) lab[idx] = r;
+}
+
 }  // namespace
+
+// Labels of a batch of bool grids [batch, g, g, g] (occupancy read as bytes)
+// into i32 labels of the same shape: three launches, no host read.
+extern "C" int k2_ccl_labels(const void* occ, void* labels, int batch, int g, void* stream) {
+  const long long total = static_cast<long long>(batch) * g * g * g;
+  if (batch <= 0 || g <= 0 || total >= (1LL << 31)) return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const uint8_t* o = static_cast<const uint8_t*>(occ);
+  int32_t* lab = static_cast<int32_t*>(labels);
+  const long long tiles = static_cast<long long>(batch) * ((g + kTileI - 1) / kTileI) *
+                          ((g + kTileJ - 1) / kTileJ) * ((g + kTileK - 1) / kTileK);
+  k2_labels_tile<<<static_cast<int>(tiles), kTileVoxels, 0, st>>>(o, lab, g);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  k2_labels_faces<<<static_cast<int>(tiles), kFaceThreads, 0, st>>>(o, lab, g);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int blocks = static_cast<int>((total + kCompressThreads - 1) / kCompressThreads);
+  k2_labels_compress<<<blocks, kCompressThreads, 0, st>>>(lab, g * g * g, static_cast<int>(total));
+  return cudaGetLastError();
+}
 
 // Up to 16 sweeps of K2-wide from buffer a (parity 0) or b (parity 1); sweep
 // s writes the other buffer. running/sweeps (i32[batch]) carry the fixpoint

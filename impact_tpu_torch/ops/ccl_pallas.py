@@ -1,6 +1,6 @@
-"""K2: connected-component min-label propagation, the CUDA kernel's wrapper
-and its plain PyTorch version (replaces the Pallas TPU kernel
-``impact_tpu/ops/ccl_pallas.py:_ccl_kernel``).
+"""K2: connected-component labelling, the CUDA kernels' wrappers and their
+plain PyTorch versions (replaces the Pallas TPU kernel
+``impact_tpu/ops/ccl_pallas.py:_ccl_kernel`` and its fixpoint loop).
 
 Labels: every occupied voxel of a [G,G,G] grid ends with the minimum linear
 index (i·G² + j·G + k) of its 6-connected component; empty voxels hold
@@ -14,16 +14,23 @@ cross an empty voxel along a diagonal; its labels differ from the XLA path's
 wherever two components touch only along an edge or corner (ROADMAP Queue
 3). The port keeps the 6-connected labels.
 
-``ccl_sweeps`` runs up to ``max_sweeps`` sweeps on a batch of grids and stops
-a grid at the first sweep that changes nothing (its fixpoint), so a run with
-``max_sweeps`` ≥ the distance the labels travel returns the labels. On CUDA
-tensors it launches K2 (``csrc/ccl.cu``): for G³ ≤ 65535 (G ≤ 40) the
-shared-memory kernel (one thread block per grid, both label buffers in
-shared memory as u16, the fixpoint test on the card); for larger grids
-K2-wide (i32 labels in two global-memory buffers, one launch per sweep, the
-host reading the grids' "changed" flags once per 16 sweeps, as the
-reference's fixpoint loop does). On CPU tensors it runs the plain version
-below, at any G. There is no fallback.
+``connected_component_labels_batched`` returns the labels, the sweeps'
+fixpoint. On CUDA tensors it launches the labels kernel (``csrc/ccl.cu``
+``k2_ccl_labels``: a union-find whose roots are component minima, three
+launches at any G and no host read); on CPU tensors it runs the plain
+fixpoint sweep.
+
+``ccl_sweeps`` runs up to ``max_sweeps`` sweeps from arbitrary labels on a
+batch of grids and stops a grid at the first sweep that changes nothing (its
+fixpoint), with sweep counts: the port of ``ccl_propagate_sweeps``. On CUDA
+tensors it launches the sweep kernels: the shared-memory kernel (one thread
+block per grid, both label buffers in shared memory as u16, the fixpoint
+test on the card) while its buffers fit a block's shared memory (G ≤ 38,
+``k2_fits_shared``); K2-wide for larger grids (i32 labels in two
+global-memory buffers, one launch per sweep, the host reading the grids'
+"changed" flags once per 16 sweeps, as the reference's fixpoint loop does).
+On CPU tensors it runs the plain version below, at any G. There is no
+fallback.
 """
 
 from __future__ import annotations
@@ -32,10 +39,11 @@ import torch
 
 from ..render.raster_pallas import LaunchCounter
 
-LAUNCHES = LaunchCounter(k2_ccl=0, k2_ccl_wide=0)
-# labels and ``big`` = G³ must fit the shared-memory kernel's u16 buffers;
-# larger grids take K2-wide
+LAUNCHES = LaunchCounter(k2_ccl=0, k2_ccl_wide=0, k2_labels=0)
+# labels and ``big`` = G³ must fit the shared-memory kernel's u16 buffers
 MAX_GRID_VOXELS = 65535
+# dynamic shared memory one block may opt into on the H100 (227 KB)
+MAX_BLOCK_SHARED_BYTES = 232448
 # sweeps per K2-wide call: the host reads the fixpoint flags once per group
 WIDE_GROUP = 16
 
@@ -79,6 +87,19 @@ def ccl_sweeps_plain(occ, labels, max_sweeps: int):
     return labels, sweeps
 
 
+def k2_shared_bytes(g: int) -> int:
+    """Dynamic shared memory of the shared-memory sweep kernel at grid size
+    G: two u16 label buffers and a G³-bit occupancy mask."""
+    n = g ** 3
+    return 2 * 2 * n + 4 * ((n + 31) // 32)
+
+
+def k2_fits_shared(g: int) -> bool:
+    """Whether the shared-memory sweep kernel can take a G³ grid (G ≤ 38,
+    which also keeps G³ within the u16 labels); larger grids take K2-wide."""
+    return k2_shared_bytes(g) <= MAX_BLOCK_SHARED_BYTES
+
+
 def _check(occ, labels):
     if occ.ndim != 4 or occ.shape[1:] != (occ.shape[-1],) * 3:
         raise ValueError(f"occupancy must be [B,G,G,G], got {tuple(occ.shape)}")
@@ -90,9 +111,10 @@ def _check(occ, labels):
 
 
 def ccl_sweeps(occ, labels, max_sweeps: int):
-    """K2 on CUDA tensors (K2-wide where G³ > 65535), its plain version on
-    CPU tensors. ``occ`` bool [B,G,G,G]; ``labels`` i32 [B,G,G,G] with values
-    in [0, G³]. Returns (labels, sweeps) as ``ccl_sweeps_plain``."""
+    """K2 on CUDA tensors (K2-wide where ``k2_fits_shared`` does not hold),
+    its plain version on CPU tensors. ``occ`` bool [B,G,G,G]; ``labels`` i32
+    [B,G,G,G] with values in [0, G³]. Returns (labels, sweeps) as
+    ``ccl_sweeps_plain``."""
     _check(occ, labels)
     if occ.device.type == "cpu":
         return ccl_sweeps_plain(occ, labels, max_sweeps)
@@ -101,7 +123,7 @@ def ccl_sweeps(occ, labels, max_sweeps: int):
     nb, g = occ.shape[0], occ.shape[-1]
     if nb == 0:
         return torch.empty_like(labels), torch.empty(0, dtype=torch.int32, device=occ.device)
-    if g ** 3 > MAX_GRID_VOXELS:
+    if not k2_fits_shared(g):
         return _ccl_sweeps_wide(occ, labels, max_sweeps)
     from .. import _build
 
@@ -150,13 +172,41 @@ def _ccl_sweeps_wide(occ, labels, max_sweeps: int):
     return bufs[done % 2], sweeps
 
 
-def connected_component_labels_batched(occ):
-    """Labels of each grid of a bool batch [B,G,G,G]: i32, −1 where empty.
-    One K2 launch runs every grid to its fixpoint (capped at G³ sweeps, the
-    longest path through a grid)."""
+def connected_component_labels_plain(occ):
+    """The labels kernel's function in plain PyTorch: the fixpoint sweep
+    (capped at G³ sweeps, the longest path through a grid), −1 where empty."""
     g = occ.shape[-1]
-    labels, _ = ccl_sweeps(occ, initial_labels(occ), g ** 3)
+    labels, _ = ccl_sweeps_plain(occ, initial_labels(occ), g ** 3)
     return torch.where(occ, labels, -1)
+
+
+def connected_component_labels_batched(occ):
+    """Labels of each grid of a contiguous bool batch [B,G,G,G]: i32, the
+    minimum linear index of each 6-connected component, −1 where empty. The
+    labels kernel on CUDA tensors, its plain version on CPU tensors."""
+    if occ.ndim != 4 or occ.shape[1:] != (occ.shape[-1],) * 3:
+        raise ValueError(f"occupancy must be [B,G,G,G], got {tuple(occ.shape)}")
+    if occ.dtype != torch.bool or not occ.is_contiguous():
+        raise ValueError(f"the labels take contiguous bool occupancy, got {occ.dtype}"
+                         f"{'' if occ.is_contiguous() else ' (not contiguous)'}")
+    if occ.numel() >= 2 ** 31:
+        raise ValueError(f"the labels index a batch with i32: {occ.numel()} voxels")
+    dev = occ.device
+    if dev.type == "cpu":
+        return connected_component_labels_plain(occ)
+    if dev.type != "cuda":
+        raise ValueError(f"K2 runs on cuda or cpu tensors, not {dev}")
+    out = torch.empty(occ.shape, dtype=torch.int32, device=dev)
+    if occ.shape[0] == 0:
+        return out
+    from .. import _build
+
+    rc = _build.load().k2_ccl_labels(occ.data_ptr(), out.data_ptr(), occ.shape[0],
+                                     occ.shape[-1], torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"k2_ccl_labels launch failed: cudaError {rc}")
+    LAUNCHES["k2_labels"] += 1
+    return out
 
 
 def bound_ms(occ, sweeps) -> tuple:
@@ -171,4 +221,16 @@ def bound_ms(occ, sweeps) -> tuple:
     n_ops = 8 * g ** 3 * int(sweeps.sum())
     t_bytes = n_bytes / 3.35e12 * 1e3
     t_ops = n_ops / 67e12 * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def labels_bound_ms(occ) -> tuple:
+    """Least time an H100 (3.35 TB/s HBM; 67 T/s non-tensor operations)
+    could take for one ``connected_component_labels_batched`` call, whatever
+    implements it: bytes = occupancy in (1 B) and labels out (4 B) per
+    voxel, the start labels being implicit; operations = 3 per voxel (the
+    test of each face-neighbour pair). Returns (ms, "bytes"|"operations")."""
+    n = occ.shape[0] * occ.shape[-1] ** 3
+    t_bytes = 5 * n / 3.35e12 * 1e3
+    t_ops = 3 * n / 67e12 * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")

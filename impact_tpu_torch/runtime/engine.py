@@ -247,7 +247,7 @@ def make_engine_step(params: EngineParams, config, mesh_vert_cap: int, mesh_tri_
         valid = [e for e in range(n_split_objs) if flags[e]]
         if not valid:
             return phys, pool
-        # One K2 launch labels every valid candidate. The reference labels
+        # One labelling call labels every valid candidate. The reference labels
         # and extracts them one after another; the batch is the same because
         # an extraction writes only its own object and free slots, and the
         # candidates are alive (never free), so no extraction changes the

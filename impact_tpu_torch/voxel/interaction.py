@@ -3,11 +3,11 @@
 impact_voxel/src/object/split_detection.rs, object/extraction.rs,
 interaction/fracturing.rs).
 
-* Split detection labels occupied voxels by min-label propagation to a
-  fixpoint; on the card that is the hand-written kernel K2
-  (``ops/ccl_pallas.py``), K2-wide for G ≥ 41. Grids of G ≥ 64 with G a
-  multiple of 16 take the reference's two-level labelling instead, in plain
-  PyTorch as the reference's is XLA.
+* Split detection labels occupied voxels with the fixpoint of min-label
+  propagation; on the card that is the hand-written labels kernel
+  (``ops/ccl_pallas.py``, a min-root union-find) at any G. Grids of G ≥ 64
+  with G a multiple of 16 take the reference's two-level labelling instead,
+  in plain PyTorch as the reference's is XLA.
 * Extraction moves a disconnected component into a free pooled object slot
   with masks; the rigid-body pool gains a body the same way.
 * Fracturing assigns each voxel within the fracture radius to its nearest
@@ -34,7 +34,7 @@ def connected_component_labels(occ):
     linear index of each 6-connected component, −1 where empty. Routed as
     the reference routes (interaction.py:connected_component_labels): the
     two-level labelling for G ≥ 64 with G a multiple of the chunk size, the
-    flat fixpoint sweep (K2) for every other G."""
+    flat labels (the labels kernel on the card) for every other G."""
     batch = occ if occ.ndim == 4 else occ[None]
     g = occ.shape[-1]
     if g >= 64 and g % CHUNK_SIZE == 0:

@@ -1,11 +1,13 @@
-"""K2's CUDA kernels (K2 to 40³, K2-wide from 41³) against their plain
-PyTorch version on the card.
+"""K2's CUDA kernels against their plain PyTorch versions on the card: the
+labels kernel at every G, the sweep kernels (K2 while its buffers fit a
+block's shared memory, to 38³; K2-wide past it).
 
 Needs an NVIDIA GPU with nvcc (the kernel has no CPU or interpret mode), so
 these tests skip elsewhere; they import no JAX, so they run on the GPU host:
 ``python -m pytest --noconftest -q -m cuda tests/test_torch_k2_cuda.py``.
 Labels and sweep counts are integers: they must be equal; the two-level
-labelling at 64³ must equal the flat sweep's."""
+labelling at 64³ must equal the flat sweep's; the labels kernel's atomics
+may run in any order, so two calls on the same grids must be equal too."""
 
 import numpy as np
 import pytest
@@ -80,3 +82,56 @@ def test_two_level_on_card_equals_flat(cuda_device):
     two = connected_component_labels(occ)
     assert torch.equal(two, k2.connected_component_labels_batched(occ))
     assert torch.equal(two.cpu(), connected_component_labels(occ.cpu()))
+
+
+def _edge_grids(g, seed):
+    """_grids plus a checkerboard (every voxel its own component) and one
+    voxel at each corner."""
+    i, j, k = np.indices((g, g, g))
+    corners = np.zeros((g, g, g), bool)
+    corners[::g - 1, ::g - 1, ::g - 1] = True
+    return np.concatenate([_grids(g, seed), np.stack([(i + j + k) % 2 == 0, corners])])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g", [8, 16, 31, 32, 33, 38, 39, 40, 41, 48, 63, 72])
+def test_labels_kernel_matches_plain(cuda_device, g):
+    occ = torch.tensor(_edge_grids(g, g), device=cuda_device)
+    k2.LAUNCHES.reset()
+    got = k2.connected_component_labels_batched(occ)
+    again = k2.connected_component_labels_batched(occ)
+    ref = k2.connected_component_labels_plain(occ)
+    torch.cuda.synchronize()
+    assert dict(k2.LAUNCHES) == {"k2_labels": 2, "k2_ccl": 0, "k2_ccl_wide": 0}
+    assert got.dtype == torch.int32 and got.shape == occ.shape
+    assert torch.equal(got, ref)
+    assert torch.equal(again, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nb", [0, 1, 4])
+def test_labels_kernel_batches(cuda_device, nb):
+    occ = torch.tensor(_edge_grids(33, 5)[-nb:] if nb else np.zeros((0, 33, 33, 33), bool),
+                       device=cuda_device)
+    got = k2.connected_component_labels_batched(occ)
+    again = k2.connected_component_labels_batched(occ)
+    assert got.shape == occ.shape
+    assert torch.equal(got, k2.connected_component_labels_plain(occ))
+    assert torch.equal(again, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g", [39, 40])
+def test_sweeps_past_shared_memory(cuda_device, g):
+    """The shared-memory sweep kernel's buffers outgrow a block's 232,448
+    bytes at G = 39 (u16 labels would still fit): these grids take K2-wide."""
+    occ = torch.tensor(_grids(g, g), device=cuda_device)
+    lab0 = k2.initial_labels(occ)
+    for n in (16, g ** 3):
+        k2.LAUNCHES.reset()
+        got, got_sw = k2.ccl_sweeps(occ, lab0, n)
+        ref, ref_sw = k2.ccl_sweeps_plain(occ, lab0, n)
+        torch.cuda.synchronize()
+        assert k2.LAUNCHES["k2_ccl"] == 0 and k2.LAUNCHES["k2_ccl_wide"] >= 1
+        assert torch.equal(got, ref)
+        assert torch.equal(got_sw, ref_sw)
