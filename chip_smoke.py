@@ -47,7 +47,10 @@ same last line), so two trees' K1 kernels can be timed in turns in one call.
 grids, then the two labels phases (CUDA events around the labels call, 20
 calls after 2). It also runs on trees from before the labels kernel, to time
 them in turns with this one; there the bound is not printed, and the labels
-at G = 39 and 40 fail.
+at G = 39 and 40 fail. ``--probes-only`` runs only the P1 and P2 phases,
+so two trees' probe kernels can be timed in turns in one call; the
+``kernels`` record gives their device time alone (``busy_events_ms``; P2's
+empty frame is shorter than the wrapper's host work) and the wrapper's.
 """
 
 from __future__ import annotations
@@ -492,6 +495,118 @@ def labels_phases(dev, batches, labels_launches, record, kernels):
     record["k2_labels"] = rows
 
 
+def probe_phases(dev, record, kernels):
+    """The P1 ladder and the P2 ablation: every mode and variant against its
+    plain version and timed beside its bounds, alone (``busy_events_ms``)
+    and through its wrapper (the module's ladder and ablation, CUDA events
+    around back-to-back calls); P1 ``empty`` also beside ``torch.zeros`` of
+    its output, the one PyTorch call that computes it."""
+    import torch
+
+    from impact_tpu_torch.devtools import cuda_time_ms
+    from impact_tpu_torch.devtools import probe_kernel_ablate as p2
+    from impact_tpu_torch.devtools import probe_kernel_floor as p1
+
+    with Phase("P1 probe ladder at 1080p (8160 tiles): five modes, each against its plain "
+               "version on every tile"):
+        ranges, payload = p1.reference_inputs(dev)
+        p1.LAUNCHES.reset()
+        ladder = p1.run_ladder(ranges, payload, log=log)
+        p1_launches = dict(p1.LAUNCHES)
+        for mode in p1.MODES:
+            key = f"p1_floor_{mode}"
+            if p1_launches[key] <= 0:
+                raise AssertionError(f"{key} was not launched by the ladder")
+            got = p1.probe_floor(mode, ranges, payload)
+            ref = p1.probe_floor_plain(mode, ranges, payload)
+            torch.cuda.synchronize()
+            if got.shape != (p1.N_TILES, p1.S2, p1.ROWS) or not torch.equal(got, ref):
+                bad = int((got != ref).sum()) if got.shape == ref.shape else -1
+                raise AssertionError(f"P1 {mode}: {bad} outputs differ from the plain version")
+            covered = (got[..., 1] >= 0).float().mean().item() if mode in ("eval", "cond") \
+                else None
+            del got, ref
+            plain = cuda_time_ms(lambda m=mode: p1.probe_floor_plain(m, ranges, payload),
+                                 reps=2, warmup=1)
+            # empty's function is torch.zeros of the output; the others are
+            # no single PyTorch call
+            library = cuda_time_ms(lambda: torch.zeros((p1.N_TILES, p1.S2, p1.ROWS),
+                                                       device=dev)) if mode == "empty" else None
+            wrapper, bnd, by = ladder[mode]
+            ms = busy_events_ms(lambda m=mode: p1.probe_floor(m, ranges, payload), reps=10)
+            log(f"P1 {mode}: equal to the plain version on all {p1.N_TILES} tiles"
+                + (f" (covered share {covered:.4f})" if covered is not None else "")
+                + f"; kernel alone {ms:.4f} ms (wrapper {wrapper:.4f}), plain {plain:.4f} ms, "
+                f"bound {bnd:.4f} ms ({by}), {bnd / ms:.3f} of it"
+                + (f", torch.zeros {library:.4f} ms" if library is not None else ""))
+            kernels.append(dict(
+                name=key, route="cuda", source="impact_tpu_torch/csrc/probe_floor.cu",
+                replaces="devtools/probe_kernel_floor.py:33", launches=p1_launches[key],
+                max_abs_err=0.0, ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
+                library_ms=library, wrapper_ms=wrapper))
+            record.setdefault("p1", {})[mode] = dict(ms=ms, wrapper_ms=wrapper, bound_ms=bnd,
+                                                     library_ms=library)
+        del ranges, payload
+
+    with Phase("P2 probe ablation at 512^2 (262,144 triangles): six variants on the probe's "
+               "input and two frames with clip z negated, each against its plain version"):
+        # the probe's own triangles (an empty frame), the same with clip z
+        # negated (about 1 px each: a sparse frame), and those 8x larger (a
+        # dense frame, where the evaluations dominate)
+        inputs = {"as written": p2.reference_inputs(dev, 0),
+                  "clip z negated": p2.reference_inputs(dev, 0, flip_clip_z=True),
+                  "clip z negated, 8x triangles": p2.reference_inputs(
+                      dev, 0, flip_clip_z=True, size_scale=8.0)}
+        p2.LAUNCHES.reset()
+        runs = {}
+        for tag, inp in inputs.items():
+            log(f"P2 input {tag}: {int(inp.ranges[:, 4:].sum())} window candidates")
+            runs[tag] = p2.run_ablation(inp, log=log, tag=f" [{tag}]")
+        p2_launches = dict(p2.LAUNCHES)
+        for name, kw in p2.VARIANTS:
+            key = p2.variant_key(**kw)
+            if p2_launches[key] <= 0:
+                raise AssertionError(f"{key} was not launched by the ablation")
+            errs, plain_ms = [], {}
+            for tag, inp in inputs.items():
+                got = p2.probe_ablate(inp, **kw)
+                ref = p2.probe_ablate_plain(inp, **kw)
+                torch.cuda.synchronize()
+                cov_g, cov_r = got < 1.0, ref < 1.0
+                both = cov_g & cov_r
+                err = (got[both] - ref[both]).abs().max().item() if bool(both.any()) else 0.0
+                agree = (cov_g == cov_r).float().mean().item()
+                errs.append(err)
+                if not kw["mxu"] and not torch.equal(got, ref):
+                    raise AssertionError(f"P2 {name} [{tag}]: {int((got != ref).sum())} pixels "
+                                         f"differ from the plain version")
+                if kw["mxu"] and (agree < RASTER_COVER_SHARE or err > RASTER_ATOL):
+                    raise AssertionError(f"P2 {name} [{tag}]: coverage agrees on {agree:.5f} of "
+                                         f"the pixels, max z error {err:.3g}")
+                if tag == "as written" and not bool((got == 1.0).all()):
+                    raise AssertionError(f"P2 {name}: the probe's own frame is not empty")
+                if tag != "as written" and not bool(cov_g.any()):
+                    raise AssertionError(f"P2 {name} [{tag}]: the frame is empty")
+                plain_ms[tag] = cuda_time_ms(lambda i=inp, k=kw: p2.probe_ablate_plain(i, **k),
+                                             reps=2, warmup=1)
+                row = runs[tag][name]
+                row.update(plain_ms=plain_ms[tag], alone_ms=busy_events_ms(
+                    lambda i=inp, k=kw: p2.probe_ablate(i, **k)))
+                log(f"P2 {name} [{tag}]: coverage agrees with the plain version on {agree:.6f} "
+                    f"of the pixels, max abs z error {err:.3g}; kernel alone "
+                    f"{row['alone_ms']:.4f} ms (wrapper {row['ms']:.4f}), plain "
+                    f"{plain_ms[tag]:.4f} ms, bound {row['bound_ms']:.6f} ms, all-slot bound "
+                    f"{row['dense_bound_ms']:.4f} ms")
+            a = runs["as written"][name]
+            kernels.append(dict(
+                name=key, route="cuda", source="impact_tpu_torch/csrc/probe_ablate.cu",
+                replaces="devtools/probe_kernel_ablate.py:38", launches=p2_launches[key],
+                max_abs_err=max(errs), ms=a["alone_ms"], plain_ms=plain_ms["as written"],
+                bound_ms=a["bound_ms"], bound_by=a["bound_by"], library_ms=None,
+                wrapper_ms=a["ms"], inputs={tag: runs[tag][name] for tag in inputs}))
+        record["p2"] = runs
+
+
 def host_us(fn, reps=50):
     """Host microseconds per call of ``fn`` to issue its work (no sync in
     the timed loop; the card drains the queue afterwards)."""
@@ -521,6 +636,8 @@ def main(argv=None) -> int:
                     help="stop after the K1 phases (kernel vs plain version, timings)")
     ap.add_argument("--ccl-only", action="store_true",
                     help="run only the labelling phases (fracture grids, labels timings)")
+    ap.add_argument("--probes-only", action="store_true",
+                    help="run only the P1 and P2 probe phases")
     args = ap.parse_args(argv)
     k1_only, ccl_only = args.k1_only, args.ccl_only
     t_all = time.perf_counter()
@@ -579,6 +696,10 @@ def main(argv=None) -> int:
         kernels = []
         batches, labels_launches = fracture_phase(dev, record, full=False)
         labels_phases(dev, batches, labels_launches, record, kernels)
+        return finish(t_all, record, kernels, kind, count)
+    if args.probes_only:
+        kernels = []
+        probe_phases(dev, record, kernels)
         return finish(t_all, record, kernels, kind, count)
 
     with Phase("K2 vs plain version, G=32: random fills, serpentine, empty, full"):
@@ -952,94 +1073,7 @@ def main(argv=None) -> int:
         record["k2_wide"] = {str(g): dict(ms=v[0], plain_ms=v[1], bound_ms=v[2])
                              for g, v in wide_rows.items()}
 
-    from impact_tpu_torch.devtools import probe_kernel_ablate as p2
-    from impact_tpu_torch.devtools import probe_kernel_floor as p1
-
-    with Phase("P1 probe ladder at 1080p (8160 tiles): five modes, each against its plain "
-               "version on every tile"):
-        ranges, payload = p1.reference_inputs(dev)
-        p1.LAUNCHES.reset()
-        ladder = p1.run_ladder(ranges, payload, log=log)
-        p1_launches = dict(p1.LAUNCHES)
-        for mode in p1.MODES:
-            key = f"p1_floor_{mode}"
-            if p1_launches[key] <= 0:
-                raise AssertionError(f"{key} was not launched by the ladder")
-            got = p1.probe_floor(mode, ranges, payload)
-            ref = p1.probe_floor_plain(mode, ranges, payload)
-            torch.cuda.synchronize()
-            if got.shape != (p1.N_TILES, p1.S2, p1.ROWS) or not torch.equal(got, ref):
-                bad = int((got != ref).sum()) if got.shape == ref.shape else -1
-                raise AssertionError(f"P1 {mode}: {bad} outputs differ from the plain version")
-            covered = (got[..., 1] >= 0).float().mean().item() if mode in ("eval", "cond") \
-                else None
-            del got, ref
-            plain = cuda_time_ms(lambda m=mode: p1.probe_floor_plain(m, ranges, payload),
-                                 reps=2, warmup=1)
-            ms, bnd, by = ladder[mode]
-            log(f"P1 {mode}: equal to the plain version on all {p1.N_TILES} tiles"
-                + (f" (covered share {covered:.4f})" if covered is not None else "")
-                + f"; kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {bnd:.4f} ms ({by})")
-            kernels.append(dict(
-                name=key, route="cuda", source="impact_tpu_torch/csrc/probe_floor.cu",
-                replaces="devtools/probe_kernel_floor.py:33", launches=p1_launches[key],
-                max_abs_err=0.0, ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
-                library_ms=None))
-        record["p1"] = {m: dict(ms=v[0], bound_ms=v[1]) for m, v in ladder.items()}
-        del ranges, payload
-
-    with Phase("P2 probe ablation at 512^2 (262,144 triangles): six variants on the probe's "
-               "input and two frames with clip z negated, each against its plain version"):
-        # the probe's own triangles (an empty frame), the same with clip z
-        # negated (about 1 px each: a sparse frame), and those 8x larger (a
-        # dense frame, where the evaluations dominate)
-        inputs = {"as written": p2.reference_inputs(dev, 0),
-                  "clip z negated": p2.reference_inputs(dev, 0, flip_clip_z=True),
-                  "clip z negated, 8x triangles": p2.reference_inputs(
-                      dev, 0, flip_clip_z=True, size_scale=8.0)}
-        p2.LAUNCHES.reset()
-        runs = {}
-        for tag, inp in inputs.items():
-            log(f"P2 input {tag}: {int(inp.ranges[:, 4:].sum())} window candidates")
-            runs[tag] = p2.run_ablation(inp, log=log, tag=f" [{tag}]")
-        p2_launches = dict(p2.LAUNCHES)
-        for name, kw in p2.VARIANTS:
-            key = p2.variant_key(**kw)
-            if p2_launches[key] <= 0:
-                raise AssertionError(f"{key} was not launched by the ablation")
-            errs, plain_ms = [], {}
-            for tag, inp in inputs.items():
-                got = p2.probe_ablate(inp, **kw)
-                ref = p2.probe_ablate_plain(inp, **kw)
-                torch.cuda.synchronize()
-                cov_g, cov_r = got < 1.0, ref < 1.0
-                both = cov_g & cov_r
-                err = (got[both] - ref[both]).abs().max().item() if bool(both.any()) else 0.0
-                agree = (cov_g == cov_r).float().mean().item()
-                errs.append(err)
-                if not kw["mxu"] and not torch.equal(got, ref):
-                    raise AssertionError(f"P2 {name} [{tag}]: {int((got != ref).sum())} pixels "
-                                         f"differ from the plain version")
-                if kw["mxu"] and (agree < RASTER_COVER_SHARE or err > RASTER_ATOL):
-                    raise AssertionError(f"P2 {name} [{tag}]: coverage agrees on {agree:.5f} of "
-                                         f"the pixels, max z error {err:.3g}")
-                if tag == "as written" and not bool((got == 1.0).all()):
-                    raise AssertionError(f"P2 {name}: the probe's own frame is not empty")
-                if tag != "as written" and not bool(cov_g.any()):
-                    raise AssertionError(f"P2 {name} [{tag}]: the frame is empty")
-                plain_ms[tag] = cuda_time_ms(lambda i=inp, k=kw: p2.probe_ablate_plain(i, **k),
-                                             reps=2, warmup=1)
-                log(f"P2 {name} [{tag}]: coverage agrees with the plain version on {agree:.6f} "
-                    f"of the pixels, max abs z error {err:.3g}; plain {plain_ms[tag]:.4f} ms")
-            a = runs["as written"][name]
-            kernels.append(dict(
-                name=key, route="cuda", source="impact_tpu_torch/csrc/probe_ablate.cu",
-                replaces="devtools/probe_kernel_ablate.py:38", launches=p2_launches[key],
-                max_abs_err=max(errs), ms=a["ms"], plain_ms=plain_ms["as written"],
-                bound_ms=a["bound_ms"], bound_by=a["bound_by"], library_ms=None,
-                inputs={tag: dict(runs[tag][name], plain_ms=plain_ms[tag]) for tag in inputs}))
-        record["p2"] = runs
-
+    probe_phases(dev, record, kernels)
     return finish(t_all, record, kernels, kind, count)
 
 

@@ -36,7 +36,7 @@ SIGNATURES = {
     "k2_ccl_sweeps": [_P, _P, _P, _P, _I, _I, _I, _P],
     "k2_ccl_wide": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "p1_probe_floor": [_I, _P, _P, _I, _P, _I, _P],
-    "p2_probe_ablate": [_I, _I, _I, _I, _P, _P, _I, _P, _I, _I, _P],
+    "p2_probe_ablate": [_I, _I, _I, _I, _P, _P, _I, _P, _I, _I, _P, _P],
 }
 
 _lib = None

@@ -22,9 +22,12 @@ projection meant (ROADMAP Queue 3).
 P2 reads a ``Binned`` whose payload is padded (zeros, c0 = −1) so that
 every window's 256 candidates lie inside, as the reference pads its
 lane-major payload; a window load is clamped to the payload all the same
-(no device read, so a timed launch has no host sync). ``probe_ablate``
-launches the kernel on CUDA tensors and runs the plain version on CPU
-tensors; ``LAUNCHES`` counts launches per variant. Run on the card:
+(no device read, so a timed launch has no host sync). The ``dbuf``
+variants take tiles from a counter in device memory that each launch
+leaves at zero (``_tile_counter``). ``probe_ablate`` launches the kernel
+on CUDA tensors and runs the plain version on CPU tensors; ``LAUNCHES``
+counts launches per variant. ``edge_inputs`` gives the tests their range
+edges. Run on the card:
 ``python -m impact_tpu_torch.devtools.probe_kernel_ablate``.
 """
 
@@ -176,6 +179,20 @@ def _check(inp: Binned):
         raise ValueError("P2 ranges and payload on different devices")
 
 
+_COUNTERS = {}
+
+
+def _tile_counter(dev):
+    """The ``dbuf`` variants' tile counter on ``dev`` (a tensor's device):
+    int32[2], zeroed once; each launch takes its tiles from it and its last
+    block sets it back to zero, so launches on one device must not overlap
+    (one stream)."""
+    counter = _COUNTERS.get(dev)
+    if counter is None:
+        counter = _COUNTERS[dev] = torch.zeros(2, dtype=torch.int32, device=dev)
+    return counter
+
+
 def probe_ablate(inp: Binned, *, conds: bool, mxu: bool, dbuf: bool, windows: int):
     """One P2 variant: the CUDA kernel on CUDA tensors, the plain version on
     CPU tensors → f32[n_tiles, 1, 256]."""
@@ -194,9 +211,11 @@ def probe_ablate(inp: Binned, *, conds: bool, mxu: bool, dbuf: bool, windows: in
     lib = _build.load()
     n_tiles = inp.ranges.shape[0]
     out = torch.empty((n_tiles, 1, TILE * TILE), dtype=torch.float32, device=dev)
+    counter = _tile_counter(dev).data_ptr() if dbuf else None
     rc = lib.p2_probe_ablate(int(conds), int(mxu), int(dbuf), windows, inp.ranges.data_ptr(),
                              inp.payload.data_ptr(), inp.payload.shape[0], out.data_ptr(),
-                             n_tiles, inp.tw, torch.cuda.current_stream(dev).cuda_stream)
+                             n_tiles, inp.tw, counter,
+                             torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"p2_probe_ablate ({key}) launch failed: cudaError {rc}")
     LAUNCHES[key] += 1
@@ -224,22 +243,29 @@ def bound_ms(inp: Binned, windows: int, mxu: bool, peak_bytes_per_s=3.35e12,
     cand_read = int((torch.cumsum(marks, 0)[:p] > 0).sum())
     n_px = inp.ranges.shape[0] * TILE * TILE
     n_bytes = cand_read * 9 * 4 + inp.ranges.numel() * 4 + n_px * 4
-    evals = int(counts.sum()) * TILE * TILE
-    if mxu:
-        t_ops = (evals * plane_flops / peak_tf32
-                 + evals * (flops_per_eval - plane_flops) / peak_flops)
-    else:
-        t_ops = evals * flops_per_eval / peak_flops
+    t_ops = _evals_s(int(counts.sum()) * TILE * TILE, mxu, peak_flops, peak_tf32,
+                     flops_per_eval, plane_flops)
     t_bytes = n_bytes / peak_bytes_per_s
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def dense_bound_ms(inp: Binned, windows: int, peak_flops=67e12, flops_per_eval=14):
+def _evals_s(evals, mxu, peak_flops, peak_tf32, flops_per_eval, plane_flops):
+    """Seconds of ``evals`` plane evaluations at the FP32 rate, or with
+    ``mxu`` the plane operations at the TF32 tensor rate and b2's at FP32."""
+    if mxu:
+        return (evals * plane_flops / peak_tf32
+                + evals * (flops_per_eval - plane_flops) / peak_flops)
+    return evals * flops_per_eval / peak_flops
+
+
+def dense_bound_ms(inp: Binned, windows: int, mxu: bool = False, peak_flops=67e12,
+                   peak_tf32=495e12, flops_per_eval=14, plane_flops=12):
     """The operation bound of evaluating every candidate slot of every
-    window (256 × ``windows`` per pixel) at the FP32 rate, whatever the
-    counts: what the variants without ``conds`` evaluate."""
-    return (inp.ranges.shape[0] * TILE * TILE * windows * WINDOW * flops_per_eval / peak_flops
-            * 1e3)
+    window (256 × ``windows`` per pixel), whatever the counts: what the
+    variants without ``conds`` evaluate, at ``bound_ms``'s rates (with
+    ``mxu`` the TF32 split)."""
+    evals = inp.ranges.shape[0] * TILE * TILE * windows * WINDOW
+    return _evals_s(evals, mxu, peak_flops, peak_tf32, flops_per_eval, plane_flops) * 1e3
 
 
 def reference_inputs(device, seed: int = 0, flip_clip_z: bool = False, n: int = T,
@@ -252,6 +278,35 @@ def reference_inputs(device, seed: int = 0, flip_clip_z: bool = False, n: int = 
     return bin_probe(clip, size, size)
 
 
+def edge_inputs(device, seed: int = 0, height: int = 256, width: int = 272, n: int = 65536,
+                size_scale: float = 8.0) -> Binned:
+    """P2 inputs for the range edges, drawn on ``device`` from ``seed``: the
+    probe's triangles with clip z negated at ``height`` × ``width`` (272
+    tiles at the defaults, which no persistent grid of 132·k blocks
+    divides), then every third tile's windows emptied (count 0, beside
+    crowded tiles) and every second window's start moved 1-5 candidates
+    down, its count grown to match as far as its 256 slots reach, so that
+    starts and counts sit off the 128 boundary. The first candidate of the
+    first window with one is a signed-zero triangle: b0 = z = -0.0 over its
+    tiles (a, b and c all -0.0)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    centers, normals = random_triangles(n, gen)
+    inp = bin_probe(probe_clip(centers, normals, size_scale=size_scale, flip_clip_z=True),
+                    height, width)
+    r = inp.ranges.long()
+    s, c = r[:, :4], r[:, 4:]
+    n_tiles = r.shape[0]
+    shift = (torch.arange(4 * n_tiles, device=device).view(n_tiles, 4) % 5 + 1) * (
+        torch.arange(4, device=device) % 2 == 0)
+    s2 = torch.clamp(s - shift, min=0)
+    c2 = torch.minimum(c + (s - s2), WINDOW - s2 % LANES)
+    c2[torch.arange(n_tiles, device=device) % 3 == 0] = 0
+    inp.ranges = torch.cat([s2, c2], dim=1).to(torch.int32).contiguous()
+    first = int(s2[c2 > 0][0])
+    inp.payload[first, :9] = torch.tensor([-0.0, -0.0, -0.0, 0.0, 0.0, 0.5, -0.0, -0.0, -0.0])
+    return inp
+
+
 def run_ablation(inp: Binned, reps: int = 20, log=print, tag: str = ""):
     """Every variant on ``inp`` (CUDA): one line each with ms, bound and the
     covered share of pixels. Returns {name: dict(ms, bound_ms, bound_by,
@@ -262,7 +317,7 @@ def run_ablation(inp: Binned, reps: int = 20, log=print, tag: str = ""):
         covered = (out < 1.0).float().mean().item()
         ms = cuda_time_ms(lambda kw=kw: probe_ablate(inp, **kw), reps=reps)
         bnd, by = bound_ms(inp, kw["windows"], kw["mxu"])
-        dense = dense_bound_ms(inp, kw["windows"])
+        dense = dense_bound_ms(inp, kw["windows"], kw["mxu"])
         rows[name] = dict(ms=ms, bound_ms=bnd, bound_by=by, covered=covered,
                           dense_bound_ms=dense)
         log(f"P2{tag} {name:38s}: {ms:.4f} ms; bound {bnd:.6f} ms ({by}), all-slot bound "

@@ -24,7 +24,8 @@ such a start; the probe's own starts are inside); the clamp needs no device
 read, so a timed launch has no host sync.
 
 ``probe_floor`` launches the kernel on CUDA tensors and runs the plain
-version on CPU tensors; ``LAUNCHES`` counts launches per mode. Run on the
+version on CPU tensors; ``LAUNCHES`` counts launches per mode.
+``tie_inputs`` gives the tests planted ties and range edges. Run on the
 card: ``python -m impact_tpu_torch.devtools.probe_kernel_floor``.
 """
 
@@ -34,6 +35,7 @@ import argparse
 import json
 import sys
 
+import numpy as np
 import torch
 
 from ..render.raster_pallas import LaunchCounter
@@ -65,6 +67,52 @@ def reference_inputs(device, seed: int = 0, n_tiles: int = N_TILES, p_blocks: in
     payload = torch.randn((p_blocks, ROWS, LANES), generator=gen, device=device)
     ranges = torch.tensor(REFERENCE_RANGES, dtype=torch.int32, device=device).repeat(n_tiles, 1)
     return ranges, payload
+
+
+EDGE_COUNTS = (0, 1, 127, 128, 129, 255, 256)
+
+
+def tie_inputs(device, seed: int = 0, n_tiles: int = 4, p_blocks: int = 16,
+               past_end: bool = False):
+    """P1 inputs for the tie rules and range edges, drawn with numpy from
+    ``seed``: (ranges i32[n_tiles, 4], payload f32[p_blocks, 72, 128]).
+
+    Tile 0 has its windows on blocks 0-2 and 3-5 with 256 candidates each;
+    the winners of its plain ``eval`` get twins (plane rows 0-8 copied) at
+    lane + 1 of their block and of the next block, so each ties with
+    candidates visited after it, in another thread group of the kernel.
+    Block 2 lane 126 (window 0, index 382) and block 3 lane 127 (window 1,
+    index 127) hold one small triangle at z = 0.001 around pixel (5, 5):
+    there the first visited wins, not the smaller index; block 4 lane 5
+    covers pixel (0, 0) alone with b0 = z = -0.0 (its c = -0.0). Tile 1 has both
+    windows on block 0. The other tiles draw starts and counts (from
+    ``EDGE_COUNTS``); with ``past_end`` their first window starts in turn at
+    P - 3, P - 1, P + 7 and -5 (clamped to [0, P - 3])."""
+    rng = np.random.default_rng(seed)
+    payload = rng.standard_normal((p_blocks, ROWS, LANES)).astype(np.float32)
+    ranges = np.empty((n_tiles, 4), np.int32)
+    ranges[:, :2] = rng.integers(0, p_blocks - NB + 1, (n_tiles, 2))
+    ranges[:, 2:] = rng.choice(EDGE_COUNTS, (n_tiles, 2))
+    ranges[0] = (0, NB, 256, 256)
+    ranges[1:2] = (0, 0, 256, 256)
+    if past_end:
+        edge = (p_blocks - NB, p_blocks - 1, p_blocks + 7, -5)
+        ranges[2:, 0] = [edge[i % 4] for i in range(n_tiles - 2)]
+    first = probe_floor_plain("eval", torch.from_numpy(ranges[:1]), torch.from_numpy(payload))
+    for i in torch.unique(first[0, :, 1]).long().tolist():
+        j, lane = divmod(i, LANES)
+        if i < 0 or lane + 1 >= LANES:
+            continue
+        for r in range(2):
+            blk = ranges[0, r] + j
+            for twin in (blk, blk + 1):
+                if twin < p_blocks:
+                    payload[twin, :9, lane + 1] = payload[blk, :9, lane]
+    near = (0.25, 0.0, -0.95, 0.0, 0.25, -0.95, 0.0, 0.0, 0.001)  # b0, b1 = 0.3 at (5, 5)
+    payload[NB - 1, :9, LANES - 2] = near
+    payload[NB, :9, LANES - 1] = near
+    payload[NB + 1, :9, 5] = (-0.5, -0.5, -0.0, -1.0, -1.0, 0.5, 0.0, 0.0, -0.0)
+    return torch.from_numpy(ranges).to(device), torch.from_numpy(payload).to(device)
 
 
 def _plane(geo, k, px, py):

@@ -157,3 +157,84 @@ def test_wrapper_checks_inputs(triangles):
     short.payload = inp.payload[:8].contiguous()
     with pytest.raises(ValueError, match="window"):
         p2.probe_ablate(short, conds=True, mxu=True, dbuf=True, windows=4)
+
+
+ABOVE_ONE = np.float32(1.00000012)
+DEAD = np.array([0, 0, 0, 0, 0, 0, 0, 0, -1], np.float32)  # the z plane of a masked slot
+
+
+def emulate_kernel(inp, *, conds, mxu, windows, groups=16):
+    """numpy emulation of ``csrc/probe_ablate.cu``'s tiles: the blocks the
+    variant evaluates staged (with ``conds`` only those whose first slot is
+    inside the count; each plane's c as c + 0), a slot outside [s, s + c)
+    given a z plane of -1, a depth key of z's bits with the sign bits of b0,
+    b1 and b2 OR'd in, the
+    slots split over ``groups`` thread groups (every ``groups``-th slot),
+    each keeping the least key from the float after 1.0, and the groups met
+    in a z-min. The tensor cores' sums are not emulated: with
+    ``mxu`` the TF32 coefficients are summed in float32, as the plain
+    version sums them."""
+    ranges, payload = inp.ranges.numpy(), inp.payload.numpy()[:, :9]
+    if mxu:
+        payload = p2.tf32_round(torch.from_numpy(payload)).numpy()
+    f32 = np.float32
+    pc = np.arange(256)
+    out = np.empty((ranges.shape[0], 1, 256), f32)
+    for t in range(ranges.shape[0]):
+        slots = []
+        for r in range(windows):
+            s, c = int(ranges[t, r]), int(ranges[t, 4 + r])
+            a = s - s % 128
+            load = min(max(a, 0), payload.shape[0] - 256)
+            for j in range(2):
+                if conds and not a + 128 * j < s + c:
+                    continue
+                idx = a + 128 * j + np.arange(128)
+                rows = payload[load + 128 * j:load + 128 * j + 128]
+                rows = rows.copy()
+                rows[:, 2::3] += f32(0)  # each plane's c staged as c + 0: -0.0 becomes +0.0
+                slots.append(np.where(((idx >= s) & (idx < s + c))[:, None], rows, DEAD))
+        px = (f32((t % inp.tw) * 16) + (pc % 16).astype(f32)) + f32(0.5)
+        py = (f32((t // inp.tw) * 16) + (pc // 16).astype(f32)) + f32(0.5)
+        best = np.full(256, ABOVE_ONE)
+        geo = np.concatenate(slots) if slots else np.zeros((0, 9), f32)
+        for g in range(groups):
+            m = np.full(256, ABOVE_ONE)
+            for a in geo[g::groups]:
+                b0 = (a[0] * px + a[1] * py) + a[2]
+                b1 = (a[3] * px + a[4] * py) + a[5]
+                z = (a[6] * px + a[7] * py) + a[8]
+                b2 = (f32(1) - b0) - b1
+                sign = (b0.view(np.uint32) | b1.view(np.uint32) | b2.view(np.uint32)) & 0x80000000
+                m = np.minimum(m.view(np.uint32), sign | z.view(np.uint32)).view(f32)
+            best = np.minimum(best, m)
+        out[t, 0] = np.minimum(best, f32(1))
+    return out
+
+
+@pytest.mark.parametrize("name,kw", p2.VARIANTS, ids=[n for n, _ in p2.VARIANTS])
+def test_kernel_split_and_masks_match_plain(name, kw):
+    """The kernel's staging (blocks skipped by ``conds``, masked slots as a z
+    plane of -1) and its split over 16 thread groups equal the plain version
+    bit for bit on empty tiles beside crowded ones and on starts and counts
+    off the 128 boundary."""
+    inp = p2.edge_inputs("cpu", seed=3, height=64, width=80, n=T, size_scale=SCALE)
+    r = inp.ranges
+    assert bool((r[:, 4:] == 0).all(dim=1).any()) and bool((r[:, :4] % 128 != 0).any())
+    ref = p2.probe_ablate_plain(inp, **kw).numpy()
+    assert 0.2 < (ref < 1.0).mean() < 0.9
+    np.testing.assert_array_equal(emulate_kernel(inp, **{k: kw[k] for k in ("conds", "mxu",
+                                                                             "windows")}), ref)
+
+
+def test_dense_bound_counts_mxu_at_the_tf32_split(triangles):
+    """The all-slot bound of the TF32 variants takes ``bound_ms``'s split:
+    12 plane operations at the tensor rate, b2's 2 at the FP32 rate."""
+    centers, normals = triangles
+    inp = p2.bin_probe(p2.probe_clip(torch.from_numpy(centers), torch.from_numpy(normals),
+                                     SCALE), S, S)
+    evals = 16 * 256 * 4 * 256
+    want = (evals * 12 / 495e12 + evals * 2 / 67e12) * 1e3
+    assert abs(p2.dense_bound_ms(inp, 4, mxu=True) - want) < 1e-15
+    assert abs(p2.dense_bound_ms(inp, 2, mxu=True) - want / 2) < 1e-15
+    assert p2.dense_bound_ms(inp, 4, mxu=True) < p2.dense_bound_ms(inp, 4, mxu=False) / 3

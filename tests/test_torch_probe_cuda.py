@@ -55,3 +55,48 @@ def test_p2_matches_plain_on_card(cuda_device, flip, name, kw):
         assert (got < 1.0).float().mean().item() > 0.1  # the projected centres crowd the middle
     else:
         assert bool((got == 1.0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", p1.MODES)
+def test_p1_edges_match_plain_on_card(cuda_device, mode):
+    """Planted ties (twin lanes within a block, twin blocks, both windows on
+    one block, a tie across windows at a smaller index in window 1), counts
+    0, 1, 127, 128, 129, 255 and 256, and window starts at, past and below
+    the payload's ends, over 302 tiles."""
+    ranges, payload = p1.tie_inputs(cuda_device, seed=4, n_tiles=302, past_end=True)
+    got = p1.probe_floor(mode, ranges, payload)
+    torch.cuda.synchronize()
+    assert torch.equal(got, p1.probe_floor_plain(mode, ranges, payload))
+
+
+def _p2_holds(got, ref, kw):
+    if not kw["mxu"]:
+        assert torch.equal(got, ref)
+        return
+    cov_g, cov_r = got < 1.0, ref < 1.0
+    assert (cov_g == cov_r).float().mean().item() >= 0.99
+    both = cov_g & cov_r
+    if bool(both.any()):
+        assert (got[both] - ref[both]).abs().max().item() <= 2e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", [(256, 272), (32, 48)], ids=["272_tiles", "6_tiles"])
+@pytest.mark.parametrize("name,kw", p2.VARIANTS, ids=[n for n, _ in p2.VARIANTS])
+def test_p2_edges_match_plain_on_card(cuda_device, name, kw, size):
+    """Tile counts that the persistent grid does not divide (272) or exceeds
+    (6), empty tiles beside crowded ones, starts and counts off the 128
+    boundary; two launches in a row agree, and the tile counter is left at
+    zero."""
+    inp = p2.edge_inputs(cuda_device, seed=5, height=size[0], width=size[1],
+                         n=65536 if size[0] > 32 else 4096)
+    got = p2.probe_ablate(inp, **kw)
+    again = p2.probe_ablate(inp, **kw)
+    torch.cuda.synchronize()
+    ref = p2.probe_ablate_plain(inp, **kw)
+    _p2_holds(got, ref, kw)
+    assert torch.equal(got, again)
+    assert (got < 1.0).any()
+    if kw["dbuf"]:
+        assert p2._tile_counter(inp.payload.device).tolist() == [0, 0]

@@ -125,3 +125,138 @@ def test_window_start_past_the_payload_is_clamped(inputs):
     shifted[:3, 1] = 909
     for mode in ("dma", "select"):
         assert torch.equal(p1.probe_floor(mode, r, p), p1.probe_floor(mode, shifted, p))
+
+
+ABOVE_ONE = np.float32(1.00000012)
+NO_POS = 0x7FFFFFFF
+
+
+def covers(b0, b1, b2):
+    """The kernels' coverage test: no sign bit set in b0 | b1 | b2."""
+    return (b0.view(np.int32) | b1.view(np.int32) | b2.view(np.int32)) >= 0
+
+
+def emulate_kernel(mode, ranges, payload, order="pos"):
+    """numpy emulation of ``csrc/probe_floor.cu``'s evaluating modes: the
+    evaluated blocks staged candidate-major with their visit positions (each
+    plane's c as c + 0), the coverage and nearer tests on the bits, 16
+    thread groups taking every 16th candidate (a thread keeps the first
+    strictly nearer one), the group pairs of a warp merged, then the 8 warps,
+    by (z, visit position), or by (z, index) with ``order="index"``."""
+    nt, p_blocks = ranges.shape[0], payload.shape[0]
+    start = np.clip(ranges[:, :2], 0, p_blocks - p1.NB)
+    cnt = ranges[:, 2:]
+    f32 = np.float32
+    pc = np.arange(p1.S2)
+    px, py = (pc % p1.TILE).astype(f32), (pc // p1.TILE).astype(f32)
+    out = np.zeros((nt, p1.S2, p1.ROWS), f32)
+    for t in range(nt):
+        visit = [v for v in range(2 * p1.NB)
+                 if mode == "eval" or cnt[t, v // p1.NB] > p1.LANES * (v % p1.NB)]
+        geo = np.concatenate([payload[start[t, v // p1.NB] + v % p1.NB, :9].T for v in visit]
+                             or [np.zeros((0, 9), f32)])
+        geo[:, 2::3] += f32(0)  # each plane's c staged as c + 0: -0.0 becomes +0.0
+        pos = np.concatenate([v * p1.LANES + np.arange(p1.LANES) for v in visit] or [[]])
+        parts = []
+        for g in range(16):
+            m = np.full(p1.S2, ABOVE_ONE)
+            mp = np.full(p1.S2, NO_POS)
+            for c in range(g, len(geo), 16):
+                a = geo[c]
+                b0 = (a[0] * px + a[1] * py) + a[2]
+                b1 = (a[3] * px + a[4] * py) + a[5]
+                z = (a[6] * px + a[7] * py) + a[8]
+                b2 = (f32(1) - b0) - b1
+                take = covers(b0, b1, b2) & (z.view(np.uint32) < m.view(np.uint32))
+                m = np.where(take, z, m)
+                mp = np.where(take, pos[c], mp)
+            parts.append((m, mp))
+
+        def key(p):
+            return p % (p1.NB * p1.LANES) if order == "index" else p
+
+        def merge(a, b):
+            (za, pa), (zb, pb) = a, b
+            take = (zb < za) | ((zb == za) & (key(pb) < key(pa)))
+            return np.where(take, zb, za), np.where(take, pb, pa)
+
+        warps = [merge(parts[2 * w], parts[2 * w + 1]) for w in range(8)]
+        bz, bp = warps[0]
+        for w in warps[1:]:
+            bz, bp = merge((bz, bp), w)
+        hit = bz <= 1
+        win_i = np.where(hit, bp % (p1.NB * p1.LANES), -1)
+        if mode != "select":
+            out[t] = np.where(hit, bz, f32(3e38))[:, None]
+            out[t, :, 1] = win_i
+            continue
+        for p in np.nonzero(win_i >= 0)[0]:
+            j, lane = divmod(int(win_i[p]), p1.LANES)
+            for r in range(2):
+                if cnt[t, r] > p1.LANES * j:
+                    out[t, p] = out[t, p] + payload[start[t, r] + j, :, lane]
+    return out
+
+
+def tied_pixels(mode, ranges, payload):
+    """[n_tiles, 256]: pixels whose nearest covered z is reached by two or
+    more of the candidates the mode evaluates."""
+    rng = ranges.long().clone()
+    rng[:, :2] = rng[:, :2].clamp(0, payload.shape[0] - p1.NB)
+    pc = torch.arange(p1.S2)
+    px, py = (pc % p1.TILE).float(), (pc // p1.TILE).float()
+    zs = []
+    for r in range(2):
+        for j in range(p1.NB):
+            geo = payload[rng[:, r] + j]
+            b0, b1, z = (p1._plane(geo, k, px, py) for k in range(3))
+            b2 = (1.0 - b0) - b1
+            cov = (b0 >= 0) & (b1 >= 0) & (b2 >= 0) & (z >= 0) & (z <= 1)
+            if mode != "eval":
+                cov &= (rng[:, 2 + r] > p1.LANES * j)[:, None, None]
+            zs.append(torch.where(cov, z, 3e38))
+    zm = torch.cat(zs, dim=-1)
+    m = zm.amin(dim=-1, keepdim=True)
+    return ((zm == m).sum(dim=-1) >= 2) & (m[..., 0] <= 1)
+
+
+@pytest.mark.parametrize("mode", ("eval", "cond", "select"))
+def test_plain_matches_reference_on_planted_ties(reference, mode):
+    """Twins evaluate to the same bits in both packages, so where a twin ties
+    for the nearest the tie rules alone pick the winner: the same index, and
+    the same selected column."""
+    ranges, payload = p1.tie_inputs("cpu", seed=1, n_tiles=N_TILES)
+    tied = tied_pixels(mode, ranges, payload).numpy()
+    assert tied.sum() >= 10 and tied[1].sum() >= 5  # tile 1: both windows on block 0
+    ref = run_reference(reference, mode, ranges.numpy(), payload.numpy())
+    got = p1.probe_floor(mode, ranges, payload).numpy()
+    if mode == "select":
+        close = np.abs(got - ref).max(axis=-1) <= 1e-5
+        assert close.mean() >= 0.99 and close[tied].all()
+        return
+    same = got[..., 1] == ref[..., 1]
+    assert same.mean() >= 0.99 and same[tied].all()
+    np.testing.assert_allclose(got[..., 0][same], ref[..., 0][same], atol=2e-3, rtol=0)
+
+
+@pytest.mark.parametrize("past_end", [False, True], ids=["in_range", "past_end"])
+@pytest.mark.parametrize("mode", ("eval", "cond", "select"))
+def test_kernel_split_and_merge_match_plain(mode, past_end):
+    """The kernel's split of a tile's candidates over 16 thread groups and
+    its (z, visit position) merge equal the plain version bit for bit on
+    planted ties, counts 0-256 off and on the 128 boundary, and window
+    starts at, past and below the payload's ends."""
+    ranges, payload = p1.tie_inputs("cpu", seed=2, n_tiles=14, past_end=past_end)
+    assert tied_pixels(mode, ranges, payload).sum() >= 10
+    got = emulate_kernel(mode, ranges.numpy(), payload.numpy())
+    np.testing.assert_array_equal(got, p1.probe_floor_plain(mode, ranges, payload).numpy())
+
+
+def test_merge_by_index_would_break_the_tie_rule():
+    """A merge by (z, index) picks window 1's twin of the small triangle in
+    window 0's block 2 (a smaller index, visited later): the planted ties
+    tell the two orders apart."""
+    ranges, payload = p1.tie_inputs("cpu", seed=2, n_tiles=14)
+    got = emulate_kernel("eval", ranges.numpy(), payload.numpy(), order="index")
+    ref = p1.probe_floor_plain("eval", ranges, payload).numpy()
+    assert (got[..., 1] != ref[..., 1]).any()
