@@ -27,7 +27,17 @@ then drives these paths through the port's entry points:
 7. the P2 probe ablation (``devtools.probe_kernel_ablate.run_ablation``:
    six variants at 512² over 262,144 triangles), on the probe's own input
    (an empty frame) and with its clip z negated, each variant held against
-   its plain version.
+   its plain version;
+8. the chunked bench phases (``bench.py:bench_chunked``: the asteroid in 4
+   slots of 64³ or 2 of 128³ i8 grids, chunked meshing with 512 submesh
+   slots and a remesh budget of 16, under the bench's carving absorber),
+   each as the bench writes it (radius (G/2 − 4)·0.3 voxels) and filled
+   (radius G/2 − 4): 50 steps through ``HeadlessRuntime.step`` timed after
+   a warm-up, with ``bench_chunked``'s keys, the labels kernel (every split
+   check's grids, routed there by ``connected_component_labels``) held
+   against the two-level plain labelling on the grids it labelled, and one
+   320x200 frame of the filled 64³ phase through K1, held against K1's
+   plain version and scored against the plain tile raster.
 
 Kernel launch counts are zeroed just before each path and read just after
 it. Every phase prints one flushed line with its seconds; any failure exits
@@ -51,6 +61,8 @@ at G = 39 and 40 fail. ``--probes-only`` runs only the P1 and P2 phases,
 so two trees' probe kernels can be timed in turns in one call; the
 ``kernels`` record gives their device time alone (``busy_events_ms``; P2's
 empty frame is shorter than the wrapper's host work) and the wrapper's.
+``--chunked-only`` runs only the four chunked phases (and the labels entry
+of the record), so two trees can be timed in turns in one call.
 """
 
 from __future__ import annotations
@@ -61,6 +73,7 @@ import os
 import sys
 import time
 import traceback
+import warnings
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 # K1 evaluates its planes with the same float32 rounding as the plain
@@ -89,6 +102,10 @@ STEPS_AFTER_EVENT = 8
 # fractured voxels may sit in another slot
 SMALL_FRAGMENTS = 12
 MOVED_VOXEL_SHARE = 1e-3
+# the chunked phases: warm-up steps, then steps timed as one run (the
+# bench's 50)
+CHUNKED_WARMUP = 3
+CHUNKED_STEPS = 50
 
 
 def log(msg: str) -> None:
@@ -495,6 +512,249 @@ def labels_phases(dev, batches, labels_launches, record, kernels):
     record["k2_labels"] = rows
 
 
+def chunked_phase(dev, g, fill, record):
+    """One chunked bench phase: compile the scene on the card, step
+    CHUNKED_WARMUP steps, then CHUNKED_STEPS steps timed as one run with
+    the launch counts zeroed just before and read just after, recording
+    every batch the split checks label at ``connected_component_labels``.
+    Then holds the labels kernel against the two-level plain labelling on
+    each recorded batch and times both on the largest. Returns (the phase's
+    runtime, its row)."""
+    import torch
+
+    from impact_tpu_torch.devtools import card_line, cuda_time_ms
+    from impact_tpu_torch.models.bench import (
+        bench_chunked_config,
+        bench_chunked_fill_scene,
+        bench_chunked_scene,
+    )
+    from impact_tpu_torch.ops import ccl_pallas as k2
+    from impact_tpu_torch.render import raster_pallas as rp
+    from impact_tpu_torch.runtime import HeadlessRuntime, compile_scene
+    from impact_tpu_torch.voxel import interaction
+    from impact_tpu_torch.voxel.object import nonempty_counts, surface_chunk_counts
+
+    tag = f"chunked{g}" + ("_fill" if fill else "")
+    what = "filled, radius G/2-4" if fill else "as written, radius (G/2-4)*0.3"
+    with Phase(f"{tag}: the chunked bench at {g}^3 ({what}), {CHUNKED_STEPS} steps"):
+        cfg = bench_chunked_config(g)
+        scene = bench_chunked_fill_scene(g) if fill else bench_chunked_scene(g)
+        t0 = time.perf_counter()
+        build = compile_scene(scene, cfg, device=dev)
+        torch.cuda.synchronize()
+        compile_s = time.perf_counter() - t0
+        meshes = build.sim.meshes
+        if int(meshes.n_dropped_chunks) != 0:
+            raise AssertionError(f"{tag}: the setup pool was exhausted")
+        rt = HeadlessRuntime(build, cfg, enable_fracturing=False)
+        n_obj = cfg.tpu.max_voxel_objects
+        sdf0 = rt.sim.voxels.sdf.clone()
+        active0 = int(nonempty_counts(rt.sim.voxels).sum())
+        rt.step(CHUNKED_WARMUP)
+        grids, two_level_calls = [], [0]
+        run_labels = interaction.connected_component_labels_batched
+        run_two_level = interaction.connected_component_labels_two_level
+
+        def rec_labels(occ):
+            grids.append(occ.clone())
+            return run_labels(occ)
+
+        def rec_two_level(occ):
+            two_level_calls[0] += 1
+            return run_two_level(occ)
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        interaction.connected_component_labels_batched = rec_labels
+        interaction.connected_component_labels_two_level = rec_two_level
+        try:
+            k2.LAUNCHES.reset()
+            rp.LAUNCHES.reset()
+            syncs0 = rt.host_syncs
+            rt.step(CHUNKED_STEPS)
+            torch.cuda.synchronize()
+            launches = {**dict(k2.LAUNCHES), **dict(rp.LAUNCHES)}
+        finally:
+            interaction.connected_component_labels_batched = run_labels
+            interaction.connected_component_labels_two_level = run_two_level
+        step_ms = rt.step_ms / CHUNKED_STEPS
+        syncs = (rt.host_syncs - syncs0) / CHUNKED_STEPS
+        peak = torch.cuda.max_memory_allocated(dev)
+        v = rt.sim.voxels
+        n_vox = int(nonempty_counts(v).sum())
+        n_surf = int(surface_chunk_counts(v).sum())
+        dv, dt_drop = rt.dropped_mesh_elements()
+        row = {
+            f"{tag}_step_ms": step_ms,
+            f"{tag}_active_voxels": n_vox,
+            f"{tag}_surface_chunks": n_surf,
+            f"{tag}_total_chunks": n_obj * (g // 16) ** 3,
+            f"{tag}_remesh_budget": cfg.tpu.chunk_remesh_budget,
+            f"{tag}_deferred_chunk_carves": rt.deferred_absorptions(),
+            f"{tag}_dropped_mesh_elements": [dv, dt_drop],
+        }
+        carved = int((v.sdf != sdf0).sum())
+        live = int(v.alive.sum())
+        # every synchronizing operation of one more step, as torch sees them
+        # (the step's counter holds only its branch reads)
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                rt.step(1)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch_syncs = sum("synchronizing" in str(w.message) for w in caught)
+        log(f"{tag}: compile {compile_s:.2f} s; {active0} active voxels at setup, {n_vox} after "
+            f"{CHUNKED_WARMUP} + {CHUNKED_STEPS} steps; {carved} SDF entries changed; "
+            f"{live} live objects; {step_ms:.3f} ms per step, {syncs:.2f} host syncs per step "
+            f"({torch_syncs} synchronizing operations in one more step, torch's sync debug "
+            f"mode); "
+            f"peak device memory {peak / 2**30:.3f} GiB; launches {launches}")
+        log(f"{tag}: {card_line()}")
+        log(json.dumps(row))
+        if not body_state_finite(rt.sim):
+            raise AssertionError(f"{tag}: non-finite body state")
+        if not fill and carved == 0:
+            raise AssertionError(f"{tag}: the absorber changed no SDF entry")
+        # counted from setup: the filled 64³ asteroid loses its voxels on step
+        # 1, in the warm-up, and its split leaves the main part without spin
+        # (ROADMAP Queue 3), so nothing more enters the absorber
+        if fill and n_vox >= active0:
+            raise AssertionError(f"{tag}: active voxels did not fall ({active0} -> {n_vox})")
+        if launches["k2_labels"] <= 0 or len(grids) == 0:
+            raise AssertionError(f"{tag}: the split checks never reached the labels kernel")
+        if two_level_calls[0] or launches["k2_ccl"] or launches["k2_ccl_wide"]:
+            raise AssertionError(f"{tag}: the labelling left the labels kernel "
+                                 f"(two-level calls {two_level_calls[0]}, launches {launches})")
+
+        # the labels kernel against the two-level plain labelling on every
+        # batch the split checks labelled (consecutive equal batches once)
+        err, n_checked, prev = 0, 0, None
+        for occ in grids:
+            if prev is not None and occ.shape == prev.shape and torch.equal(occ, prev):
+                continue
+            prev = occ
+            got = k2.connected_component_labels_batched(occ)
+            ref = run_two_level(occ)
+            if not torch.equal(got, ref):
+                raise AssertionError(f"{tag}: {int((got != ref).sum())} labels differ from the "
+                                     f"two-level plain labelling")
+            err = max(err, int((got.long() - ref.long()).abs().max()))
+            n_checked += 1
+        big = max(grids, key=lambda x: x.shape[0])
+        ms = cuda_time_ms(lambda: k2.connected_component_labels_batched(big), reps=20)
+        plain = cuda_time_ms(lambda: run_two_level(big), reps=2, warmup=1)
+        bound, by = k2.labels_bound_ms(big)
+        n_comp = [len(torch.unique(x[x >= 0])) for x in k2.connected_component_labels_batched(big)]
+        log(f"{tag}: labels kernel equal to the two-level plain labelling on {n_checked} "
+            f"distinct batches of the {len(grids)} labelled; on {big.shape[0]} x {g}^3 "
+            f"(components {n_comp}): {ms:.4f} ms per call, two-level plain {plain:.4f} ms, "
+            f"labels_bound_ms {bound:.6f} ({by}); {launches['k2_labels'] / CHUNKED_STEPS:.2f} "
+            f"labels launches per step")
+        row.update(live_objects=live, host_syncs_per_step=syncs,
+                   torch_syncs_one_step=torch_syncs, peak_gib=peak / 2**30,
+                   compile_s=compile_s, setup_active_voxels=active0, sdf_entries_changed=carved,
+                   launches=launches, labels_batches=len(grids), labels_checked=n_checked,
+                   labels_ms=ms, labels_plain_ms=plain, labels_bound_ms=bound,
+                   labels_bound_by=by, labels_batch=big.shape[0], labels_max_abs_err=err,
+                   card=card_line())
+        record[tag] = row
+    return rt, row
+
+
+def chunked_phases(dev, record, kernels):
+    """The four chunked phases (64³ and 128³, as written and filled), then a
+    320x200 frame of the filled 64³ phase through K1, against K1's plain
+    version and the plain tile raster. Adds the chunked call sites to the
+    labels kernel's entry."""
+    import torch
+
+    from impact_tpu_torch.models.bench import bench_chunked_config
+    from impact_tpu_torch.render import raster_pallas as rp
+    from impact_tpu_torch.runtime import HeadlessRuntime
+    from impact_tpu_torch.runtime.setup import SceneBuild
+    from impact_tpu_torch.utils.image import rgb_hybrid_compare
+
+    rows, fill64 = {}, None
+    for g in (64, 128):
+        for fill in (False, True):
+            rt, row = chunked_phase(dev, g, fill, record)
+            rows[f"chunked{g}" + ("_fill" if fill else "")] = row
+            if g == 64 and fill:
+                fill64 = rt
+            del rt
+            torch.cuda.empty_cache()
+
+    with Phase("chunked64_fill: a 320x200 frame through K1, vs K1's plain version and vs the "
+               "plain tile raster"):
+        build = SceneBuild(sim=fill64.sim, params=fill64.params, info=fill64.info)
+
+        def frame(backend="kernel"):
+            c = bench_chunked_config(64)
+            c.tpu.raster_backend = backend
+            r = HeadlessRuntime(build, c, enable_fracturing=False)
+            img = r.render()
+            torch.cuda.synchronize()
+            return img.cpu().numpy(), r.last_drops
+
+        rp.LAUNCHES.reset()
+        img, drops = frame()
+        k1_launches = dict(rp.LAUNCHES)
+        run_depth, run_attr = rp.raster_depth, rp.raster_attributes
+        rp.raster_depth, rp.raster_attributes = rp.raster_depth_plain, rp.raster_attributes_plain
+        try:
+            img_p, drops_p = frame()
+        finally:
+            rp.raster_depth, rp.raster_attributes = run_depth, run_attr
+        img_t, _ = frame("raster")
+        score_p = rgb_hybrid_compare(img, img_p)
+        score_t = rgb_hybrid_compare(img, img_t)
+        log(f"chunked64_fill frame: K1 launches {k1_launches}; raster drops (geometry, shadows) "
+            f"{drops}, K1's plain version {drops_p}; rgb_hybrid_compare(K1 path, K1's plain "
+            f"version) = {score_p:.6f}, (K1 path, plain tile raster) = {score_t:.6f} "
+            f"(bar {PARITY_BAR})")
+        if min(k1_launches.values()) <= 0:
+            raise AssertionError(f"K1 was not launched on the chunked frame: {k1_launches}")
+        if img.shape != (200, 320, 3) or img.std() < 1.0:
+            raise AssertionError(f"chunked frame {img.shape} is flat")
+        if drops != drops_p or score_p < PARITY_BAR:
+            raise AssertionError(f"the chunked frame through K1 differs from K1's plain "
+                                 f"version: drops {drops} vs {drops_p}, parity {score_p:.4f}")
+        # K1's windows keep 256 candidates in (bin, z) order, the reference's
+        # binning: a frame whose windows overflow loses near candidates
+        # (ROADMAP Queue 3). Only a frame without geometry drops must match
+        # the untruncated tile raster.
+        if score_t < PARITY_BAR and drops[0] == 0:
+            raise AssertionError(f"chunked frame parity {score_t:.4f} < {PARITY_BAR} against "
+                                 f"the tile raster with no geometry drop")
+        if score_t < PARITY_BAR:
+            log(f"chunked64_fill frame: below the bar against the tile raster with "
+                f"{drops[0]} geometry drops, as K1's plain version (the reference's window "
+                f"overflow, ROADMAP Queue 3)")
+        record["chunked64_fill_frame"] = dict(parity_vs_k1_plain=score_p,
+                                              parity_vs_tile_raster=score_t, drops=drops,
+                                              k1_launches=k1_launches)
+
+    sites = {tag: dict(launches=r["launches"]["k2_labels"], steps=CHUNKED_STEPS,
+                       ms=r["labels_ms"], plain_ms=r["labels_plain_ms"],
+                       bound_ms=r["labels_bound_ms"], bound_by=r["labels_bound_by"],
+                       batch=r["labels_batch"], max_abs_err=r["labels_max_abs_err"])
+             for tag, r in rows.items()}
+    entry = next((k for k in kernels if k["name"] == "k2_labels"), None)
+    if entry is None:  # --chunked-only: the chunked phases are the labels' main path
+        r = rows["chunked64_fill"]
+        entry = dict(name="k2_labels", route="cuda", source="impact_tpu_torch/csrc/ccl.cu",
+                     replaces="impact_tpu/ops/ccl_pallas.py:45", launches=0, max_abs_err=0.0,
+                     ms=r["labels_ms"], plain_ms=r["labels_plain_ms"],
+                     bound_ms=r["labels_bound_ms"], bound_by=r["labels_bound_by"],
+                     library_ms=None)
+        kernels.append(entry)
+    entry["launches"] += sum(v["launches"] for v in sites.values())
+    entry["max_abs_err"] = max([entry["max_abs_err"]] + [v["max_abs_err"] for v in sites.values()])
+    entry["chunked"] = sites
+
+
 def probe_phases(dev, record, kernels):
     """The P1 ladder and the P2 ablation: every mode and variant against its
     plain version and timed beside its bounds, alone (``busy_events_ms``)
@@ -638,6 +898,8 @@ def main(argv=None) -> int:
                     help="run only the labelling phases (fracture grids, labels timings)")
     ap.add_argument("--probes-only", action="store_true",
                     help="run only the P1 and P2 probe phases")
+    ap.add_argument("--chunked-only", action="store_true",
+                    help="run only the four chunked bench phases")
     args = ap.parse_args(argv)
     k1_only, ccl_only = args.k1_only, args.ccl_only
     t_all = time.perf_counter()
@@ -700,6 +962,10 @@ def main(argv=None) -> int:
     if args.probes_only:
         kernels = []
         probe_phases(dev, record, kernels)
+        return finish(t_all, record, kernels, kind, count)
+    if args.chunked_only:
+        kernels = []
+        chunked_phases(dev, record, kernels)
         return finish(t_all, record, kernels, kind, count)
 
     with Phase("K2 vs plain version, G=32: random fills, serpentine, empty, full"):
@@ -1029,7 +1295,7 @@ def main(argv=None) -> int:
 
     labels_phases(dev, batches, labels_launches, record, kernels)
 
-    from impact_tpu_torch.voxel.interaction import connected_component_labels
+    from impact_tpu_torch.voxel.interaction import connected_component_labels_two_level
 
     with Phase("K2-wide vs plain version, G=39, 40, 48 and 63: random fills, serpentine; "
                "the two-level labels at 64^3"):
@@ -1060,7 +1326,7 @@ def main(argv=None) -> int:
         rng = np.random.default_rng(64)
         occ64 = torch.tensor(np.stack([rng.uniform(size=(64, 64, 64)) < f for f in (0.3, 0.45)]
                                       + [serpentine(64)]), device=dev)
-        two = connected_component_labels(occ64)
+        two = connected_component_labels_two_level(occ64)
         if not torch.equal(two, labels_plain(occ64)):
             raise AssertionError("the two-level labels at 64^3 differ from the flat plain sweep")
         log("two-level labels at 64^3 (fills 0.3/0.45, serpentine) equal the flat plain sweep's")
@@ -1074,6 +1340,7 @@ def main(argv=None) -> int:
                              for g, v in wide_rows.items()}
 
     probe_phases(dev, record, kernels)
+    chunked_phases(dev, record, kernels)
     return finish(t_all, record, kernels, kind, count)
 
 

@@ -25,7 +25,9 @@ from .render.pipeline import RenderScene, RenderState
 from .runtime.engine import EngineParams, SimState
 from .runtime.setup import SceneBuild
 from .scene.assembly import StaticGeometry
+from .voxel.chunk_mesh import ChunkMeshPool
 from .voxel.collision import VoxelProbes
+from .voxel.interaction import AbsorberPools
 from .voxel.mesh import CompactMesh
 from .voxel.object import VoxelObjectPool
 
@@ -94,8 +96,23 @@ def _generator_from_key(key, device):
     return g
 
 
+def chunk_mesh_pool_from_reference(cp, device="cuda") -> ChunkMeshPool:
+    """The reference's ChunkMeshPool → the port's (slot and chunk indices as
+    int64; the reference's top-2 type blend is not carried)."""
+    return tuple_from_reference(ChunkMeshPool, cp, device, **{
+        f: _field(f, getattr(cp, f), device).to(torch.int64)
+        for f in ("owner", "chunk", "slot_of", "n_dropped_verts", "n_dropped_tris",
+                  "n_dropped_chunks")})
+
+
+def _meshes_from_reference(meshes, device):
+    if hasattr(meshes, "slot_of"):  # the chunked path's submesh pool
+        return chunk_mesh_pool_from_reference(meshes, device)
+    return _tuple(CompactMesh, meshes, device, cast={"tri_indices": torch.int64})
+
+
 def sim_state_from_reference(sim, device="cuda") -> SimState:
-    """The reference's SimState (dense path) → the port's."""
+    """The reference's SimState (dense or chunked path) → the port's."""
     phys = sim.phys
     r = sim.render
     return SimState(
@@ -103,7 +120,7 @@ def sim_state_from_reference(sim, device="cuda") -> SimState:
                           solver_cache=tuple_from_reference(SolverCache, phys.solver_cache, device),
                           time=to_torch(phys.time, device)),
         voxels=tuple_from_reference(VoxelObjectPool, sim.voxels, device),
-        meshes=_tuple(CompactMesh, sim.meshes, device, cast={"tri_indices": torch.int64}),
+        meshes=_meshes_from_reference(sim.meshes, device),
         probes=tuple_from_reference(VoxelProbes, sim.probes, device),
         render=RenderState(history_luminance=to_torch(r.history_luminance, device),
                            avg_luminance=to_torch(r.avg_luminance, device),
@@ -116,12 +133,10 @@ def sim_state_from_reference(sim, device="cuda") -> SimState:
 
 
 def engine_params_from_reference(params, device="cuda") -> EngineParams:
-    """The reference's EngineParams → the port's. Absorbers, distance rules
-    and mesh-model entities are not ported: a scene that uses them raises."""
-    for name, masks in (("absorbers", (params.absorbers.sph_mask, params.absorbers.cap_mask)),
-                        ("distance rules", (params.dist_rules.mask,))):
-        if any(np.asarray(m).any() for m in masks):
-            raise NotImplementedError(f"{name} are not ported yet")
+    """The reference's EngineParams → the port's. Distance rules and
+    mesh-model entities are not ported: a scene that uses them raises."""
+    if np.asarray(params.dist_rules.mask).any():
+        raise NotImplementedError("distance rules are not ported yet")
     if np.asarray(params.mesh_instances.vert_active).any():
         raise NotImplementedError("mesh-model entities are not ported yet")
     pp = params.phys_params
@@ -137,6 +152,7 @@ def engine_params_from_reference(params, device="cuda") -> EngineParams:
             drivers=tuple_from_reference(MotionDriverPools, pp.drivers, device),
             joints=tuple_from_reference(JointPools, pp.joints, device)),
         lights=lights_from_reference(params.lights, device),
+        absorbers=tuple_from_reference(AbsorberPools, params.absorbers, device),
         type_density=to_torch(params.type_density, device),
         voxel_response=to_torch(params.voxel_response, device),
         fracturable=to_torch(params.fracturable, device),

@@ -1,5 +1,6 @@
-"""Closest-point queries on segments (port of the part of
-``impact_tpu/geometry/primitives.py`` the narrow phase uses)."""
+"""Closest-point queries on segments and the capsule SDF (port of the part
+of ``impact_tpu/geometry/primitives.py`` the narrow phase and the absorbers
+use)."""
 
 from __future__ import annotations
 
@@ -12,6 +13,11 @@ def closest_point_on_segment(a, b, p, eps=1e-12):
     denom = (ab * ab).sum(dim=-1)
     t = torch.clamp(((p - a) * ab).sum(dim=-1) / torch.clamp(denom, min=eps), 0.0, 1.0)
     return a + t[..., None] * ab, t
+
+
+def capsule_sdf(a, b, radius, p):
+    cp, _ = closest_point_on_segment(a, b, p)
+    return torch.linalg.vector_norm(p - cp, dim=-1) - radius
 
 
 def segment_segment_closest_points(p1, q1, p2, q2, eps=1e-9):

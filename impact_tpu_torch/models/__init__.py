@@ -1,3 +1,3 @@
-from .scenes import fracturing, voxel_box_tumbler
+from .scenes import asteroid, fracturing, voxel_box_tumbler
 
-__all__ = ["fracturing", "voxel_box_tumbler"]
+__all__ = ["asteroid", "fracturing", "voxel_box_tumbler"]

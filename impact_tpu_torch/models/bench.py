@@ -17,12 +17,26 @@
   208 object slots, 224 bodies, 1024 contacts, 32³ i8 grids, jacobi at
   dt 0.005, up to 192 fragments in one event per step, fracture radius 2.5
   and impulse threshold 5.0; rendered at 320×200.
+* ``bench_chunked_config``/``bench_chunked_scene`` (``bench.py:551-640``):
+  the asteroid in 4 object slots of 64³ (2 of 128³) i8 grids, 12 (10)
+  bodies, 256 contacts, jacobi at dt 0.005, no fracturing, chunked meshing
+  with 512 submesh slots and 16 chunks re-meshed a step; 320×200; an
+  absorbing sphere of radius 3 at (4, 4, 0) carving it every step. The
+  bench sets the asteroid's radius to (G/2 − 4)·0.3, meaning "G/2 − 4
+  voxels of 0.3 m", but the radius is in voxels: its asteroid has a radius
+  of 8.4 voxels at 64³ (2,423 active voxels) and 18 at 128³, and the
+  absorber barely reaches it.
+* ``bench_chunked_fill_scene``: the same with a radius of G/2 − 4 voxels,
+  as the bench's comment intends (~92k active voxels at 64³, ~0.9 M at
+  128³), where the carve removes voxels (4,167 on step 1 at 64³, splitting
+  the asteroid into 3 objects; ROADMAP Queue 3). Everything else is the
+  bench's.
 """
 
 from __future__ import annotations
 
 from ..utils.config import EngineConfig
-from .scenes import fracturing, voxel_box_tumbler
+from .scenes import AbsorbingSphere, asteroid, fracturing, voxel_box_tumbler
 
 N_BOXES, SEED, BOX_EXTENT = 62, 3, 26.0
 N_OBJECTS = 64
@@ -81,3 +95,41 @@ def bench_fracture_config(n_fragments: int = FRACTURE_FRAGMENTS) -> EngineConfig
 
 def bench_fracture_scene():
     return fracturing(impulse_threshold=FRACTURE_THRESHOLD, fracture_radius=FRACTURE_RADIUS)
+
+
+CHUNKED_SUBMESH_SLOTS, CHUNKED_REMESH_BUDGET = 512, 16
+CHUNKED_WIDTH, CHUNKED_HEIGHT = 320, 200
+
+
+def bench_chunked_config(grid_size: int) -> EngineConfig:
+    cfg = EngineConfig()
+    t = cfg.tpu
+    n_obj = 4 if grid_size <= 64 else 2
+    t.max_voxel_objects = n_obj
+    t.max_bodies = n_obj + 8
+    t.max_contacts = 256
+    t.voxel_grid_size = grid_size
+    t.render_width, t.render_height = CHUNKED_WIDTH, CHUNKED_HEIGHT
+    t.solver_mode = "jacobi"
+    t.sdf_encoding = "i8"
+    t.chunked_remesh = True
+    t.chunk_submesh_slots = CHUNKED_SUBMESH_SLOTS
+    t.chunk_remesh_budget = CHUNKED_REMESH_BUDGET
+    cfg.physics.simulator.initial_time_step_duration = DT
+    return cfg
+
+
+def _chunked(radius_voxels: float):
+    s = asteroid()
+    s.voxel_objects[0].size = (radius_voxels,)
+    s.absorbing_spheres.append(AbsorbingSphere(position=(4.0, 4.0, 0.0), offset=(0.0, 0.0, 0.0),
+                                               radius=3.0, rate=2.0))
+    return s
+
+
+def bench_chunked_scene(grid_size: int):
+    return _chunked((grid_size / 2 - 4) * 0.3)
+
+
+def bench_chunked_fill_scene(grid_size: int):
+    return _chunked(grid_size / 2 - 4)

@@ -1,10 +1,12 @@
-"""Built-in scenes as plain data (port of the tumbler and fracturing
-scenes of ``impact_tpu/models/scenes.py``).
+"""Built-in scenes as plain data (port of the tumbler, fracturing and
+asteroid scenes of ``impact_tpu/models/scenes.py``).
 
 The reference builds an ECS world; the port has no ECS, so a scene is a
 :class:`Scene` record holding exactly what ``runtime.setup.compile_scene``
 reads, with voxel objects in the reference's entity order (which fixes
-their object and body slots). ``voxel_box_tumbler`` makes the same
+their object and body slots). Regular bodies go to ground planes, then
+absorbing spheres, then absorbing capsules, the entity order of the
+reference's scenes. ``voxel_box_tumbler`` makes the same
 ``np.random.default_rng(seed)`` draws in the same order as the reference,
 so both packages place the same boxes.
 """
@@ -54,10 +56,61 @@ class GroundPlane:
 
 
 @dataclass
+class NoiseSpec:
+    """The multifractal noise added to a voxel object's SDF (ref component
+    MultifractalNoiseSDFModification)."""
+
+    octaves: int = 4
+    frequency: float = 0.15
+    lacunarity: float = 2.0
+    persistence: float = 0.5
+    amplitude: float = 2.0
+    seed: int = 0
+
+
+@dataclass
+class GradientNoiseTypesSpec:
+    """Voxel types mixed by gradient noise, up to 4 (ref component
+    GradientNoiseVoxelTypes)."""
+
+    n_voxel_types: int = 1
+    voxel_types: tuple = (0, 0, 0, 0)
+    noise_frequency: float = 0.15
+    voxel_type_frequency: float = 1.0
+    seed: int = 0
+
+
+@dataclass
+class AbsorbingSphere:
+    """A voxel-absorbing sphere on a kinematic body of its own at
+    ``position`` (ref component VoxelAbsorbingSphere; offset in the body's
+    frame)."""
+
+    position: tuple
+    offset: tuple = (0.0, 0.0, 0.0)
+    radius: float = 1.0
+    rate: float = 1.0
+
+
+@dataclass
+class AbsorbingCapsule:
+    """A voxel-absorbing capsule on a kinematic body of its own at
+    ``position`` (ref component VoxelAbsorbingCapsule; segment in the
+    body's frame)."""
+
+    position: tuple
+    segment_start: tuple = (0.0, -0.5, 0.0)
+    segment_end: tuple = (0.0, 0.5, 0.0)
+    radius: float = 1.0
+    rate: float = 1.0
+
+
+@dataclass
 class VoxelObjectSpec:
     """A dynamic voxel object: a box (``size`` = extents in voxels) or a
     sphere (``size`` = (radius,) in voxels), with its motion, contact
-    response, gravity and fracture properties."""
+    response, gravity and fracture properties, an optional noise modifier
+    of its SDF and optional noise-mixed voxel types (else ``voxel_type``)."""
 
     position: tuple
     voxel_extent: float
@@ -71,6 +124,8 @@ class VoxelObjectSpec:
     acceleration: tuple | None = (0.0, -9.81, 0.0)  # constant acceleration (gravity)
     fracture: tuple | None = None  # (impulse_threshold, fracture_radius)
     casts_shadows: bool = True
+    noise: NoiseSpec | None = None
+    voxel_types: GradientNoiseTypesSpec | None = None
 
 
 @dataclass
@@ -81,6 +136,8 @@ class Scene:
     uni_lights: list = field(default_factory=list)
     ground_planes: list = field(default_factory=list)  # GroundPlane
     voxel_objects: list = field(default_factory=list)  # VoxelObjectSpec
+    absorbing_spheres: list = field(default_factory=list)  # AbsorbingSphere
+    absorbing_capsules: list = field(default_factory=list)  # AbsorbingCapsule
 
 
 def _camera(scene: Scene, eye, target, fov=np.pi / 3):
@@ -152,5 +209,24 @@ def fracturing(impulse_threshold: float = 30.0, fracture_radius: float = 2.5) ->
     s.voxel_objects.append(VoxelObjectSpec(
         position=(-12.0, 4.0, 0.0), voxel_extent=0.25, shape="sphere", size=(5.0,),
         voxel_type=1, linear_velocity=(18.0, 1.0, 0.0), response=(0.1, 0.6, 0.4),
+    ))
+    return s
+
+
+def asteroid(seed: int = 7) -> Scene:
+    """Ref scene Asteroid: a noise-modified voxel sphere (radius 10 voxels of
+    0.3 m) with noise-mixed voxel types, tumbling with no gravity and no
+    floor."""
+    s = Scene()
+    _camera(s, (0.0, 6.0, 26.0), (0.0, 0.0, 0.0))
+    _standard_lights(s)
+    s.voxel_objects.append(VoxelObjectSpec(
+        position=(0.0, 0.0, 0.0), voxel_extent=0.3, shape="sphere", size=(10.0,),
+        angular_velocity=(0.05, 0.25, 0.1), response=(0.0, 0.5, 0.3), acceleration=None,
+        noise=NoiseSpec(octaves=4, frequency=0.22, lacunarity=2.0, persistence=0.55,
+                        amplitude=1.6, seed=seed),
+        voxel_types=GradientNoiseTypesSpec(n_voxel_types=3, voxel_types=(0, 1, 2, 0),
+                                           noise_frequency=0.35, voxel_type_frequency=1.0,
+                                           seed=seed),
     ))
     return s

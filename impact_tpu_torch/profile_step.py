@@ -1,11 +1,15 @@
 """Profile engine steps of the bench configurations on one NVIDIA GPU.
 
-    python -m impact_tpu_torch.profile_step [--what tumbler|fracture] [--steps 5]
-                                            [--trace trace.json] [--top 20]
+    python -m impact_tpu_torch.profile_step
+        [--what tumbler|fracture|chunked64|chunked128] [--steps 5]
+        [--trace trace.json] [--top 20]
 
 ``tumbler`` steps the bench tumbler (``models/bench.py:bench_step_scene``,
 fracturing off); ``fracture`` takes steady steps of the fracture bench
-before its event. Two warm-up steps, then --steps steps timed one by one
+before its event; ``chunked64`` and ``chunked128`` step the filled chunked
+bench scene (``bench_chunked_fill_scene``: the asteroid filling its 64³ or
+128³ grid under the bench's carving absorber, fracturing off). Two warm-up
+steps, then --steps steps timed one by one
 (wall ms after ``torch.cuda.synchronize``), then the same number under
 ``torch.profiler``. Prints the card (nvidia-smi name, power.limit), the
 median step, the host syncs per step, the device busy share and the CUDA
@@ -26,7 +30,8 @@ import time
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--what", choices=("tumbler", "fracture"), default="tumbler")
+    ap.add_argument("--what", choices=("tumbler", "fracture", "chunked64", "chunked128"),
+                    default="tumbler")
     ap.add_argument("--steps", type=int, default=5, help="steps timed, then profiled")
     ap.add_argument("--trace", default=None, help="write a Chrome trace of the profiled steps")
     ap.add_argument("--top", type=int, default=20)
@@ -48,6 +53,11 @@ def main(argv=None) -> int:
     if args.what == "fracture":
         cfg = bench.bench_fracture_config()
         rt = HeadlessRuntime(compile_scene(bench.bench_fracture_scene(), cfg), cfg)
+    elif args.what.startswith("chunked"):
+        g = int(args.what[len("chunked"):])
+        cfg = bench.bench_chunked_config(g)
+        rt = HeadlessRuntime(compile_scene(bench.bench_chunked_fill_scene(g), cfg), cfg,
+                             enable_fracturing=False)
     else:
         cfg = bench.bench_config()
         rt = HeadlessRuntime(compile_scene(bench.bench_step_scene(), cfg), cfg,

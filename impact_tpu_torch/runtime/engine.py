@@ -1,18 +1,25 @@
-"""The engine step: physics with voxel contacts, fracture, split detection
-and the inertia/remesh/probe sync of changed objects (port of the dense
-path of ``impact_tpu/runtime/engine.py``; ref: engine/src/engine.rs and the
-frame task DAG of engine/src/tasks.rs).
+"""The engine step: physics with voxel contacts, absorption, fracture, split
+detection, the inertia/remesh/probe sync of changed objects and, on chunked
+grids, the budgeted chunk remesh (port of ``impact_tpu/runtime/engine.py``;
+ref: engine/src/engine.rs and the frame task DAG of engine/src/tasks.rs).
 
 Voxel object slot ``i`` binds rigid-body slot ``voxel_body_offset + i``, so
 a new fragment activates a precomputed slot instead of allocating.
 
+Chunked mode (``tpu.chunked_remesh``, on by default at G ≥ 64) keeps the
+surface meshes in a shared pool of chunk-submesh slots
+(``voxel/chunk_mesh.py``): absorbers carve only the chunk windows they
+overlap and dirty only those chunks, objects that a split or fracture just
+created detach from their old slots, the object sync keeps inertia and
+probes, and up to ``chunk_remesh_budget`` dirty chunks re-mesh a step.
+
 The reference traces its data-dependent branches (``lax.cond`` around a
-fracture event, each split candidate and the remesh sync). Here each is a
-host ``if`` on values read from the device, one read per decision: one for
-the fracture event (when fracturing is on), one for the split candidates,
-one for the dirty objects. ``step.host_syncs`` counts them. Scenes without
-absorbers or distance rules skip those passes statically, as the reference
-does; the chunked path (grids of 64³ and up) is not ported and raises.
+fracture event, each split candidate, the remesh sync and the chunk
+remesh). Here each is a host ``if`` on values read from the device, one
+read per decision: one for the fracture event (when fracturing is on), one
+for the split candidates, one for the dirty objects and, in chunked mode,
+one for the dirty chunks. ``step.host_syncs`` counts them. Scenes without
+absorbers skip absorption statically, as the reference does.
 """
 
 from __future__ import annotations
@@ -29,6 +36,13 @@ from ..render.camera import Camera
 from ..render.lights import LightPools
 from ..render.pipeline import RenderState
 from ..scene.assembly import StaticGeometry
+from ..voxel.chunk_mesh import (
+    ChunkMeshPool,
+    mark_chunks_dirty,
+    mark_objects_dirty,
+    remesh_chunks,
+    reset_objects,
+)
 from ..voxel.collision import (
     VoxelProbes,
     extract_probes,
@@ -39,6 +53,9 @@ from ..voxel.collision import (
 from ..voxel.encoding import sdf_world
 from ..voxel.inertia import inertial_properties
 from ..voxel.interaction import (
+    AbsorberPools,
+    apply_absorption,
+    apply_absorption_chunk_gated,
     connected_component_labels,
     draw_fracture_uniforms,
     fracture_object,
@@ -59,7 +76,7 @@ class SimState(NamedTuple):
 
     phys: PhysicsState
     voxels: VoxelObjectPool
-    meshes: CompactMesh  # [O, ...]
+    meshes: CompactMesh | ChunkMeshPool  # [O, ...], or the chunk slots in chunked mode
     probes: VoxelProbes  # [O,P] collision probes, refreshed on remesh
     render: RenderState
     prev_position: torch.Tensor  # f32[N,3] body poses at the previous step
@@ -72,6 +89,7 @@ class EngineParams(NamedTuple):
 
     phys_params: PhysicsParams
     lights: LightPools
+    absorbers: AbsorberPools
     type_density: torch.Tensor  # f32[T]
     voxel_response: torch.Tensor  # f32[O,3]
     fracturable: torch.Tensor  # bool[O]
@@ -177,8 +195,7 @@ def make_engine_step(params: EngineParams, config, mesh_vert_cap: int, mesh_tri_
     generator, n_seeds)`` draws an event's uniforms (default
     ``draw_fracture_uniforms``; the tests pass JAX's)."""
     tc = config.tpu
-    if tc.chunked_remesh or (tc.chunked_remesh is None and tc.voxel_grid_size >= 64):
-        raise NotImplementedError("the chunked engine path (grids of 64³ and up) is not ported")
+    chunked = bool(tc.chunked_remesh)
     dt = config.physics.simulator.initial_time_step_duration
     n_substeps = config.physics.simulator.n_substeps
     solver_cfg = config.physics.constraint_solver
@@ -192,6 +209,8 @@ def make_engine_step(params: EngineParams, config, mesh_vert_cap: int, mesh_tri_
     n_split_objs = max(1, min(tc.max_split_objects, o_max))
     n_split_regions = max(1, min(tc.max_split_regions, o_max))
     draw = fracture_uniforms or draw_fracture_uniforms
+    # scenes without absorbers skip the pass (the pools are scene constants)
+    absorb = bool(params.absorbers.sph_mask.any() or params.absorbers.cap_mask.any())
 
     def host(t):
         step.host_syncs += 1
@@ -267,7 +286,7 @@ def make_engine_step(params: EngineParams, config, mesh_vert_cap: int, mesh_tri_
         return phys, pool
 
     def sync_dirty(phys, pool, meshes, probes):
-        """Inertia/COM sync, remesh and probe refresh of up to
+        """Inertia/COM sync, remesh (dense mode) and probe refresh of up to
         ``remesh_budget`` dirty objects, lowest slots first. The reference
         computes a fixed-size gather of ``remesh_budget`` slots and masks
         the clean ones out; only the dirty ones are computed here."""
@@ -280,23 +299,58 @@ def make_engine_step(params: EngineParams, config, mesh_vert_cap: int, mesh_tri_
         phys, sub = _sync_voxel_bodies(phys, sub, params.type_density, sel)
         pool = pool._replace(origin=_put(pool.origin, idx, sub.origin),
                              mesh_dirty=_put(pool.mesh_dirty, idx, ~sel))
-        new_mesh = remesh_objects(sub, tc.mesh_merge_levels, mesh_vert_cap, mesh_tri_cap,
-                                  params.material_table)
-        meshes = CompactMesh(*(_put(old, idx, new) for old, new in zip(meshes, new_mesh)))
+        if not chunked:
+            new_mesh = remesh_objects(sub, tc.mesh_merge_levels, mesh_vert_cap, mesh_tri_cap,
+                                      params.material_table)
+            meshes = CompactMesh(*(_put(old, idx, new) for old, new in zip(meshes, new_mesh)))
         new_probes = extract_probes(sub, params.voxel_response[idx])
         probes = VoxelProbes(*(_put(old, idx, new) for old, new in zip(probes, new_probes)))
         return phys, pool, meshes, probes
+
+    def absorption(phys, pool):
+        """Step 2 (ref task ApplyVoxelAbsorption): the chunk-gated carve in
+        chunked mode, with its changed objects and dirty chunks; else the
+        object-gated (or dense) pass, which marks whole objects dirty."""
+        b = phys.bodies
+        if chunked:
+            # the reference's float32 step count, rounded half to even
+            step_no = torch.round(phys.time / dt).to(torch.int64)
+            pool, changed, chunks, _ = apply_absorption_chunk_gated(
+                pool, params.absorbers, b.position, b.orientation, tc.absorption_chunk_budget,
+                rotation=step_no * tc.absorption_chunk_budget)
+            return pool, changed, chunks
+        pool = apply_absorption(pool, params.absorbers, b.position, b.orientation,
+                                gate_cap=min(tc.absorption_gate_cap, o_max))
+        return pool, None, None
 
     def step(sim: SimState) -> SimState:
         phys, pool = sim.phys, sim.voxels
         prev_pos, prev_ori = phys.bodies.position, phys.bodies.orientation
         phys = physics_step(phys, params.phys_params, dt, n_substeps, solver_cfg, max_contacts,
                             tc.solver_mode, extra_contacts(pool, sim.probes))
+        absorb_changed = absorb_chunks = None
+        if absorb:
+            pool, absorb_changed, absorb_chunks = absorption(phys, pool)
         if enable_fracturing:
             phys, pool = maybe_fracture(phys, pool, sim.rng)
         if enable_splitting:
             phys, pool = maybe_split(phys, pool)
-        phys, pool, meshes, probes = sync_dirty(phys, pool, sim.meshes, sim.probes)
+        meshes = sim.meshes
+        if chunked:
+            # object slots a split or fracture just filled detach from their
+            # old submesh slots; topology events and older dirt re-mesh whole
+            # objects, the carve only its chunks (and joins mesh_dirty so the
+            # inertia and probe sync still runs for carved objects)
+            meshes = reset_objects(meshes, pool.alive & ~sim.voxels.alive)
+            meshes = mark_objects_dirty(meshes, pool.mesh_dirty)
+            if absorb_chunks is not None:
+                meshes = mark_chunks_dirty(meshes, absorb_chunks)
+                pool = pool._replace(mesh_dirty=pool.mesh_dirty | absorb_changed)
+        phys, pool, meshes, probes = sync_dirty(phys, pool, meshes, sim.probes)
+        if chunked and host((meshes.chunk_dirty & pool.alive[:, None]).any()):
+            # step 5b: the budgeted chunk remesh (ref: mesh.rs:360)
+            meshes = remesh_chunks(meshes, pool, params.material_table, tc.chunk_remesh_budget,
+                                   tc.chunk_vert_cap, merge_levels=tc.mesh_merge_levels)
         return SimState(phys=phys, voxels=pool, meshes=meshes, probes=probes, render=sim.render,
                         prev_position=prev_pos, prev_orientation=prev_ori, rng=sim.rng)
 

@@ -26,7 +26,9 @@ from ..render.pipeline import (
 )
 from ..scene.assembly import build_render_scene
 from ..utils.config import EngineConfig
+from ..voxel.chunk_mesh import ChunkMeshPool
 from ..voxel.collision import GRID_BROAD_PHASE_MIN_OBJECTS, bounding_radii, broad_phase_pairs
+from ..voxel.interaction import _chunk_absorber_hit, deferred_absorption_count
 from .engine import make_engine_step
 from .setup import SceneBuild, render_config_from_engine_config
 
@@ -136,13 +138,31 @@ class HeadlessRuntime:
     def dropped_mesh_elements(self):
         """(dropped_verts, dropped_tris) summed over objects: active mesh
         elements that overflowed the compaction caps or the
-        render_tris_per_object slice."""
+        render_tris_per_object slice; with a chunk-submesh pool, each chunk
+        that found no free slot adds ``chunk_tri_cap`` triangles."""
         m = self.sim.meshes
         dropped_tris = int(m.n_dropped_tris.sum())
-        k = self.config.tpu.render_tris_per_object
-        if k > 0:
-            dropped_tris += int(torch.clamp(m.tri_active.sum(dim=-1) - k, min=0).sum())
+        if isinstance(m, ChunkMeshPool):
+            dropped_tris += self.config.tpu.chunk_tri_cap * int(m.n_dropped_chunks)
+        else:
+            k = self.config.tpu.render_tris_per_object
+            if k > 0:
+                dropped_tris += int(torch.clamp(m.tri_active.sum(dim=-1) - k, min=0).sum())
         return int(m.n_dropped_verts.sum()), dropped_tris
+
+    def deferred_absorptions(self) -> int:
+        """Absorber carves the next step defers, estimated at the current
+        body poses: in chunked mode the overlapped (object, chunk) windows
+        beyond ``absorption_chunk_budget``, else the overlapping objects
+        beyond the gate cap."""
+        s, tc = self.sim, self.config.tpu
+        b = s.phys.bodies
+        if tc.chunked_remesh:
+            hit = _chunk_absorber_hit(s.voxels, self.params.absorbers, b.position, b.orientation)
+            return max(int(hit.sum()) - tc.absorption_chunk_budget, 0)
+        cap = min(tc.absorption_gate_cap, tc.max_voxel_objects)
+        return int(deferred_absorption_count(s.voxels, self.params.absorbers, b.position,
+                                             b.orientation, cap))
 
     def broad_phase_overflow(self) -> int:
         """Shifted-grid broad-phase cell-run overflow at the current state;

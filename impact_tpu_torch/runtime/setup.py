@@ -2,24 +2,31 @@
 scene constants.
 
 Port of ``impact_tpu/runtime/setup.py:compile_scene`` for the component kinds
-of the tumbler and fracturing scenes — camera, ambient light, shadowable
-omni and unidirectional lights, y-up ground planes (static planar
-collidables) and dynamic voxel boxes and spheres with motion, contact
-response, gravity and fracture properties — plus ``_build_static_geometry``
-and ``render_config_from_engine_config``. Slot layout and order follow the
+of the tumbler, fracturing and asteroid scenes — camera, ambient light,
+shadowable omni and unidirectional lights, y-up ground planes (static planar
+collidables), dynamic voxel boxes and spheres with motion, contact
+response, gravity, fracture properties, a multifractal noise modifier and
+noise-mixed voxel types, and absorbing spheres and capsules on kinematic
+bodies — plus ``_build_static_geometry`` and
+``render_config_from_engine_config``. Slot layout and order follow the
 reference: voxel object i binds body ``max_bodies - max_voxel_objects + i``;
-ground planes take the regular bodies 0, 1, ...; forces are applied once
-before the voxel bodies' mass sync (so the first step's accumulated gravity
-uses the default unit mass, as the reference's does); each object's body
-origin is moved to its centre of mass; identical shapes are voxelized and
-meshed once.
+ground planes, then absorbers, take the regular bodies 0, 1, ...; forces
+are applied once before the voxel bodies' mass sync (so the first step's
+accumulated gravity uses the default unit mass, as the reference's does);
+each object's body origin is moved to its centre of mass; identical shapes
+are voxelized once. Scene floats are rounded to float32 first, as the
+reference's ECS columns store them. On chunked grids the surfaces are
+meshed into the shared chunk-submesh pool in budgeted passes, and a pool
+too small for the scene's surface chunks raises, as the reference's does.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from ..physics.collision import CollidablePools
@@ -41,8 +48,15 @@ from ..scene.assembly import (
 from ..scene.materials import VoxelTypeRegistry, default_registry, material_corner_table
 from ..utils.config import EngineConfig
 from ..voxel import sdf as sdflib
+from ..voxel.chunk_mesh import (
+    empty_chunk_mesh_pool,
+    mark_objects_dirty,
+    n_chunks_per_object,
+    remesh_chunks,
+)
 from ..voxel.collision import extract_probes
 from ..voxel.encoding import encode_sdf_i8, sdf_world
+from ..voxel.interaction import empty_absorber_pools
 from ..voxel.mesh import CompactMesh, bake_mesh_materials, compact_mesh, surface_nets
 from ..voxel.object import VoxelObjectPool, generate_sdf_grid
 from .engine import EngineParams, SimState, _sync_voxel_bodies
@@ -128,6 +142,90 @@ def _plane_pools(planes, n_bodies_used, dev) -> CollidablePools:
     )
 
 
+def _f32(x) -> float:
+    return float(np.float32(x))
+
+
+def _object_grids(ob, g: int, i8: bool, dev):
+    """SDF grid (i8 codes or f32), voxel types and origin of one object."""
+    ve = _f32(ob.voxel_extent)
+    if ob.shape == "box":
+        graph = sdflib.box(tuple(_f32(e) * ve for e in ob.size))
+    elif ob.shape == "sphere":
+        graph = sdflib.sphere(_f32(ob.size[0]) * ve)
+    else:
+        raise ValueError(f"voxel object shape {ob.shape!r} is not ported")
+    n = ob.noise
+    if n is not None:
+        graph = sdflib.noise_modifier(graph, int(n.octaves), _f32(n.frequency),
+                                      _f32(n.lacunarity), _f32(n.persistence),
+                                      _f32(n.amplitude), int(n.seed) & 0xFFFFFFFF)
+    grid, org = generate_sdf_grid(graph, g, ve, device=dev)
+    if i8:
+        grid = encode_sdf_i8(grid, ve)
+    gn = ob.voxel_types
+    if gn is None:
+        vt = torch.full((g, g, g), int(ob.voxel_type), dtype=torch.int32, device=dev)
+    else:
+        # lattice corners (not voxel centres), as the reference samples them
+        r = torch.arange(g, dtype=torch.float32, device=dev)
+        coords = torch.stack(torch.meshgrid(r, r, r, indexing="ij"), dim=-1) * ve
+        noise = sdflib.gradient_noise(coords * _f32(gn.noise_frequency),
+                                      seed=int(gn.seed) & 0xFFFFFFFF)
+        n_types = int(gn.n_voxel_types)
+        sel = torch.clamp(((noise * 0.5 + 0.5) * n_types).to(torch.int32), 0, n_types - 1)
+        types = torch.tensor([int(t) for t in gn.voxel_types], dtype=torch.int32, device=dev)
+        vt = types[sel.long()]
+    return grid, vt, ve, org
+
+
+def _absorber_pools(scene, first_body: int, dev):
+    """Absorber pools (8 of each kind, as the reference's) with each
+    absorber on the regular body after the previous one."""
+    sph, cap = scene.absorbing_spheres, scene.absorbing_capsules
+    pools = empty_absorber_pools(max(8, len(sph), len(cap)), device=dev)
+    f = {k: v.clone() for k, v in pools._asdict().items()}
+
+    def vec(x):
+        return torch.tensor([_f32(e) for e in x], dtype=torch.float32, device=dev)
+
+    for j, a in enumerate(sph):
+        f["sph_body"][j] = first_body + j
+        f["sph_offset"][j] = vec(a.offset)
+        f["sph_radius"][j] = _f32(a.radius)
+        f["sph_rate"][j] = _f32(a.rate)
+        f["sph_mask"][j] = True
+    for j, a in enumerate(cap):
+        f["cap_body"][j] = first_body + len(sph) + j
+        f["cap_start"][j] = vec(a.segment_start)
+        f["cap_end"][j] = vec(a.segment_end)
+        f["cap_radius"][j] = _f32(a.radius)
+        f["cap_rate"][j] = _f32(a.rate)
+        f["cap_mask"][j] = True
+    return type(pools)(**f)
+
+
+def _chunk_meshes(pool, tc, material_table, dev):
+    """The chunk-submesh pool with every surface chunk meshed, in passes of
+    64 chunks (the reference's setup loop); raises when the slots run out."""
+    o_max, g = pool.n_objects, pool.grid_size
+    c = n_chunks_per_object(g)
+    n_slots = tc.chunk_submesh_slots or min(o_max * c, 1024)
+    meshes = mark_objects_dirty(empty_chunk_mesh_pool(n_slots, tc.chunk_tri_cap, o_max, g, dev),
+                                pool.alive)
+    budget = 64
+    for _ in range(-(-o_max * c // budget)):
+        if not bool((meshes.chunk_dirty & pool.alive[:, None]).any()):
+            break
+        meshes = remesh_chunks(meshes, pool, material_table, budget, tc.chunk_vert_cap,
+                               merge_levels=tc.mesh_merge_levels)
+    blocked = int(meshes.n_dropped_chunks)
+    if blocked > 0:
+        raise ValueError(f"chunk-submesh pool exhausted at setup: {blocked} surface chunks "
+                         f"blocked (raise tpu.chunk_submesh_slots)")
+    return meshes
+
+
 def compile_scene(scene, config: EngineConfig, registry: VoxelTypeRegistry | None = None,
                   device="cuda", rng_seed: int = 0) -> SceneBuild:
     """Lower a :class:`~impact_tpu_torch.models.scenes.Scene` into device
@@ -146,7 +244,8 @@ def compile_scene(scene, config: EngineConfig, registry: VoxelTypeRegistry | Non
         raise ValueError("max_bodies must exceed max_voxel_objects")
     if len(objects) > o_max:
         raise ValueError("voxel object pool exhausted")
-    if len(scene.ground_planes) > n_regular:
+    n_absorbers = len(scene.absorbing_spheres) + len(scene.absorbing_capsules)
+    if len(scene.ground_planes) + n_absorbers > n_regular:
         raise ValueError("regular body pool exhausted")
     i8 = tc.sdf_encoding == "i8"
 
@@ -180,24 +279,15 @@ def compile_scene(scene, config: EngineConfig, registry: VoxelTypeRegistry | Non
     uidx = []
     n_accel = 0
     for oi, ob in enumerate(objects):
-        ve = float(ob.voxel_extent)
-        sig = (ob.shape, tuple(ob.size), ve, ob.voxel_type)
+        sig = (ob.shape, tuple(ob.size), float(ob.voxel_extent), ob.voxel_type,
+               None if ob.noise is None else dataclasses.astuple(ob.noise),
+               None if ob.voxel_types is None else dataclasses.astuple(ob.voxel_types))
         if sig not in cache:
-            if ob.shape == "box":
-                graph = sdflib.box(tuple(e * ve for e in ob.size))
-            elif ob.shape == "sphere":
-                graph = sdflib.sphere(ob.size[0] * ve)
-            else:
-                raise ValueError(f"voxel object shape {ob.shape!r} is not ported")
-            grid, org = generate_sdf_grid(graph, g, ve, device=dev)
-            if i8:
-                grid = encode_sdf_i8(grid, ve)
             cache[sig] = len(uniq)
-            uniq.append((grid, torch.full((g, g, g), int(ob.voxel_type), dtype=torch.int32,
-                                          device=dev), ve, org))
+            uniq.append(_object_grids(ob, g, i8, dev))
         ui = cache[sig]
         uidx.append(ui)
-        grid, vt, _, org = uniq[ui]
+        grid, vt, ve, org = uniq[ui]
         alive[oi] = True
         extent[oi] = ve
         origin[oi] = org
@@ -224,10 +314,15 @@ def compile_scene(scene, config: EngineConfig, registry: VoxelTypeRegistry | Non
                            origin=origin, sdf=sdf, vtype=vtype, mesh_dirty=alive.clone(),
                            split_pending=torch.zeros_like(alive), casts_shadows=casts)
 
-    # --- pass 2: ground planes take regular bodies 0, 1, ... (kinematic) --------
+    # --- pass 2: ground planes, then absorbers, take regular bodies 0, 1, ...
+    #     (kinematic) ---------------------------------------------------------
     plane_bodies = list(range(len(scene.ground_planes)))
-    for bi in plane_bodies:
+    n_planes = len(plane_bodies)
+    for bi in range(n_planes + n_absorbers):
         kind[bi] = KIND_KINEMATIC
+    for j, a in enumerate(scene.absorbing_spheres + scene.absorbing_capsules):
+        position[n_planes + j] = vec([_f32(e) for e in a.position])
+    absorbers = _absorber_pools(scene, n_planes, dev)
     bodies = b._replace(kind=kind, position=position, orientation=orientation,
                         velocity=velocity, angular_velocity=angular_velocity)
     forces = forces._replace(
@@ -276,7 +371,7 @@ def compile_scene(scene, config: EngineConfig, registry: VoxelTypeRegistry | Non
         phys_params=PhysicsParams(
             collidables=_plane_pools(scene.ground_planes, plane_bodies, dev), forces=forces,
             drivers=empty_motion_driver_pools(device=dev), joints=empty_joint_pools(device=dev)),
-        lights=lights, type_density=registry.mass_density, voxel_response=voxel_response,
+        lights=lights, absorbers=absorbers, type_density=registry.mass_density, voxel_response=voxel_response,
         fracturable=fracturable, fracture_threshold=fracture_threshold,
         fracture_radius=fracture_radius, camera=camera,
         static_geometry=_build_static_geometry([p.y for p in scene.ground_planes], dev),
@@ -290,21 +385,25 @@ def compile_scene(scene, config: EngineConfig, registry: VoxelTypeRegistry | Non
     phys = phys._replace(bodies=synchronize_momenta(bodies, bodies.velocity,
                                                     bodies.angular_velocity))
 
-    # --- initial meshes: each distinct shape once, gathered to object slots ----
+    # --- initial meshes: the chunk-submesh pool on chunked grids, else each
+    #     distinct shape once, gathered to object slots --------------------------
     vert_cap = tc.mesh_vert_cap or min(4096, (g - 1) ** 3)
     tri_cap = tc.mesh_tri_cap or min(8192, 6 * (g - 1) ** 3)
-    entries = [(grid, vt, ve) for grid, vt, ve, _ in uniq]
-    if len(objects) < o_max:  # dead slots share one empty-SDF mesh
-        far = torch.full((g, g, g), 127 if i8 else 1e3,
-                         dtype=torch.int8 if i8 else torch.float32, device=dev)
-        entries.append((far, torch.zeros((g, g, g), dtype=torch.int32, device=dev), 1.0))
-        uidx += [len(entries) - 1] * (o_max - len(objects))
-    meshes_u = []
-    for grid, vt, ve in entries:
-        m = compact_mesh(surface_nets(sdf_world(grid, ve), vt, tc.mesh_merge_levels),
-                         vert_cap, tri_cap)
-        meshes_u.append(bake_mesh_materials(m, material_table))
-    meshes = _stack_meshes([meshes_u[i] for i in uidx])
+    if tc.chunked_remesh:
+        meshes = _chunk_meshes(pool, tc, material_table, dev)
+    else:
+        entries = [(grid, vt, ve) for grid, vt, ve, _ in uniq]
+        if len(objects) < o_max:  # dead slots share one empty-SDF mesh
+            far = torch.full((g, g, g), 127 if i8 else 1e3,
+                             dtype=torch.int8 if i8 else torch.float32, device=dev)
+            entries.append((far, torch.zeros((g, g, g), dtype=torch.int32, device=dev), 1.0))
+            uidx += [len(entries) - 1] * (o_max - len(objects))
+        meshes_u = []
+        for grid, vt, ve in entries:
+            m = compact_mesh(surface_nets(sdf_world(grid, ve), vt, tc.mesh_merge_levels),
+                             vert_cap, tri_cap)
+            meshes_u.append(bake_mesh_materials(m, material_table))
+        meshes = _stack_meshes([meshes_u[i] for i in uidx])
     pool = pool._replace(mesh_dirty=torch.zeros_like(pool.mesh_dirty))
 
     generator = torch.Generator(device=dev)

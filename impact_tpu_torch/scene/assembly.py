@@ -1,10 +1,11 @@
 """Per-frame render-scene assembly (port of the voxel + static-geometry parts
 of ``impact_tpu/scene/assembly.py``; ref: impact_scene lib.rs:160).
 
-Each voxel object's compacted, material-baked mesh is transformed by its
-rigid body's current and previous pose, and the static geometry's
-corner-major fields (baked once at setup) are appended — elementwise work
-only, no per-frame triangle-index gathers."""
+Each voxel object's compacted, material-baked mesh (or, in chunked mode,
+each chunk-submesh slot) is transformed by its rigid body's current and
+previous pose, and the static geometry's corner-major fields (baked once at
+setup) are appended — elementwise work only, no per-frame triangle-index
+gathers."""
 
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ import torch
 
 from ..math import quaternion as quat
 from ..render.pipeline import RenderScene
+from ..voxel.chunk_mesh import ChunkMeshPool, chunk_mesh_scene_fields
 from ..voxel.mesh import CompactMesh
 from ..voxel.object import VoxelObjectPool
 
@@ -109,7 +111,15 @@ def build_render_scene(pool: VoxelObjectPool, meshes: CompactMesh, body_position
                        tris_per_object: int = 0) -> RenderScene:
     """Flatten voxel meshes [O,Tc,...] + static geometry into one corner-major
     RenderScene. ``tris_per_object`` > 0 keeps only each object's leading
-    triangle slots (compaction packs actives to the front)."""
+    triangle slots (compaction packs actives to the front). ``meshes`` may
+    be a ChunkMeshPool: its slots are surface chunks already, so the
+    per-object slice does not apply."""
+    if isinstance(meshes, ChunkMeshPool):
+        voxel = chunk_mesh_scene_fields(meshes, pool, body_position, body_orientation,
+                                        body_position_prev, body_orientation_prev)
+        # untextured voxel surfaces, as in the dense branch below
+        voxel["tri_material"] = torch.full_like(voxel["tri_material"], -1)
+        return _concat_scene(voxel, static_geometry)
     if 0 < tris_per_object < meshes.tri_pos.shape[1]:
         k = tris_per_object
         meshes = meshes._replace(**{
@@ -131,7 +141,7 @@ def build_render_scene(pool: VoxelObjectPool, meshes: CompactMesh, body_position
     # no texture arrays in the port: voxel surfaces take the untextured path,
     # as the reference does with tpu.textured_voxels off
     mat3 = torch.full_like(meshes.tri_type, -1)
-    parts = [dict(
+    voxel = dict(
         tri_pos=world9.reshape(-1, 9),
         tri_pos_prev=world9_prev.reshape(-1, 9),
         tri_normal=normal9.reshape(-1, 9),
@@ -142,7 +152,12 @@ def build_render_scene(pool: VoxelObjectPool, meshes: CompactMesh, body_position
         tri_material=mat3.reshape(-1, 3),
         tri_active=tri_ok.reshape(-1),
         tri_shadow=(tri_ok & pool.casts_shadows[:, None]).reshape(-1),
-    )]
+    )
+    return _concat_scene(voxel, static_geometry)
+
+
+def _concat_scene(voxel: dict, static_geometry: StaticGeometry) -> RenderScene:
+    parts = [voxel]
     if static_geometry.tri_active.shape[0] > 0:
         parts.append(static_geometry_corners(static_geometry))
     return RenderScene(**{k: torch.cat([p[k].to(parts[0][k].dtype) for p in parts])

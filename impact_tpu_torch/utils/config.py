@@ -171,7 +171,18 @@ class TpuConfig:
     max_fracture_events: int = 2
     max_split_objects: int = 4
     max_split_regions: int = 3
-    chunked_remesh: bool | None = None  # None = on for G ≥ 64; the chunked path raises
+    # absorption runs dense only on the ≤cap objects whose bounding spheres
+    # overlap an absorber; in chunked mode the carve visits only the ≤budget
+    # (object, chunk) 16³ windows that overlap one (the rest defer a step)
+    absorption_gate_cap: int = 8
+    absorption_chunk_budget: int = 32
+    # chunk-gated meshing: surface meshes live in a shared pool of chunk
+    # submesh slots, up to chunk_remesh_budget dirty chunks re-meshed a step
+    chunked_remesh: bool | None = None  # None = on for G ≥ 64 (resolved by compile_scene)
+    chunk_submesh_slots: int = 0  # 0 = auto (min(O·C, 1024))
+    chunk_tri_cap: int = 1024  # triangle slots per chunk submesh
+    chunk_vert_cap: int = 1024  # vertex budget per chunk compaction
+    chunk_remesh_budget: int = 16  # dirty chunks re-meshed per step
 
 
 @dataclass

@@ -1,13 +1,19 @@
-"""Voxel deformation: split detection, region extraction and fracturing
-(port of ``impact_tpu/voxel/interaction.py`` without absorption; ref:
-impact_voxel/src/object/split_detection.rs, object/extraction.rs,
-interaction/fracturing.rs).
+"""Voxel deformation: absorption, split detection, region extraction and
+fracturing (port of ``impact_tpu/voxel/interaction.py``; ref:
+impact_voxel/src/interaction/absorption.rs, object/split_detection.rs,
+object/extraction.rs, interaction/fracturing.rs).
 
+* Absorption subtracts the absorbers' SDFs from the objects they overlap:
+  sdf ← max(sdf, −sdf_absorber). The dense pass carves whole grids, the
+  object-gated pass only the ≤cap objects whose bounding spheres overlap an
+  absorber, and the chunk-gated pass (the chunked engine path) only the
+  ≤budget (object, 16³ chunk) windows whose padded windows may overlap one;
+  what a gate leaves out is deferred to later steps and counted.
 * Split detection labels occupied voxels with the fixpoint of min-label
-  propagation; on the card that is the hand-written labels kernel
-  (``ops/ccl_pallas.py``, a min-root union-find) at any G. Grids of G ≥ 64
-  with G a multiple of 16 take the reference's two-level labelling instead,
-  in plain PyTorch as the reference's is XLA.
+  propagation. On the card that is the hand-written labels kernel
+  (``ops/ccl_pallas.py``, a min-root union-find) at every G. CPU tensors at
+  G ≥ 64 with G a multiple of 16 take the reference's two-level labelling
+  (plain PyTorch, as the reference's is XLA), the flat sweep at other G.
 * Extraction moves a disconnected component into a free pooled object slot
   with masks; the rigid-body pool gains a body the same way.
 * Fracturing assigns each voxel within the fracture radius to its nearest
@@ -20,24 +26,255 @@ interaction/fracturing.rs).
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 
+from ..geometry.primitives import capsule_sdf
+from ..math import quaternion as quat
 from ..math.quaternion import cross
 from ..ops.ccl_pallas import connected_component_labels_batched, initial_labels, min_sweep
-from .encoding import far_value
+from .collision import bounding_radii, stable_topk
+from .encoding import encode_sdf_i8, far_value, is_encoded, sdf_scale, sdf_world
 from .object import CHUNK_SIZE, VoxelObjectPool, occupancy, voxel_positions_local
+
+# --- absorption ----------------------------------------------------------------
+
+_SQRT3_F32 = float(torch.tensor(3.0).sqrt())  # √3 rounded to float32, as the reference's
+
+
+class AbsorberPools(NamedTuple):
+    """Absorbing spheres and capsules in their parent body's frame (ref:
+    absorption.rs VoxelAbsorbingSphere/Capsule)."""
+
+    sph_body: torch.Tensor  # i64[A] parent body slot
+    sph_offset: torch.Tensor  # f32[A,3] centre in the parent frame
+    sph_radius: torch.Tensor  # f32[A]
+    sph_rate: torch.Tensor  # f32[A]
+    sph_mask: torch.Tensor  # bool[A]
+    cap_body: torch.Tensor  # i64[A]
+    cap_start: torch.Tensor  # f32[A,3] segment start in the parent frame
+    cap_end: torch.Tensor  # f32[A,3]
+    cap_radius: torch.Tensor  # f32[A]
+    cap_rate: torch.Tensor  # f32[A]
+    cap_mask: torch.Tensor  # bool[A]
+
+
+def empty_absorber_pools(cap: int = 8, device=None) -> AbsorberPools:
+    def z(*shape, dtype=torch.float32):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    def one():
+        return torch.ones(cap, device=device)
+
+    return AbsorberPools(
+        sph_body=z(cap, dtype=torch.int64), sph_offset=z(cap, 3), sph_radius=one(),
+        sph_rate=one(), sph_mask=z(cap, dtype=torch.bool),
+        cap_body=z(cap, dtype=torch.int64), cap_start=z(cap, 3), cap_end=z(cap, 3),
+        cap_radius=one(), cap_rate=one(), cap_mask=z(cap, dtype=torch.bool),
+    )
+
+
+def _absorber_frames(absorbers: AbsorberPools, body_position, body_orientation):
+    """World sphere centres and capsule end points, [A,3] each."""
+    def world(body, local):
+        return body_position[body] + quat.rotate(body_orientation[body], local)
+
+    return (world(absorbers.sph_body, absorbers.sph_offset),
+            world(absorbers.cap_body, absorbers.cap_start),
+            world(absorbers.cap_body, absorbers.cap_end))
+
+
+def _absorber_sdf_at(absorbers: AbsorberPools, body_position, body_orientation, pos_world):
+    """Minimum SDF over the active absorbers at world points [...,3] → [...]
+    (+inf where none is active)."""
+    c_w, a_w, b_w = _absorber_frames(absorbers, body_position, body_orientation)
+    d = torch.linalg.vector_norm(pos_world[..., None, :] - c_w, dim=-1) - absorbers.sph_radius
+    d = torch.where(absorbers.sph_mask, d, math.inf).amin(dim=-1)
+    d_cap = capsule_sdf(a_w, b_w, absorbers.cap_radius, pos_world[..., None, :])
+    d_cap = torch.where(absorbers.cap_mask, d_cap, math.inf).amin(dim=-1)
+    return torch.minimum(d, d_cap)
+
+
+def _absorber_overlap_mask(pool: VoxelObjectPool, absorbers: AbsorberPools, body_position,
+                           body_orientation):
+    """bool[O]: the object's bounding sphere intersects an active absorber."""
+    centers = body_position[pool.body_index]
+    radii = bounding_radii(pool)
+    c_w, a_w, b_w = _absorber_frames(absorbers, body_position, body_orientation)
+    d_sph = (torch.linalg.vector_norm(centers[:, None, :] - c_w[None], dim=-1)
+             - absorbers.sph_radius[None, :] - radii[:, None])
+    hit = ((d_sph < 0.0) & absorbers.sph_mask[None, :]).any(dim=1)
+    d_cap = capsule_sdf(a_w[None], b_w[None], absorbers.cap_radius[None, :],
+                        centers[:, None, :]) - radii[:, None]
+    hit = hit | ((d_cap < 0.0) & absorbers.cap_mask[None, :]).any(dim=1)
+    return hit & pool.alive
+
+
+def _apply_absorption_dense(pool: VoxelObjectPool, absorbers: AbsorberPools, body_position,
+                            body_orientation) -> VoxelObjectPool:
+    """Per-voxel absorption over every object of the (sub-)pool."""
+    bi = pool.body_index
+    pos_world = (quat.rotate(body_orientation[bi][:, None, None, None, :],
+                             voxel_positions_local(pool))
+                 + body_position[bi][:, None, None, None, :])
+    d_abs = _absorber_sdf_at(absorbers, body_position, body_orientation, pos_world)
+    if is_encoded(pool.sdf):
+        world = sdf_world(pool.sdf, pool.voxel_extent)
+        new_sdf = encode_sdf_i8(torch.maximum(world, -d_abs),
+                                pool.voxel_extent[:, None, None, None])
+        changed = (new_sdf != pool.sdf).flatten(1).any(dim=1)
+    else:
+        new_sdf = torch.maximum(pool.sdf, -d_abs)
+        changed = ((new_sdf - pool.sdf).abs() > 1e-7).flatten(1).any(dim=1)
+    changed = changed & pool.alive
+    return pool._replace(sdf=torch.where(pool.alive[:, None, None, None], new_sdf, pool.sdf),
+                         mesh_dirty=pool.mesh_dirty | changed,
+                         split_pending=pool.split_pending | changed)
+
+
+def _apply_absorption_gated(pool: VoxelObjectPool, absorbers: AbsorberPools, body_position,
+                            body_orientation, gate_cap: int) -> VoxelObjectPool:
+    """Absorb densely on the ≤gate_cap absorber-overlapping objects (lowest
+    slots first) and scatter the results back; the others are deferred."""
+    hit = _absorber_overlap_mask(pool, absorbers, body_position, body_orientation)
+    order = torch.argsort((~hit).to(torch.uint8), stable=True)[:gate_cap]
+    sel = hit[order]
+    sub = VoxelObjectPool(*(a[order] for a in pool))
+    sub2 = _apply_absorption_dense(sub, absorbers, body_position, body_orientation)
+
+    def put(full, new, old):
+        s = sel.reshape((-1,) + (1,) * (new.ndim - 1))
+        return full.index_copy(0, order, torch.where(s, new, old))
+
+    return pool._replace(sdf=put(pool.sdf, sub2.sdf, sub.sdf),
+                         mesh_dirty=put(pool.mesh_dirty, sub2.mesh_dirty, sub.mesh_dirty),
+                         split_pending=put(pool.split_pending, sub2.split_pending,
+                                           sub.split_pending))
+
+
+def apply_absorption(pool: VoxelObjectPool, absorbers: AbsorberPools, body_position,
+                     body_orientation, gate_cap: int | None = None) -> VoxelObjectPool:
+    """Subtract the absorbers' SDFs from the objects they overlap (ref:
+    absorption.rs:434). With ``gate_cap`` below the pool size only the
+    ≤gate_cap objects whose bounding spheres overlap an absorber are carved
+    (the rest wait a step); otherwise every object is."""
+    if gate_cap is not None and gate_cap < pool.n_objects:
+        return _apply_absorption_gated(pool, absorbers, body_position, body_orientation,
+                                       gate_cap)
+    return _apply_absorption_dense(pool, absorbers, body_position, body_orientation)
+
+
+def deferred_absorption_count(pool: VoxelObjectPool, absorbers: AbsorberPools, body_position,
+                              body_orientation, gate_cap: int):
+    """i64[]: absorber-overlapping objects beyond ``gate_cap``, the objects
+    the gated pass defers to the next step (0 on the dense path)."""
+    hit = _absorber_overlap_mask(pool, absorbers, body_position, body_orientation)
+    if gate_cap >= pool.n_objects:
+        return torch.zeros((), dtype=torch.int64, device=hit.device)
+    return torch.clamp(hit.sum() - gate_cap, min=0)
+
+
+def _chunk_absorber_hit(pool: VoxelObjectPool, absorbers: AbsorberPools, body_position,
+                        body_orientation):
+    """bool[O,C]: the chunk's padded 18³ mesh window may intersect an active
+    absorber (tested by the window's bounding sphere). Every voxel an
+    absorber can change lies in the padded windows of every chunk whose
+    remesh reads it, so carving and marking by this mask misses none."""
+    nc = pool.grid_size // CHUNK_SIZE
+    dev = pool.sdf.device
+    r = torch.arange(nc, dtype=torch.float32, device=dev) * CHUNK_SIZE + CHUNK_SIZE / 2.0
+    ci, cj, ck = torch.meshgrid(r, r, r, indexing="ij")
+    centers_grid = torch.stack([ci, cj, ck], dim=-1).reshape(-1, 3)  # [C,3]
+    ext = pool.voxel_extent
+    centers_local = centers_grid[None] * ext[:, None, None] + pool.origin[:, None, :]
+    bi = pool.body_index
+    centers_world = (quat.rotate(body_orientation[bi][:, None, :], centers_local)
+                     + body_position[bi][:, None, :])
+    win_r = 9.0 * _SQRT3_F32 * ext[:, None]  # the 18³ window's half-diagonal
+    d = _absorber_sdf_at(absorbers, body_position, body_orientation, centers_world)
+    return (d < win_r) & pool.alive[:, None]
+
+
+def apply_absorption_chunk_gated(pool: VoxelObjectPool, absorbers: AbsorberPools,
+                                 body_position, body_orientation, pair_budget: int,
+                                 rotation=0):
+    """Carve only the ≤``pair_budget`` (object, chunk) 16³ windows whose
+    padded windows overlap an active absorber (ref: absorption.rs:434). The
+    pick takes the hits of highest rank (flat index + ``rotation``) mod O·C,
+    so a ``rotation`` that advances by the budget each step round-robins
+    the hits. Sets ``split_pending`` on changed objects, not ``mesh_dirty``.
+
+    Returns ``(pool, changed bool[O], dirty_chunks bool[O,C], deferred
+    i64[])``: ``dirty_chunks`` marks every absorber-overlapped chunk of a
+    changed object; ``deferred`` counts the overlapped chunks beyond the
+    budget."""
+    g = pool.grid_size
+    nc = g // CHUNK_SIZE
+    c = nc ** 3
+    o_max = pool.n_objects
+    dev = pool.sdf.device
+    hit = _chunk_absorber_hit(pool, absorbers, body_position, body_orientation)  # [O,C]
+    flat = hit.reshape(-1)
+    n_flat = o_max * c
+    budget = min(pair_budget, n_flat)
+    rank = (torch.arange(n_flat, device=dev) + rotation) % n_flat
+    picks = stable_topk(torch.where(flat, rank + 1, 0), budget)  # ties: lowest index first
+    sel = flat[picks]
+    o_idx = picks // c
+    ch = picks % c
+    cz, cy, cx = ch % nc, (ch // nc) % nc, ch // (nc * nc)
+
+    ar = torch.arange(CHUNK_SIZE, device=dev)
+    gx = (cx[:, None] * CHUNK_SIZE + ar)[:, :, None, None]
+    gy = (cy[:, None] * CHUNK_SIZE + ar)[:, None, :, None]
+    gz = (cz[:, None] * CHUNK_SIZE + ar)[:, None, None, :]
+    oo = o_idx[:, None, None, None]
+    win = pool.sdf[oo, gx, gy, gz]  # [B,16,16,16]
+
+    arf = ar.to(torch.float32) + 0.5
+    wi, wj, wk = torch.meshgrid(arf, arf, arf, indexing="ij")
+    base = torch.stack([cx, cy, cz], dim=-1).to(torch.float32) * CHUNK_SIZE
+    grid_pos = torch.stack([wi, wj, wk], dim=-1)[None] + base[:, None, None, None, :]
+    ext = pool.voxel_extent[o_idx]
+    pos_local = (grid_pos * ext[:, None, None, None, None]
+                 + pool.origin[o_idx][:, None, None, None, :])
+    bidx = pool.body_index[o_idx]
+    pos_world = (quat.rotate(body_orientation[bidx][:, None, None, None, :], pos_local)
+                 + body_position[bidx][:, None, None, None, :])
+    d_abs = _absorber_sdf_at(absorbers, body_position, body_orientation, pos_world)
+    if is_encoded(pool.sdf):
+        world = win.to(torch.float32) * sdf_scale(ext)[:, None, None, None]
+        new_win = encode_sdf_i8(torch.maximum(world, -d_abs), ext[:, None, None, None])
+    else:
+        new_win = torch.maximum(win, -d_abs)
+    changed_pair = sel & (new_win != win).flatten(1).any(dim=1)
+
+    # the picks are distinct chunks, so their windows never overlap: every
+    # window is written back, unselected ones unchanged (no host read)
+    sdf = pool.sdf.clone()
+    sdf[oo, gx, gy, gz] = torch.where(sel[:, None, None, None], new_win, win)
+    changed = torch.zeros(o_max, dtype=torch.int32, device=dev).scatter_reduce(
+        0, o_idx, changed_pair.to(torch.int32), "amax") > 0
+    dirty_chunks = hit & changed[:, None]
+    deferred = torch.clamp(hit.sum() - sel.sum(), min=0)
+    return pool._replace(sdf=sdf, split_pending=pool.split_pending | changed), changed, \
+        dirty_chunks, deferred
+
+
+# --- split detection ----------------------------------------------------------------
 
 
 def connected_component_labels(occ):
     """Labels of a bool [G,G,G] grid or [B,G,G,G] batch: i32, the minimum
-    linear index of each 6-connected component, −1 where empty. Routed as
-    the reference routes (interaction.py:connected_component_labels): the
-    two-level labelling for G ≥ 64 with G a multiple of the chunk size, the
-    flat labels (the labels kernel on the card) for every other G."""
+    linear index of each 6-connected component, −1 where empty. On the card
+    every G goes to the labels kernel. On the CPU the routing is the
+    reference's (interaction.py:connected_component_labels): the two-level
+    labelling for G ≥ 64 with G a multiple of the chunk size, the flat
+    sweep for every other G."""
     batch = occ if occ.ndim == 4 else occ[None]
     g = occ.shape[-1]
-    if g >= 64 and g % CHUNK_SIZE == 0:
+    if occ.device.type == "cpu" and g >= 64 and g % CHUNK_SIZE == 0:
         labels = connected_component_labels_two_level(batch)
     else:
         labels = connected_component_labels_batched(batch)

@@ -43,11 +43,14 @@ class SurfaceNetsMesh(NamedTuple):
     tri_indices: torch.Tensor  # i64[T,3] cell-slot indices
 
 
+def _corner_offsets(device):
+    """``_CORNER_OFFSETS`` as f32 [8,3], built on the device (no upload)."""
+    i = torch.arange(8, device=device)
+    return torch.stack([i & 1, (i >> 1) & 1, (i >> 2) & 1], dim=-1).to(torch.float32)
+
+
 def _corner_sign(axis, device):
-    return torch.tensor(
-        [1.0 if off[axis] else -1.0 for off in _CORNER_OFFSETS],
-        dtype=torch.float32, device=device,
-    )
+    return _corner_offsets(device)[:, axis] * 2.0 - 1.0
 
 
 def _take_last(x, idx):
@@ -77,7 +80,7 @@ def surface_nets(sdf, vtype, merge_levels: int = 0) -> SurfaceNetsMesh:
 
     crossings_sum = torch.zeros((nb, gc, gc, gc, 3), dtype=torch.float32, device=dev)
     crossings_cnt = torch.zeros((nb, gc, gc, gc), dtype=torch.float32, device=dev)
-    offsets = torch.tensor(_CORNER_OFFSETS, dtype=torch.float32, device=dev)
+    offsets = _corner_offsets(dev)
     for (a, b) in _EDGES:
         da, db = corners[..., a], corners[..., b]
         crossing = (da < 0.0) != (db < 0.0)

@@ -1,5 +1,5 @@
-"""Voxel object pool with dense per-object grids (port of
-``impact_tpu/voxel/object.py`` without the chunk codes of the chunked path).
+"""Voxel object pool with dense per-object grids and the derived per-chunk
+occupancy codes (port of ``impact_tpu/voxel/object.py``).
 
 Voxel (i,j,k) center sits at ``(ijk + 0.5) * voxel_extent + origin`` in the
 object's body frame; a voxel is part of the object iff sdf < 0."""
@@ -14,6 +14,11 @@ from . import sdf as sdflib
 from .encoding import sdf_world
 
 CHUNK_SIZE = 16  # ref: object.rs:199-207; the two-level labelling's chunk
+
+# chunk occupancy codes (ref: object.rs:75-101 Void/Uniform/NonUniform)
+CHUNK_VOID = 0
+CHUNK_UNIFORM = 1
+CHUNK_NON_UNIFORM = 2
 
 
 class VoxelObjectPool(NamedTuple):
@@ -66,6 +71,27 @@ def nonempty_counts(pool: VoxelObjectPool):
     return occupancy(pool).sum(dim=(1, 2, 3))
 
 
+def chunk_codes(pool: VoxelObjectPool):
+    """Per-chunk occupancy codes [O, G/16, G/16, G/16]: void, uniform
+    (every voxel occupied) or non-uniform (the surface crosses it)."""
+    c = pool.grid_size // CHUNK_SIZE
+    occ = occupancy(pool).reshape(pool.n_objects, c, CHUNK_SIZE, c, CHUNK_SIZE, c, CHUNK_SIZE)
+    filled = occ.sum(dim=(2, 4, 6))
+    return torch.where(filled == 0, CHUNK_VOID,
+                       torch.where(filled == CHUNK_SIZE ** 3, CHUNK_UNIFORM, CHUNK_NON_UNIFORM))
+
+
+def occupied_chunk_counts(pool: VoxelObjectPool):
+    """Per-object count of non-void 16³ chunks."""
+    return (chunk_codes(pool) != CHUNK_VOID).sum(dim=(1, 2, 3))
+
+
+def surface_chunk_counts(pool: VoxelObjectPool):
+    """Per-object count of non-uniform (surface-crossing) 16³ chunks, the
+    chunks the incremental mesher visits (ref: mesh.rs:360)."""
+    return (chunk_codes(pool) == CHUNK_NON_UNIFORM).sum(dim=(1, 2, 3))
+
+
 def _shift(occ, axis: int, step: int):
     """occ moved by ``step`` (±1) along ``axis``, zero-filled: out[i] =
     occ[i + step]."""
@@ -92,6 +118,7 @@ def surface_mask(occ):
     adj = adjacency_masks(occ)
     covered = adj["x_dn"] & adj["x_up"] & adj["y_dn"] & adj["y_up"] & adj["z_dn"] & adj["z_up"]
     return occ & ~covered
+
 
 def voxel_positions_local(pool: VoxelObjectPool):
     """[O,G,G,G,3] voxel centers in each object's body frame."""

@@ -165,23 +165,55 @@ def test_fracture_scene_steps_through_event_and_splits():
     assert trt.host_syncs == 3 * i
 
 
-def test_paths_outside_the_slice_raise():
-    """The chunked engine path (grids of 64³ and up) and reference scenes
-    with absorbers or distance rules are not ported: they raise, with no
-    fallback. (The scan solver mode and the two-level CCL raise too:
-    tests/test_torch_physics.py, tests/test_torch_ccl_k2.py.)"""
+@pytest.mark.parametrize("path", ["chunked grids", "absorbers", "distance rules",
+                                  "mesh models"])
+def test_paths_outside_the_slice_raise(path, tumbler):
+    """Chunked grids (64³ and up) and absorbers are ported: a 64³ scene
+    resolves to the chunked path and steps, and the reference's absorbers
+    bridge and carve. Distance rules and mesh-model entities are not: the
+    bridge raises, with no fallback. (The scan solver mode raises too:
+    tests/test_torch_physics.py.)"""
     from types import SimpleNamespace
 
-    from impact_tpu_torch.runtime.engine import make_engine_step
+    from impact_tpu_torch.models.bench import bench_chunked_config, bench_chunked_scene
+    from impact_tpu_torch.voxel.chunk_mesh import ChunkMeshPool
 
-    cfg = TConfig()
-    cfg.tpu.voxel_grid_size = 64
-    with pytest.raises(NotImplementedError, match="chunked"):
-        make_engine_step(None, cfg, 1, 1)
+    if path == "chunked grids":
+        cfg = bench_chunked_config(64)
+        cfg.tpu.chunked_remesh = None
+        rt = TRuntime(tcompile(bench_chunked_scene(64), cfg, device="cpu"), cfg,
+                      enable_fracturing=False)
+        rt.step(1)
+        assert cfg.tpu.chunked_remesh is True and isinstance(rt.sim.meshes, ChunkMeshPool)
+        assert int(rt.sim.meshes.active.sum()) > 0
+        assert bool(torch.isfinite(rt.sim.phys.bodies.position).all())
+        return
+    if path == "absorbers":
+        build = tumbler["build"]
+        a = build.params.absorbers
+        # a sphere of radius 2 on the first box's body, at its centre
+        params = build.params._replace(absorbers=a._replace(
+            sph_body=a.sph_body.at[0].set(int(build.sim.voxels.body_index[0])),
+            sph_radius=a.sph_radius.at[0].set(2.0), sph_mask=a.sph_mask.at[0].set(True)))
+        tp = bridge.engine_params_from_reference(params, device="cpu")
+        for f in tp.absorbers._fields:
+            np.testing.assert_array_equal(getattr(tp.absorbers, f).numpy(),
+                                          np.asarray(getattr(params.absorbers, f)), err_msg=f)
+        tc = _configure(TConfig(), 4, 20)
+        tc.tpu.max_contacts = 256
+        tb = bridge.scene_build_from_reference(build, device="cpu")
+        tb.params = tp
+        rt = TRuntime(tb, tc, enable_fracturing=False)
+        before = rt.sim.voxels.sdf.clone()
+        rt.step(1)
+        # codes change where the sphere overlaps a grid: box 0's and the
+        # empty corner of box 1's grid, not box 2's, 10 m above
+        n_changed = (rt.sim.voxels.sdf != before).flatten(1).sum(dim=1).tolist()
+        assert n_changed[0] > 1000 and n_changed[2] == 0
+        return
     off, on = np.zeros(2, bool), np.ones(2, bool)
-    for absorbers, rules in (((on, off), off), ((off, off), on)):
-        params = SimpleNamespace(absorbers=SimpleNamespace(sph_mask=absorbers[0],
-                                                           cap_mask=absorbers[1]),
-                                 dist_rules=SimpleNamespace(mask=rules))
-        with pytest.raises(NotImplementedError):
-            bridge.engine_params_from_reference(params, device="cpu")
+    params = SimpleNamespace(dist_rules=SimpleNamespace(mask=on if path == "distance rules"
+                                                        else off),
+                             mesh_instances=SimpleNamespace(vert_active=on))
+    with pytest.raises(NotImplementedError):
+        bridge.engine_params_from_reference(params, device="cpu")

@@ -1,6 +1,8 @@
 """K2's CUDA kernels against their plain PyTorch versions on the card: the
-labels kernel at every G, the sweep kernels (K2 while its buffers fit a
-block's shared memory, to 38³; K2-wide past it).
+labels kernel at every G (the split checks of the chunked bench scenes at
+64³ and 128³ included, where ``connected_component_labels`` routes to it on
+the card), the sweep kernels (K2 while its buffers fit a block's shared
+memory, to 38³; K2-wide past it).
 
 Needs an NVIDIA GPU with nvcc (the kernel has no CPU or interpret mode), so
 these tests skip elsewhere; they import no JAX, so they run on the GPU host:
@@ -14,7 +16,11 @@ import pytest
 import torch
 
 from impact_tpu_torch.ops import ccl_pallas as k2
-from impact_tpu_torch.voxel.interaction import connected_component_labels
+from impact_tpu_torch.voxel import interaction
+from impact_tpu_torch.voxel.interaction import (
+    connected_component_labels,
+    connected_component_labels_two_level,
+)
 
 
 @pytest.fixture
@@ -79,9 +85,61 @@ def test_labels_wrapper_on_card(cuda_device):
 @pytest.mark.cuda
 def test_two_level_on_card_equals_flat(cuda_device):
     occ = torch.tensor(_grids(64, 1)[[0, 1, 2, 4]], device=cuda_device)
-    two = connected_component_labels(occ)
+    two = connected_component_labels_two_level(occ)
     assert torch.equal(two, k2.connected_component_labels_batched(occ))
     assert torch.equal(two.cpu(), connected_component_labels(occ.cpu()))
+
+
+def _carved_asteroid(g, cuda_device):
+    """Occupancy of the filled chunked bench scene's live objects after two
+    carving steps (the carve splits the asteroid)."""
+    from impact_tpu_torch.models.bench import bench_chunked_config, bench_chunked_fill_scene
+    from impact_tpu_torch.runtime import HeadlessRuntime, compile_scene
+    from impact_tpu_torch.voxel.object import occupancy
+
+    cfg = bench_chunked_config(g)
+    rt = HeadlessRuntime(compile_scene(bench_chunked_fill_scene(g), cfg, device=cuda_device),
+                         cfg, enable_fracturing=False)
+    rt.step(2)
+    v = rt.sim.voxels
+    return occupancy(v)[v.alive]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g,nb", [(64, 4), (128, 2)])
+@pytest.mark.parametrize("what", ["carved asteroid", "serpentine, full, empty"])
+def test_labels_kernel_on_chunked_grids(cuda_device, g, nb, what):
+    """The split checks' grids of the chunked bench: the labels kernel
+    equals the two-level plain labelling (the CPU path) on the card."""
+    if what == "carved asteroid":
+        occ = _carved_asteroid(g, cuda_device)
+        snake = torch.tensor(_grids(g, 0)[4], device=cuda_device)
+        occ = torch.cat([occ, snake[None].expand(nb, g, g, g)])[:nb].contiguous()
+    else:
+        occ = torch.tensor(_grids(g, 0)[[4, 6, 5, 5][:nb]], device=cuda_device)
+    k2.LAUNCHES.reset()
+    got = k2.connected_component_labels_batched(occ)
+    ref = connected_component_labels_two_level(occ)
+    torch.cuda.synchronize()
+    assert k2.LAUNCHES["k2_labels"] == 1
+    assert torch.equal(got, ref)
+    assert int((got >= 0).sum()) > 0
+
+
+@pytest.mark.cuda
+def test_routing_at_64_reaches_labels_kernel(cuda_device, monkeypatch):
+    """``connected_component_labels`` on a CUDA 64³ batch launches the labels
+    kernel and never runs the two-level labelling."""
+    def refuse(occ):
+        raise AssertionError("the two-level labelling ran on the card")
+
+    monkeypatch.setattr(interaction, "connected_component_labels_two_level", refuse)
+    occ = torch.tensor(_grids(64, 2)[[0, 1, 2, 4]], device=cuda_device)
+    k2.LAUNCHES.reset()
+    got = connected_component_labels(occ)
+    torch.cuda.synchronize()
+    assert dict(k2.LAUNCHES) == {"k2_labels": 1, "k2_ccl": 0, "k2_ccl_wide": 0}
+    assert torch.equal(got.cpu(), k2.connected_component_labels_batched(occ).cpu())
 
 
 def _edge_grids(g, seed):
