@@ -37,7 +37,25 @@ then drives these paths through the port's entry points:
    check's grids, routed there by ``connected_component_labels``) held
    against the two-level plain labelling on the grids it labelled, and one
    320x200 frame of the filled 64³ phase through K1, held against K1's
-   plain version and scored against the plain tile raster.
+   plain version and scored against the plain tile raster;
+9. the scan solver (the default ``scan`` mode, ``csrc/scan_solver.cu``):
+   its two kernels held against ``scan_iterations_plain`` on the solver
+   inputs of one substep of the snapshot tester's VoxelBoxTumbler and
+   Bloom (24 bodies, 128 slots) and of the bench tumbler stepped under
+   ``scan`` (80 bodies, 1024 slots), each with at least 20 active slots,
+   timed (CUDA events, 20 calls after 2;
+   device time alone through torch.profiler) beside their bound, and the
+   bench tumbler's step under ``scan`` and ``jacobi`` in turns in one
+   process, with launches per step;
+10. the snapshot tester's 19 ported scenes
+   (``impact_tpu_torch.apps.snapshot_tester``: 320x240, 4 objects of 32³,
+   the ``scan`` solver) stepped their warm-up counts and rendered through
+   K1 (windows fit to each view, so nothing drops), each frame scored
+   against its golden (``apps/snapshots/reference``) at 0.93, every K1
+   launch of the path (the G-buffers, cubemap faces, directional maps and
+   cascades) held against K1's plain version on the same inputs, and the
+   same state rendered again with the plain tile raster, held to K1's
+   frame at 0.95.
 
 Kernel launch counts are zeroed just before each path and read just after
 it. Every phase prints one flushed line with its seconds; any failure exits
@@ -63,6 +81,7 @@ so two trees' probe kernels can be timed in turns in one call; the
 empty frame is shorter than the wrapper's host work) and the wrapper's.
 ``--chunked-only`` runs only the four chunked phases (and the labels entry
 of the record), so two trees can be timed in turns in one call.
+``--snapshots-only`` runs only the scan solver and snapshot phases.
 """
 
 from __future__ import annotations
@@ -106,6 +125,25 @@ MOVED_VOXEL_SHARE = 1e-3
 # bench's 50)
 CHUNKED_WARMUP = 3
 CHUNKED_STEPS = 50
+# the scan solver: steps before recording, then the steps whose substeps are
+# recorded (the one with the most active slots is kept), and the fewest
+# active slots a recorded substep may hold. On an H100 80GB HBM3: the
+# snapshot tumbler's boxes pile up from ~step 200 and hold 20-36 active
+# slots of 128 from ~step 290; Bloom's first step holds 89 (its spheres
+# start overlapping), later ones 5-6; BallPit never more than 5 in 400
+# steps, so it is not recorded here (its substeps run on the snapshot path);
+# the bench tumbler holds 60-71 of 1024 from ~step 500 of 0.005 s
+SCAN_RECORD_STEPS = {"VoxelBoxTumbler": (340, 60), "Bloom": (0, 1)}
+BENCH_SCAN_RECORD_STEPS = (600, 100)
+SCAN_MIN_ACTIVE = 20
+# the bench tumbler's steps per turn when timing scan against jacobi (turns
+# jacobi, scan, scan, jacobi)
+SCAN_TURN_STEPS = 20
+# the kernels against their plain version: equal is expected (every float
+# operation rounded the same way in the same order); held within the CPU
+# parity bar against impact_tpu (tests/test_torch_scan_solver.py): rtol
+# 1e-5 and an atol of 1e-6 of each field's largest magnitude
+SCAN_RTOL, SCAN_ATOL_OF_MAGNITUDE = 1e-5, 1e-6
 
 
 def log(msg: str) -> None:
@@ -158,7 +196,8 @@ def kernel_ms(fn, kernel, reps=20, warmup=2, events=True):
     """Mean device ms of one launch of the CUDA kernel whose name contains
     ``kernel``, from torch.profiler over ``reps`` calls of ``fn``, each of
     which launches it once: the kernel alone, without the wrapper's host
-    work or any other launch.
+    work or any other launch. ``kernel`` may be a tuple of names of kernels
+    that each call launches once each: the ms is then their sum per call.
 
     The profiler now and then loses launch records (1 of 20; in some runs
     all of them, in every profile of one kernel): the mean is taken over the
@@ -169,6 +208,8 @@ def kernel_ms(fn, kernel, reps=20, warmup=2, events=True):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    names = (kernel,) if isinstance(kernel, str) else kernel
+    per_call = len(names)
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -177,12 +218,12 @@ def kernel_ms(fn, kernel, reps=20, warmup=2, events=True):
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        hits = [e for e in prof.key_averages() if kernel in e.key
+        hits = [e for e in prof.key_averages() if any(k in e.key for k in names)
                 and getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
         n = sum(e.count for e in hits)
         us = sum(getattr(e, "self_device_time_total", 0.0) for e in hits)
-        if reps // 2 <= n <= reps and us > 0.0:
-            return us / n / 1e3
+        if reps // 2 * per_call <= n <= reps * per_call and us > 0.0:
+            return us / n * per_call / 1e3
     if not events:
         log(f"kernel_ms: the profiler saw {n} launches of {kernel} ({us} us) in {reps} calls, "
             f"three times; not timed alone")
@@ -721,17 +762,11 @@ def chunked_phases(dev, record, kernels):
         if drops != drops_p or score_p < PARITY_BAR:
             raise AssertionError(f"the chunked frame through K1 differs from K1's plain "
                                  f"version: drops {drops} vs {drops_p}, parity {score_p:.4f}")
-        # K1's windows keep 256 candidates in (bin, z) order, the reference's
-        # binning: a frame whose windows overflow loses near candidates
-        # (ROADMAP Queue 3). Only a frame without geometry drops must match
-        # the untruncated tile raster.
-        if score_t < PARITY_BAR and drops[0] == 0:
-            raise AssertionError(f"chunked frame parity {score_t:.4f} < {PARITY_BAR} against "
-                                 f"the tile raster with no geometry drop")
-        if score_t < PARITY_BAR:
-            log(f"chunked64_fill frame: below the bar against the tile raster with "
-                f"{drops[0]} geometry drops, as K1's plain version (the reference's window "
-                f"overflow, ROADMAP Queue 3)")
+        # K1's windows are fit to each view (nothing drops), so the frame
+        # must match the untruncated tile raster
+        if drops != (0, 0) or score_t < PARITY_BAR:
+            raise AssertionError(f"chunked frame: K1 drops {drops}, parity {score_t:.4f} "
+                                 f"against the tile raster (bar {PARITY_BAR})")
         record["chunked64_fill_frame"] = dict(parity_vs_k1_plain=score_p,
                                               parity_vs_tile_raster=score_t, drops=drops,
                                               k1_launches=k1_launches)
@@ -900,6 +935,8 @@ def main(argv=None) -> int:
                     help="run only the P1 and P2 probe phases")
     ap.add_argument("--chunked-only", action="store_true",
                     help="run only the four chunked bench phases")
+    ap.add_argument("--snapshots-only", action="store_true",
+                    help="run only the scan solver and snapshot tester phases")
     args = ap.parse_args(argv)
     k1_only, ccl_only = args.k1_only, args.ccl_only
     t_all = time.perf_counter()
@@ -966,6 +1003,11 @@ def main(argv=None) -> int:
     if args.chunked_only:
         kernels = []
         chunked_phases(dev, record, kernels)
+        return finish(t_all, record, kernels, kind, count)
+    if args.snapshots_only:
+        kernels = []
+        scan_phase(dev, record, kernels)
+        snapshot_phase(dev, record, kernels)
         return finish(t_all, record, kernels, kind, count)
 
     with Phase("K2 vs plain version, G=32: random fills, serpentine, empty, full"):
@@ -1341,7 +1383,257 @@ def main(argv=None) -> int:
 
     probe_phases(dev, record, kernels)
     chunked_phases(dev, record, kernels)
+    scan_phase(dev, record, kernels)
+    snapshot_phase(dev, record, kernels)
     return finish(t_all, record, kernels, kind, count)
+
+
+def record_scan_inputs(rt, before, steps, what):
+    """Step ``rt`` ``before`` steps, then ``steps`` more, keeping the
+    arguments of the ``scan_iterations`` call (the engine's solve calls it
+    once per substep) with the most active slots. Fails below
+    SCAN_MIN_ACTIVE active slots: the kernel's point is the chain of slots
+    that share bodies, which a nearly empty substep does not exercise."""
+    from impact_tpu_torch.physics import solver
+
+    rt.step(before)
+    best, real = [None, -1], solver.scan_iterations
+
+    def spy(*args):
+        n = int(args[6].active.sum())
+        if n > best[1]:
+            best[:] = [args, n]
+        return real(*args)
+
+    solver.scan_iterations = spy
+    try:
+        rt.step(steps)
+    finally:
+        solver.scan_iterations = real
+    if best[1] < SCAN_MIN_ACTIVE:
+        raise AssertionError(f"scan inputs {what}: at most {best[1]} active slots in steps "
+                             f"{before}-{before + steps}, fewer than {SCAN_MIN_ACTIVE}")
+    return best[0]
+
+
+def hold_scan(args, what):
+    """The kernels against ``scan_iterations_plain`` on one recorded input:
+    (max abs err, bit-equal). Raises past SCAN_RTOL / SCAN_ATOL_OF_MAGNITUDE."""
+    import torch
+
+    from impact_tpu_torch.physics import scan_solver
+
+    got = scan_solver.scan_iterations(*args)
+    ref = scan_solver.scan_iterations_plain(*args)
+    torch.cuda.synchronize()
+    err, equal = 0.0, True
+    for name, g, r in zip(("v", "w", "impulses", "position", "orientation"), got, ref):
+        if g.shape != r.shape or not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"scan {what}: {name} is {tuple(g.shape)} or not finite")
+        d = (g - r).abs()
+        e = d.max().item() if d.numel() else 0.0
+        err = max(err, e)
+        equal = equal and torch.equal(g, r)
+        atol = SCAN_ATOL_OF_MAGNITUDE * max(r.abs().max().item() if r.numel() else 0.0, 1.0)
+        if bool((d > atol + SCAN_RTOL * r.abs()).any()):
+            raise AssertionError(f"scan {what}: {name} differs from the plain version by "
+                                 f"{e:.3g} (rtol {SCAN_RTOL}, atol {atol:.3g})")
+    return err, equal
+
+
+def scan_phase(dev, record, kernels):
+    """The scan solver's kernels on recorded solver inputs, and the bench
+    tumbler stepped under scan and jacobi in turns."""
+    import torch
+
+    from impact_tpu_torch.apps import snapshot_tester as st
+    from impact_tpu_torch.devtools import cuda_time_ms
+    from impact_tpu_torch.models.bench import bench_config, bench_step_scene
+    from impact_tpu_torch.physics import scan_solver
+    from impact_tpu_torch.runtime import HeadlessRuntime, compile_scene
+
+    inputs = {}
+    with Phase(f"scan solver: record one substep's solver inputs with at least "
+               f"{SCAN_MIN_ACTIVE} active slots (snapshot VoxelBoxTumbler and Bloom, 128 "
+               f"slots; bench tumbler under scan, 1024 slots)"):
+        for name, (before, steps) in SCAN_RECORD_STEPS.items():
+            inputs[name] = record_scan_inputs(st.build_runtime(name, dev), before, steps, name)
+        cfg = bench_config()
+        cfg.tpu.solver_mode = "scan"
+        rt = HeadlessRuntime(compile_scene(bench_step_scene(), cfg, device=dev), cfg,
+                             enable_fracturing=False)
+        inputs["bench tumbler"] = record_scan_inputs(rt, *BENCH_SCAN_RECORD_STEPS,
+                                                     "bench tumbler")
+        for name, a in inputs.items():
+            prep = a[6]
+            log(f"scan inputs {name}: {a[0].shape[0]} bodies, {prep.active.shape[0]} slots, "
+                f"{int(prep.active.sum())} active, {a[8]} velocity and {a[9]} correction sweeps")
+
+    rows = {}
+    with Phase("scan solver kernels vs scan_iterations_plain on the recorded inputs; timed"):
+        for name, a in inputs.items():
+            err, equal = hold_scan(a, name)
+            ms = kernel_ms(lambda a=a: scan_solver.scan_iterations(*a),
+                           ("scan_velocity_kernel", "scan_correction_kernel"))
+            vel_ms = kernel_ms(lambda a=a: scan_solver.scan_iterations(*a),
+                               "scan_velocity_kernel")
+            wrapper = cuda_time_ms(lambda a=a: scan_solver.scan_iterations(*a), reps=20)
+            t0 = time.perf_counter()
+            scan_solver.scan_iterations_plain(*a)
+            torch.cuda.synchronize()
+            plain = (time.perf_counter() - t0) * 1e3
+            n, c = a[0].shape[0], a[6].active.shape[0]
+            bound, by = scan_solver.bound_ms(n, c, a[8], a[9])
+            walks = c * (a[8] + a[9])
+            per_slot_us = ms * 1e3 / max(walks, 1)
+            rows[name] = dict(bodies=n, slots=c, active=int(a[6].active.sum()),
+                              max_abs_err=err, bit_equal=equal, ms=ms, velocity_ms=vel_ms,
+                              wrapper_ms=wrapper,
+                              plain_ms=plain, bound_ms=bound, bound_by=by,
+                              us_per_slot_update=per_slot_us)
+            log(f"scan {name}: {'bit-equal to' if equal else f'max abs err {err:.3g} against'} "
+                f"the plain version; kernels alone {ms:.4f} ms (velocity sweeps {vel_ms:.4f} "
+                f"ms), wrapper {wrapper:.4f} ms, plain "
+                f"{plain:.1f} ms (1 call), bound {bound:.6f} ms ({by}); {walks} slot updates, "
+                f"{per_slot_us:.4f} us each")
+        record["scan_kernels"] = rows
+
+    with Phase(f"bench tumbler step (80 bodies, 1024 slots): jacobi and scan in turns "
+               f"(jacobi, scan, scan, jacobi), {SCAN_TURN_STEPS} steps a turn"):
+        rts = {}
+        for mode in ("jacobi", "scan"):
+            c = bench_config()
+            c.tpu.solver_mode = mode
+            rts[mode] = HeadlessRuntime(compile_scene(bench_step_scene(), c, device=dev), c,
+                                        enable_fracturing=False)
+            rts[mode].step(2)
+        turns = {"jacobi": [], "scan": []}
+        launches = {}
+        for mode in ("jacobi", "scan", "scan", "jacobi"):
+            scan_solver.LAUNCHES.reset()
+            rts[mode].step(SCAN_TURN_STEPS)
+            turns[mode].append(rts[mode].step_ms / SCAN_TURN_STEPS)
+            launches[mode] = sum(scan_solver.LAUNCHES.values()) / SCAN_TURN_STEPS
+        total = {}
+        for mode, r in rts.items():
+            from torch.profiler import ProfilerActivity, profile
+
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                r.step(2)
+            total[mode] = sum(e.count for e in prof.key_averages()
+                              if getattr(e, "device_type", None)
+                              == torch.autograd.DeviceType.CUDA) / 2
+            if not body_state_finite(r.sim):
+                raise AssertionError(f"non-finite bodies stepping the bench tumbler under {mode}")
+        if launches["scan"] != 2 or launches["jacobi"] != 0:
+            raise AssertionError(f"scan kernel launches per step: {launches}")
+        log(f"bench tumbler step ms, turns jacobi/scan/scan/jacobi: jacobi {turns['jacobi']}, "
+            f"scan {turns['scan']}; scan kernel launches per step {launches}; CUDA kernels "
+            f"launched per step (torch.profiler, 2 steps): {total}")
+        record["bench_tumbler_scan_vs_jacobi"] = dict(step_ms=turns, scan_launches=launches,
+                                                      kernels_per_step=total)
+    kernels.append(dict(
+        name="scan_solver", route="cuda", source="impact_tpu_torch/csrc/scan_solver.cu",
+        replaces="impact_tpu/physics/solver.py:258 (lax.scan, no pallas_call)", launches=None,
+        max_abs_err=max(r["max_abs_err"] for r in rows.values()),
+        ms=rows["bench tumbler"]["ms"], plain_ms=rows["bench tumbler"]["plain_ms"],
+        bound_ms=rows["bench tumbler"]["bound_ms"], bound_by=rows["bench tumbler"]["bound_by"],
+        library_ms=None, wrapper_ms=rows["bench tumbler"]["wrapper_ms"],
+        snapshot_ms=rows["VoxelBoxTumbler"]["ms"]))
+
+
+def held_k1(held):
+    """K1's two wrappers, each holding every launch it makes against K1's
+    plain version on the same inputs (``compare_k1``: depth, z and valid
+    equal, attributes within ATTR_ATOL); ``held`` gathers the count and the
+    largest error. Returns (depth, attributes) to put in place of
+    ``raster_pallas.raster_depth`` and ``raster_attributes``."""
+    from impact_tpu_torch.render import raster_pallas as rp
+
+    run_depth, run_attr = rp.raster_depth, rp.raster_attributes
+
+    def depth(b):
+        out = run_depth(b)
+        err = compare_k1(out, rp.raster_depth_plain(b), 0,
+                         f"K1 depth view {b.height}x{b.width}")
+        held["depth"] += 1
+        held["max_abs_err"] = max(held["max_abs_err"], err)
+        return out
+
+    def attributes(b, n_attr):
+        out = run_attr(b, n_attr)
+        err = compare_k1(out, rp.raster_attributes_plain(b, n_attr), n_attr,
+                         f"K1 G-buffer {b.height}x{b.width}")
+        held["attributes"] += 1
+        held["max_abs_err"] = max(held["max_abs_err"], err)
+        return out
+
+    return depth, attributes
+
+
+def snapshot_phase(dev, record, kernels):
+    """The snapshot tester's 19 ported scenes through its runner: K1's frame
+    scored against the golden, each K1 launch held against K1's plain
+    version, and the plain tile raster's frame of the same state against
+    K1's."""
+    import torch
+
+    from impact_tpu_torch.apps import snapshot_tester as st
+    from impact_tpu_torch.physics import scan_solver
+    from impact_tpu_torch.render import raster_pallas as rp
+    from impact_tpu_torch.utils.image import rgb_hybrid_compare
+
+    rows, failed = {}, []
+    held = dict(depth=0, attributes=0, max_abs_err=0.0)
+    with Phase(f"snapshot tester: {len(st.PORTED_SCENES)} scenes, K1's frame scored against "
+               f"its golden at {st.MIN_SCORE_TO_PASS}, every K1 launch against K1's plain "
+               f"version, the plain tile raster's frame against K1's at "
+               f"{st.RASTER_PARITY_BAR}"):
+        run_depth, run_attr = rp.raster_depth, rp.raster_attributes
+        rp.raster_depth, rp.raster_attributes = held_k1(held)
+        rp.LAUNCHES.reset()
+        scan_solver.LAUNCHES.reset()
+        try:
+            for name, warmup in st.PORTED_SCENES:
+                t0 = time.perf_counter()
+                img, rt = st.render_scene(name, dev)
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+                golden_score = st.score(name, img)
+                parity = rgb_hybrid_compare(img, st.render_again(rt, "raster"))
+                ok = (golden_score >= st.MIN_SCORE_TO_PASS
+                      and parity >= st.RASTER_PARITY_BAR)
+                rows[name] = dict(score=golden_score, vs_tile_raster=parity,
+                                  drops=list(rt.last_drops), warmup_steps=warmup,
+                                  step_ms=rt.step_ms, seconds=seconds,
+                                  finite=body_state_finite(rt.sim))
+                log(f"[{'PASS' if ok else 'FAIL'}] {name}: K1 frame golden score "
+                    f"{golden_score:.4f} (bar {st.MIN_SCORE_TO_PASS}), vs the plain tile "
+                    f"raster's frame {parity:.4f} (bar {st.RASTER_PARITY_BAR}), K1 drops "
+                    f"(geometry, shadows) {rt.last_drops}; {warmup} steps in "
+                    f"{rt.step_ms:.1f} ms")
+                if not (ok and rows[name]["finite"]):
+                    failed.append(name)
+        finally:
+            rp.raster_depth, rp.raster_attributes = run_depth, run_attr
+        path_launches = {**dict(rp.LAUNCHES), **dict(scan_solver.LAUNCHES)}
+        log(f"snapshot path launches: {path_launches}; K1 launches held against K1's plain "
+            f"version: {held}")
+        record["snapshots"] = rows
+        record["snapshot_launches"] = path_launches
+        record["snapshot_k1_held"] = held
+        if failed:
+            raise AssertionError(f"snapshot scenes failed: {failed}")
+        for name, cnt in path_launches.items():
+            if cnt <= 0:
+                raise AssertionError(f"{name} was not launched on the snapshot path")
+        if (held["depth"], held["attributes"]) != (path_launches["k1_raster_depth"],
+                                                   path_launches["k1_raster_attributes"]):
+            raise AssertionError(f"K1 launches {path_launches} but {held} held")
+    for k in kernels:
+        if k["name"] == "scan_solver":
+            k["launches"] = path_launches["scan_velocity_iterations"] + path_launches[
+                "scan_position_correction"]
 
 
 def finish(t_all, record, kernels, kind, count) -> int:

@@ -24,7 +24,7 @@ from .render.lights import LightPools
 from .render.pipeline import RenderScene, RenderState
 from .runtime.engine import EngineParams, SimState
 from .runtime.setup import SceneBuild
-from .scene.assembly import StaticGeometry
+from .scene.assembly import MeshInstancePool, StaticGeometry
 from .voxel.chunk_mesh import ChunkMeshPool
 from .voxel.collision import VoxelProbes
 from .voxel.interaction import AbsorberPools
@@ -132,13 +132,20 @@ def sim_state_from_reference(sim, device="cuda") -> SimState:
     )
 
 
+def mesh_instances_from_reference(mi, device="cuda") -> MeshInstancePool:
+    """The reference's MeshInstancePool → the port's (indices as int64, the
+    baked corners carried)."""
+    over = {f: _field(f, getattr(mi, f), device).to(torch.int64)
+            for f in ("tri_indices", "body_index")}
+    over.update({f: None for f in ("corner_pos", "corner_normal") if getattr(mi, f) is None})
+    return tuple_from_reference(MeshInstancePool, mi, device, **over)
+
+
 def engine_params_from_reference(params, device="cuda") -> EngineParams:
-    """The reference's EngineParams → the port's. Distance rules and
-    mesh-model entities are not ported: a scene that uses them raises."""
+    """The reference's EngineParams → the port's. Distance rules are not
+    ported: a scene that uses them raises."""
     if np.asarray(params.dist_rules.mask).any():
         raise NotImplementedError("distance rules are not ported yet")
-    if np.asarray(params.mesh_instances.vert_active).any():
-        raise NotImplementedError("mesh-model entities are not ported yet")
     pp = params.phys_params
     sg = params.static_geometry
     static = _tuple(StaticGeometry, sg, device, fields=StaticGeometry._fields[:-1],
@@ -161,6 +168,7 @@ def engine_params_from_reference(params, device="cuda") -> EngineParams:
         camera=camera_from_reference(params.camera, device),
         static_geometry=static,
         material_table=to_torch(params.material_table, device),
+        mesh_instances=mesh_instances_from_reference(params.mesh_instances, device),
     )
 
 

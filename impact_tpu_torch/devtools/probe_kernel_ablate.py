@@ -42,11 +42,11 @@ import torch
 
 from ..render.raster_pallas import (
     Binned,
-    LaunchCounter,
     _bin_planes,
     _clip_near_soa,
     _plane_coefficients,
 )
+from ..utils.launches import LaunchCounter
 from . import card_line, cuda_time_ms
 
 T = 262144

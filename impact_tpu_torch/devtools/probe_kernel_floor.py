@@ -38,7 +38,7 @@ import sys
 import numpy as np
 import torch
 
-from ..render.raster_pallas import LaunchCounter
+from ..utils.launches import LaunchCounter
 from . import card_line, cuda_time_ms
 
 TILE = 16

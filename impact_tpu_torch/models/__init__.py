@@ -1,3 +1,12 @@
-from .scenes import asteroid, fracturing, voxel_box_tumbler
+from .scenes import (
+    SCENES,
+    asteroid,
+    ball_pit,
+    blank,
+    fracturing,
+    rendering_test,
+    voxel_box_tumbler,
+)
 
-__all__ = ["asteroid", "fracturing", "voxel_box_tumbler"]
+__all__ = ["SCENES", "asteroid", "ball_pit", "blank", "fracturing", "rendering_test",
+           "voxel_box_tumbler"]

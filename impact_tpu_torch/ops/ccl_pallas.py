@@ -37,7 +37,7 @@ from __future__ import annotations
 
 import torch
 
-from ..render.raster_pallas import LaunchCounter
+from ..utils.launches import LaunchCounter
 
 LAUNCHES = LaunchCounter(k2_ccl=0, k2_ccl_wide=0, k2_labels=0)
 # labels and ``big`` = G³ must fit the shared-memory kernel's u16 buffers

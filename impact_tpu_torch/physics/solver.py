@@ -10,7 +10,9 @@ SEGMENT_ACCUMULATION_MIN_BODIES bodies a one-hot incidence product
 per solve and per-body differences of a prefix sum. The warm start scatters
 with ``index_add``, whose float sums on CUDA run in atomic order, so results
 are held to a tolerance, not to equality. The sequential ``scan`` mode
-(Gauss-Seidel) waits for a later slice and raises.
+(Gauss-Seidel, the default) walks the slots in order in
+``physics/scan_solver.py``: one CUDA kernel per loop on the card, a plain
+loop over slots on the CPU.
 
 Warm starting is a sorted join on contact keys (both frames' compacted
 buffers hold ascending keys).
@@ -25,6 +27,7 @@ import torch
 from ..math import quaternion as quat
 from ..math.quaternion import cross
 from .collision import EMPTY_KEY, ContactBuffer
+from .scan_solver import scan_iterations
 from .state import BodyState, compute_velocities, synchronize_momenta, world_inv_inertia
 
 NORMAL_SPEED_FOR_BOUNCE = 0.4  # ref: contact.rs:236
@@ -190,13 +193,14 @@ def _accumulator(prep: PreparedContacts, n: int, inv_mass, inv_inertia):
     return accumulate
 
 
-def solve_contacts(bodies: BodyState, prep: PreparedContacts, config, mode: str = "jacobi",
+def solve_contacts(bodies: BodyState, prep: PreparedContacts, config, mode: str = "scan",
                    jacobi_relaxation: float = JACOBI_RELAXATION):
     """Velocity iterations + positional correction → (bodies, cache)
-    (ref: solver.rs:296 compute_and_apply_constrained_state)."""
-    if mode != "jacobi":
-        raise NotImplementedError(
-            f"solver mode {mode!r} is not ported yet: only 'jacobi' runs in impact_tpu_torch")
+    (ref: solver.rs:296 compute_and_apply_constrained_state). ``scan``
+    solves the slots in order (Gauss-Seidel), ``jacobi`` all at once with
+    under-relaxation."""
+    if mode not in ("scan", "jacobi"):
+        raise ValueError(f"solver mode must be 'scan' or 'jacobi', not {mode!r}")
     v, w = compute_velocities(bodies)
     inv_inertia = world_inv_inertia(bodies)
     inv_mass = bodies.inv_mass
@@ -211,6 +215,13 @@ def solve_contacts(bodies: BodyState, prep: PreparedContacts, config, mode: str 
     w = w.index_add(0, ia, torch.einsum("cij,cj->ci", inv_inertia[ia], cross(prep.disp_a, dp)))
     w = w.index_add(0, ib, -torch.einsum("cij,cj->ci", inv_inertia[ib],
                                          cross(prep.disp_b, dp)))
+
+    if mode == "scan":
+        v, w, acc, pos, ori = scan_iterations(
+            v, w, bodies.position, bodies.orientation, inv_mass, inv_inertia, prep, acc,
+            config.n_iterations, config.n_positional_correction_iterations,
+            config.positional_correction_factor)
+        return _finalize(bodies, prep, v, w, acc, pos, ori)
 
     accumulate = _accumulator(prep, bodies.n, inv_mass, inv_inertia)
     for _ in range(max(config.n_iterations, 1) * 4):

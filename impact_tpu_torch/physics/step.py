@@ -46,7 +46,7 @@ class PhysicsParams(NamedTuple):
 
 
 def physics_substep(phys: PhysicsState, params: PhysicsParams, dt: float, solver_config,
-                    max_contacts: int, solver_mode: str = "jacobi",
+                    max_contacts: int, solver_mode: str = "scan",
                     extra_contacts_fn=None) -> PhysicsState:
     """One substep. ``extra_contacts_fn(bodies, contacts) -> ContactBuffer``
     merges the voxel subsystem's probe contacts in before solving."""
@@ -73,7 +73,7 @@ def physics_substep(phys: PhysicsState, params: PhysicsParams, dt: float, solver
 
 
 def physics_step(phys: PhysicsState, params: PhysicsParams, dt: float, n_substeps: int,
-                 solver_config, max_contacts: int, solver_mode: str = "jacobi",
+                 solver_config, max_contacts: int, solver_mode: str = "scan",
                  extra_contacts_fn=None) -> PhysicsState:
     """One step = ``n_substeps`` substeps of dt / n_substeps."""
     for _ in range(n_substeps):

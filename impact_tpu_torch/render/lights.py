@@ -1,11 +1,13 @@
 """Light pools, shadow maps and deferred shading.
 
-Port of ``impact_tpu/render/lights.py`` for the slice's light kinds: ambient,
-shadowable omnidirectional lights (6-face depth cubemaps) and shadowable
-unidirectional lights (one orthographic map covering the scene), sampled with
-the quad-packed bilinear 4-tap PCF. Shadow views are rasterized with K1's
-depth variant (``raster_backend="kernel"``) or with the plain tile raster
-(``"raster"``).
+Port of ``impact_tpu/render/lights.py``: ambient, omnidirectional lights
+(6-face depth cubemaps when shadowable) and unidirectional lights (one
+orthographic map covering the scene, or up to four cascades fit to the
+camera's sub-frusta), sampled with the quad-packed bilinear 4-tap PCF, or,
+with soft shadows on, a 4-tap PCF whose radius grows with the light's extent
+and the blocker distance (PCSS-style penumbras). Shadow views are
+rasterized with K1's depth variant (``raster_backend="kernel"``) or with
+the plain tile raster (``"raster"``).
 """
 
 from __future__ import annotations
@@ -62,22 +64,22 @@ def _look_view_matrix(eye, fwd, up):
     return m
 
 
-def _raster_depth(tri_pos9, tri_active, vp, resolution, backend, k_per_tile, big_budget,
-                  tiles_per_chunk):
+def _raster_depth(tri_pos9, tri_active, vp, resolution, backend, big_budget):
     """One depth view → (depth [S,S], n_drop)."""
     if backend == "kernel":
         from .raster_pallas import rasterize_depth_pos
 
+        # windows fit to the view, as the G-buffer's (render/pipeline.py)
         return rasterize_depth_pos(
             tri_pos9, tri_active, vp, resolution, resolution, cull_backfaces=False,
-            tile=32, k_per_range=256, return_drops=True)
+            tile=32, k_per_range=None, return_drops=True)
     from .pipeline import project_corners
 
+    # tile lists fit to the view, as K1's windows (the reference keeps the
+    # nearest 256 a tile)
     target, _, _ = rasterlib.rasterize(
         project_corners(tri_pos9, vp), tri_active, resolution, resolution,
-        cull_backfaces=False, k_per_tile=k_per_tile, big_budget=big_budget,
-        tiles_per_chunk=tiles_per_chunk)
-    # the plain tile raster keeps the nearest-K per tile without counting
+        cull_backfaces=False, big_budget=big_budget, fit_k=True)
     return target.depth, torch.zeros((), dtype=torch.int64, device=tri_pos9.device)
 
 
@@ -93,8 +95,7 @@ def render_omni_shadow_cubemap(light_pos, tri_pos9, tri_active, resolution: int,
         view = _look_view_matrix(light_pos, torch.as_tensor(CUBE_FACE_DIRS[i], device=dev),
                                  torch.as_tensor(CUBE_FACE_UPS[i], device=dev))
         vp = proj @ view
-        d, nd = _raster_depth(tri_pos9, tri_active, vp, resolution, backend,
-                              k_per_tile=256, big_budget=256, tiles_per_chunk=32)
+        d, nd = _raster_depth(tri_pos9, tri_active, vp, resolution, backend, big_budget=256)
         ds.append(d)
         vs.append(vp)
         n_drop = n_drop + nd
@@ -113,8 +114,7 @@ def render_uni_shadow_map(light_dir, scene_center, scene_radius, tri_pos9, tri_a
     r = scene_radius
     proj = orthographic_projection_matrix(-r, r, -r, r, 0.05, 4.0 * r, device=dev)
     vp = proj @ view
-    d, nd = _raster_depth(tri_pos9, tri_active, vp, resolution, backend,
-                          k_per_tile=256, big_budget=64, tiles_per_chunk=64)
+    d, nd = _raster_depth(tri_pos9, tri_active, vp, resolution, backend, big_budget=64)
     return d, vp, nd
 
 
@@ -140,9 +140,26 @@ def _pcf_4tap_quad(quad_at, base, size, depth_ref, bias=2e-3):
             + lit[..., 2] * (1 - wx) * wy + lit[..., 3] * wx * wy)
 
 
-def omni_shadow_visibility(light_pos, shadow_quads, shadow_vps, world_pos):
+def _pcf_4tap(sample, base, size, depth_ref, radius, bias=2e-3):
+    """Bilinear 4-tap PCF with taps ``radius`` texels (per pixel) from the
+    centre; ``sample(p)`` gathers the depth at integer texel p [...,2]."""
+    f = base - torch.floor(base)
+    vis = 0.0
+    for dy in (0, 1):
+        for dx in (0, 1):
+            off = torch.stack([(dx - 0.5) * 2.0 * radius, (dy - 0.5) * 2.0 * radius], dim=-1)
+            p = torch.clamp(torch.round(base + off).to(torch.int64), 0, size - 1)
+            wx = f[..., 0] if dx else 1.0 - f[..., 0]
+            wy = f[..., 1] if dy else 1.0 - f[..., 1]
+            vis = vis + wx * wy * (depth_ref - bias <= sample(p))
+    return vis
+
+
+def omni_shadow_visibility(light_pos, shadow_quads, shadow_vps, world_pos, source_extent=None):
     """Visibility from a quad-packed point-light cubemap [6,S,S,4] at world
-    positions [...,3] (dominant-axis face, then 4-tap PCF)."""
+    positions [...,3] (dominant-axis face, then 4-tap PCF). ``source_extent``
+    (the light's size) turns on the soft variant: the blocker depth at the
+    centre tap sets the PCF radius."""
     v = world_pos - light_pos
     av = v.abs()
     dev = world_pos.device
@@ -176,37 +193,124 @@ def omni_shadow_visibility(light_pos, shadow_quads, shadow_vps, world_pos):
     base = uv * s - 0.5
     flat = shadow_quads.reshape(6 * s * s, 4)
     fbase = face * (s * s)
+    if source_extent is not None:
+        def sample(p):
+            return flat[fbase + p[..., 1] * s + p[..., 0], 0]
+
+        pc = torch.clamp(torch.round(base).to(torch.int64), 0, s - 1)
+        d_blocker = sample(pc)
+        penumbra = (source_extent * torch.clamp(depth_ref - d_blocker, min=0.0)
+                    / torch.clamp(d_blocker, min=1e-3))
+        radius = torch.clamp(0.5 + penumbra * s * 8.0, 0.5, 8.0)
+        return _pcf_4tap(sample, base, s, depth_ref, radius)
     return _pcf_4tap_quad(lambda p: flat[fbase + p[..., 1] * s + p[..., 0]], base, s, depth_ref)
 
 
-def uni_cascade_visibility(quads, vps, view_depth, world_pos, normal):
-    """PCF visibility from a single-cascade quad-packed map [1,S,S,4] with a
-    normal-offset bias of 1.5 shadow texels."""
-    if quads.shape[0] != 1:
-        raise NotImplementedError("the port renders one directional cascade")
+MAX_SHADOW_MAP_CASCADES = 4  # ref: lib.rs:340
+
+
+def cascade_partition_depths(near, far, n_cascades: int, blend: float = 0.75):
+    """[C + 1] view-space split depths: a blend of the linear and the
+    logarithmic partition (PSSM)."""
+    i = torch.arange(n_cascades + 1, dtype=torch.float32, device=near.device) / n_cascades
+    linear = near + (far - near) * i
+    logarithmic = near * (far / near) ** i
+    return blend * logarithmic + (1.0 - blend) * linear
+
+
+def _frustum_corners_world(cam_pos, cam_orientation, vertical_fov, aspect, d0, d1):
+    """The 8 world-space corners of the camera's sub-frustum between depths
+    d0 and d1."""
+    from ..math import quaternion as quat
+
+    ty = torch.tan(0.5 * vertical_fov)
+    tx = ty * aspect
+    local = torch.stack([torch.stack([sx * tx * d, sy * ty * d, -d])
+                         for d in (d0, d1) for sy in (-1.0, 1.0) for sx in (-1.0, 1.0)])
+    return quat.rotate(cam_orientation[None, :], local) + cam_pos[None, :]
+
+
+def render_uni_shadow_cascades(light_dir, cam_pos, cam_orientation, vertical_fov, aspect, near,
+                               far, tri_pos9, tri_active, resolution: int, n_cascades: int,
+                               backend: str = "kernel"):
+    """``n_cascades`` directional shadow maps, each fit to a camera
+    sub-frustum (one K1 depth view each on the kernel backend) →
+    (depths [C,S,S], vps [C,4,4], splits [C+1], n_drop)."""
+    splits = cascade_partition_depths(near, far, n_cascades)
+    ds, vs = [], []
+    n_drop = torch.zeros((), dtype=torch.int64, device=tri_pos9.device)
+    for c in range(n_cascades):
+        corners = _frustum_corners_world(cam_pos, cam_orientation, vertical_fov, aspect,
+                                         splits[c], splits[c + 1])
+        center = corners.mean(dim=0)
+        radius = torch.linalg.vector_norm(corners - center, dim=-1).amax() + 1e-3
+        d, v, nd = render_uni_shadow_map(light_dir, center, radius, tri_pos9, tri_active,
+                                         resolution, backend=backend)
+        ds.append(d)
+        vs.append(v)
+        n_drop = n_drop + nd
+    return torch.stack(ds), torch.stack(vs), splits, n_drop
+
+
+def uni_cascade_visibility(quads, vps, splits, view_depth, world_pos, normal=None,
+                           angular_extent=None):
+    """Cascade-selected PCF visibility from quad-packed maps [C,S,S,4]: the
+    first cascade whose far split exceeds the pixel's view depth, receivers
+    offset along the normal by 1.5 of that cascade's shadow texels.
+    ``angular_extent`` (radians) turns on the soft variant."""
+    n_cascades = quads.shape[0]
+    if n_cascades > 1:
+        idx = (view_depth[..., None] > splits[1:-1]).to(torch.int64).sum(dim=-1)
+        idx = torch.clamp(idx, 0, n_cascades - 1)
+    else:
+        idx = torch.zeros(view_depth.shape, dtype=torch.int64, device=view_depth.device)
     s = quads.shape[-2]
-    radius = 1.0 / torch.clamp(vps[0, 0, 0].abs(), min=1e-9)
-    texel_world = 2.0 * radius / s
-    world_pos = world_pos + normal * (1.5 * texel_world)
+    if normal is not None:
+        radii = 1.0 / torch.clamp(vps[:, 0, 0].abs(), min=1e-9)
+        radius_px = radii[0]
+        for c in range(1, n_cascades):
+            radius_px = torch.where(idx == c, radii[c], radius_px)
+        texel_world = 2.0 * radius_px / s
+        world_pos = world_pos + normal * (1.5 * texel_world)[..., None]
     wx, wy, wz = world_pos[..., 0], world_pos[..., 1], world_pos[..., 2]
-    m = vps[0]
-    ndc_x = m[0, 0] * wx + m[0, 1] * wy + m[0, 2] * wz + m[0, 3]
-    ndc_y = m[1, 0] * wx + m[1, 1] * wy + m[1, 2] * wz + m[1, 3]
-    ndc_z = m[2, 0] * wx + m[2, 1] * wy + m[2, 2] * wz + m[2, 3]
+
+    def proj_c(c, row):
+        m = vps[c]
+        return m[row, 0] * wx + m[row, 1] * wy + m[row, 2] * wz + m[row, 3]
+
+    def select_c(row):
+        out = proj_c(0, row)
+        for c in range(1, n_cascades):
+            out = torch.where(idx == c, proj_c(c, row), out)
+        return out
+
+    ndc_x, ndc_y, ndc_z = select_c(0), select_c(1), select_c(2)
     uv = torch.stack([ndc_x * 0.5 + 0.5, 0.5 - ndc_y * 0.5], -1)
     in_map = torch.all((uv >= 0.0) & (uv <= 1.0), dim=-1)
     base = uv * s - 0.5
-    flat = quads.reshape(s * s, 4)
-    vis = _pcf_4tap_quad(lambda p: flat[p[..., 1] * s + p[..., 0]], base, s, ndc_z)
+    flat = quads.reshape(n_cascades * s * s, 4)
+    cbase = idx * (s * s)
+    if angular_extent is not None:
+        def sample(p):
+            return flat[cbase + p[..., 1] * s + p[..., 0], 0]
+
+        pc = torch.clamp(torch.round(base).to(torch.int64), 0, s - 1)
+        d_blocker = sample(pc)
+        penumbra = angular_extent * torch.clamp(ndc_z - d_blocker, min=0.0)
+        radius = torch.clamp(0.5 + penumbra * s * 4.0, 0.5, 8.0)
+        vis = _pcf_4tap(sample, base, s, ndc_z, radius)
+    else:
+        vis = _pcf_4tap_quad(lambda p: flat[cbase + p[..., 1] * s + p[..., 0]], base, s, ndc_z)
     return torch.where(in_map, vis, torch.ones_like(vis))
 
 
 def shade(lights: LightPools, world_pos, normal, albedo, f0, roughness, emissive, occlusion,
           camera_pos, valid, omni_shadows=None, uni_shadows=None, view_depth=None,
-          shadow_downsample: int = 1):
+          shadow_downsample: int = 1, soft_shadows: bool = False):
     """Deferred shading: ambient + omni + uni lights → HDR luminance [H,W,3].
     Shadow visibility is evaluated on a 1/k pixel grid and nearest-upsampled
-    when ``shadow_downsample`` = k > 1."""
+    when ``shadow_downsample`` = k > 1; ``soft_shadows`` widens the PCF
+    with each light's extent."""
     h, w = world_pos.shape[:2]
     s = shadow_downsample
 
@@ -237,7 +341,8 @@ def shade(lights: LightPools, world_pos, normal, albedo, f0, roughness, emissive
         if omni_shadows is not None:
             quads, vps = omni_shadows
             vis = upsample(omni_shadow_visibility(
-                lights.omni_position[li], quads[li], vps[li], at_vis_res(world_pos)))
+                lights.omni_position[li], quads[li], vps[li], at_vis_res(world_pos),
+                source_extent=lights.omni_extent[li] if soft_shadows else None))
             vis = torch.where(lights.omni_shadowable[li], vis, torch.ones_like(vis))
             contrib = contrib * vis[..., None]
         lum = lum + torch.where(lights.omni_mask[li], contrib, zero)
@@ -248,10 +353,12 @@ def shade(lights: LightPools, world_pos, normal, albedo, f0, roughness, emissive
         b = evaluate_brdf(normal, view_dir, ldir, albedo, f0, roughness,
                           tan_angular_radius=tan_r)
         if uni_shadows is not None:
-            quads, vps, _splits = uni_shadows
+            quads, vps, splits = uni_shadows
             vis = upsample(uni_cascade_visibility(
-                quads[li], vps[li], at_vis_res(view_depth), at_vis_res(world_pos),
-                at_vis_res(normal)))
+                quads[li], vps[li], splits[li], at_vis_res(view_depth), at_vis_res(world_pos),
+                at_vis_res(normal),
+                angular_extent=(lights.uni_extent[li] * (math.pi / 180.0) if soft_shadows
+                                else None)))
             vis = torch.where(lights.uni_shadowable[li], vis, torch.ones_like(vis))
             b = b * vis[..., None]
         lum = lum + torch.where(lights.uni_mask[li], b * lights.uni_illuminance[li], zero)

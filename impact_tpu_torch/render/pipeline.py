@@ -18,10 +18,12 @@ import torch
 from . import post, raster as rasterlib
 from .camera import Camera, projection_matrix, view_matrix
 from .lights import (
+    MAX_SHADOW_MAP_CASCADES,
     OMNI_SHADOW_FAR,
     LightPools,
     quad_pack,
     render_omni_shadow_cubemap,
+    render_uni_shadow_cascades,
     render_uni_shadow_map,
     shade,
 )
@@ -85,6 +87,7 @@ class RenderConfig(NamedTuple):
     tone_mapping: str = "ACES"
     shadows_enabled: bool = True
     csm_cascades: int = 1
+    soft_shadows: bool = False
     sky_luminance: tuple = (0.0, 0.0, 0.0)
     shadow_pcf_downsample: int = 1
     ao_downsample: int = 1
@@ -200,14 +203,17 @@ def geometry_pass(scene: RenderScene, cam: Camera, cam_prev: Camera, frame_index
     if config.raster_backend == "kernel":
         from .raster_pallas import rasterize_attributes_pos
 
+        # windows fit to the view: the reference's fixed 256 per window
+        # drops near triangles on dense views (ROADMAP Queue 3)
         out, near, valid, n_drop = rasterize_attributes_pos(
             scene.tri_pos, scene.tri_active, packed, vp, h, w,
-            tile=32, k_per_range=256, return_drops=True)
+            tile=32, k_per_range=None, return_drops=True)
     elif config.raster_backend == "raster":
         tri_clip = project_corners(scene.tri_pos, vp)
         idx = torch.arange(3 * t, device=packed.device).reshape(t, 3)
+        # tile lists fit to the view, as K1's windows
         out, near, valid = rasterlib.rasterize_attributes(
-            tri_clip, scene.tri_active, idx, packed.reshape(3 * t, 20), h, w)
+            tri_clip, scene.tri_active, idx, packed.reshape(3 * t, 20), h, w, fit_k=True)
         n_drop = torch.zeros((), dtype=torch.int64, device=packed.device)
     else:
         raise ValueError(f"unknown raster_backend {config.raster_backend!r}")
@@ -243,14 +249,16 @@ def geometry_pass(scene: RenderScene, cam: Camera, cam_prev: Camera, frame_index
 
 def shadow_pass(scene: RenderScene, lights: LightPools, cam: Camera, config: RenderConfig):
     """Render all shadow maps → (omni (quads [L,6,S,S,4], vps [L,6,4,4]),
-    uni (quads [D,1,S,S,4], vps [D,1,4,4], splits [D,2]), n_drop), or
-    (None, None, 0) when shadows are off."""
+    uni (quads [D,C,S,S,4], vps [D,C,4,4], splits [D,C+1]), n_drop), or
+    (None, None, 0) when shadows are off. With ``csm_cascades`` C > 1 each
+    directional light renders C cascades fit to the camera's sub-frusta
+    (to 200 m at most); with one, a map covering the scene."""
     dev = scene.tri_pos.device
     n_drop = torch.zeros((), dtype=torch.int64, device=dev)
     if not config.shadows_enabled:
         return None, None, n_drop
-    if config.csm_cascades != 1:
-        raise NotImplementedError("the port renders one directional cascade")
+    if not 1 <= config.csm_cascades <= MAX_SHADOW_MAP_CASCADES:
+        raise ValueError(f"csm_cascades must be 1 to {MAX_SHADOW_MAP_CASCADES}")
     shadow_tris = scene.tri_active & scene.tri_shadow
     backend = config.raster_backend
     if config.view_culling:
@@ -269,6 +277,18 @@ def shadow_pass(scene: RenderScene, lights: LightPools, cam: Camera, config: Ren
         omni_v.append(v)
         n_drop = n_drop + nd
     omni_shadows = (quad_pack(torch.stack(omni_d)), torch.stack(omni_v))
+
+    if config.csm_cascades > 1:
+        outs = [render_uni_shadow_cascades(
+            lights.uni_direction[i], cam.position, cam.orientation, cam.vertical_fov,
+            config.width / config.height, cam.near, torch.clamp(cam.far, max=200.0),
+            scene.tri_pos, shadow_tris, config.shadow_map_resolution, config.csm_cascades,
+            backend=backend) for i in range(lights.uni_direction.shape[0])]
+        for o in outs:
+            n_drop = n_drop + o[3]
+        return omni_shadows, (quad_pack(torch.stack([o[0] for o in outs])),
+                              torch.stack([o[1] for o in outs]),
+                              torch.stack([o[2] for o in outs])), n_drop
 
     corner0 = scene.tri_pos[:, 0:3]
     act = scene.tri_active[:, None]
@@ -320,7 +340,8 @@ def deferred_shade(gb: GBuffer, lights: LightPools, cam: Camera, omni_shadows, u
     view_depth = -view_row(gb.world_pos, vm, 2)
     lum = shade(lights, gb.world_pos, gb.normal, gb.albedo, gb.f0, gb.roughness, gb.emissive,
                 occlusion, cam.position, gb.valid, omni_shadows, uni_shadows, view_depth,
-                shadow_downsample=config.shadow_pcf_downsample)
+                shadow_downsample=config.shadow_pcf_downsample,
+                soft_shadows=config.soft_shadows)
     if config.procedural_sky:
         from .sky import pixel_view_directions, procedural_sky
 

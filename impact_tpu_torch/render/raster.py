@@ -7,8 +7,9 @@ tiles their bounding box touches (larger ones go to a global nearest-first
 its nearest ``k_per_tile`` candidates. In this package it is the
 ``raster_backend="raster"`` path: a second, independent rasterizer that the
 tile kernel K1 (``raster_pallas.py``) is compared against on the card.
-Overflow drops the farthest candidates and is not counted, as in the
-reference.
+With a fixed ``k_per_tile`` overflow drops the farthest candidates and is
+not counted, as in the reference; with ``fit_k`` (the port's render
+passes) each tile keeps every candidate, so no tile list is truncated.
 """
 
 from __future__ import annotations
@@ -212,9 +213,31 @@ def _default_k(n_tiles, t2):
     return int(min(cap, max(128, (2 * t2) // max(n_tiles, 1))))
 
 
+def _tile_chunks(b: _Binned, k, tile, tiles_per_chunk, budget, fit_k):
+    """(tile indices, k) chunks: the tiles in order with ``k`` candidates
+    each, or with ``fit_k`` the most crowded tiles first, each chunk taking
+    its most crowded tile's count as k (one host read), so that no tile
+    drops a candidate and a crowded tile does not pad the others."""
+    n_tiles = b.th * b.tw
+    dev = b.starts.device
+    if not fit_k:
+        tc = tiles_per_chunk or max(8, min(128, n_tiles, budget // (k * tile * tile)))
+        for s0 in range(0, n_tiles, tc):
+            yield torch.arange(s0, min(s0 + tc, n_tiles), device=dev), k
+        return
+    counts, order = torch.sort(b.counts, descending=True, stable=True)
+    counts = counts.tolist()
+    s0 = 0
+    while s0 < n_tiles:
+        kc = max(1, counts[s0])
+        tc = max(1, min(n_tiles - s0, budget // (kc * tile * tile)))
+        yield order[s0:s0 + tc], kc
+        s0 += tc
+
+
 def rasterize(clip_pos, tri_active, height: int, width: int, cull_backfaces: bool = True,
               k_per_tile: int | None = None, big_budget: int = 32,
-              tiles_per_chunk: int | None = None, tile: int = 32):
+              tiles_per_chunk: int | None = None, tile: int = 32, *, fit_k: bool = False):
     """Tile-binned depth raster of T triangle slots ([T,3,4] clip positions).
     Returns (RasterTarget over CLIPPED slots, clip2, bary2)."""
     clip2, bary2, act2 = clip_triangles_near(clip_pos, tri_active)
@@ -222,12 +245,10 @@ def rasterize(clip_pos, tri_active, height: int, width: int, cull_backfaces: boo
     b = _bin_small_and_big(clip2, act2, height, width, tile, big_budget, cull_backfaces)
     n_tiles = b.th * b.tw
     k = k_per_tile or _default_k(n_tiles, t2)
-    tc = tiles_per_chunk or max(8, min(128, n_tiles, (1 << 25) // (k * tile * tile)))
     dev = clip2.device
     depth_t = torch.ones((n_tiles, tile * tile), dtype=torch.float32, device=dev)
     tri_t = torch.full((n_tiles, tile * tile), NO_TRI, dtype=torch.int64, device=dev)
-    for s0 in range(0, n_tiles, tc):
-        tiles = torch.arange(s0, min(s0 + tc, n_tiles), device=dev)
+    for tiles, k in _tile_chunks(b, k, tile, tiles_per_chunk, 1 << 25, fit_k):
         tri, zpix, _ = _tile_candidates(b, tiles, k, tile)
         best_z, best = zpix.min(dim=1)
         best_tri = torch.gather(tri, 1, best)
@@ -242,7 +263,7 @@ def rasterize(clip_pos, tri_active, height: int, width: int, cull_backfaces: boo
 def rasterize_attributes(clip_pos, tri_active, tri_indices, vert_attrs, height: int,
                          width: int, tile: int = 32, k_per_tile: int | None = None,
                          big_budget: int = 32, tiles_per_chunk: int | None = None,
-                         cull_backfaces: bool = True):
+                         cull_backfaces: bool = True, *, fit_k: bool = False):
     """Tile-binned raster with per-candidate attribute interpolation.
     Returns (interp [H,W,A], nearest-corner [H,W,A], valid [H,W])."""
     t = clip_pos.shape[0]
@@ -253,15 +274,13 @@ def rasterize_attributes(clip_pos, tri_active, tri_indices, vert_attrs, height: 
     b = _bin_small_and_big(clip2, act2, height, width, tile, big_budget, cull_backfaces)
     n_tiles = b.th * b.tw
     k = k_per_tile or _default_k(n_tiles, t2)
-    tc = tiles_per_chunk or max(8, min(128, n_tiles, (1 << 24) // (k * tile * tile)))
     s2 = tile * tile
     inv_w = 1.0 / torch.clamp(clip2[..., 3], min=1e-8)
     vids = tri_indices[torch.arange(t2, device=dev) % t]
     interp_t = torch.zeros((n_tiles, s2, a_dim), dtype=torch.float32, device=dev)
     near_t = torch.zeros_like(interp_t)
     valid_t = torch.zeros((n_tiles, s2), dtype=torch.bool, device=dev)
-    for s0 in range(0, n_tiles, tc):
-        tiles = torch.arange(s0, min(s0 + tc, n_tiles), device=dev)
+    for tiles, k in _tile_chunks(b, k, tile, tiles_per_chunk, 1 << 24, fit_k):
         tri, zpix, (b0, b1, b2) = _tile_candidates(b, tiles, k, tile)
         best_z, best = zpix.min(dim=1)
         vmask = torch.isfinite(best_z)

@@ -10,7 +10,10 @@ CUDA C++, ``csrc/raster.cu``, not Pallas).
       tile of its bbox on the fine grid, or on the 4× coarse grid when it
       spans more than 2×2 fine tiles, sorts by (bin << 14 | quantized z),
       and cuts four candidate windows per tile (2×2 fine, 2×2 coarse), each
-      truncated to ``k_per_range`` nearest-first. Larger triangles and the
+      truncated to ``k_per_range`` nearest-first (``k_per_range=None``: as
+      long as the view's longest window, read once on the host, so nothing
+      is truncated; the port's render passes take this, the reference's
+      fixed 256 overflows on dense views). Larger triangles and the
       second halves of near-plane quad splits go to one nearest-first "big"
       block every tile tests. Overflow is counted in ``n_drop``.
   kernel (K1): per tile, the coverage/depth test of every window candidate
@@ -33,6 +36,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.launches import LaunchCounter
 from .raster import _edge, _screen_coords, clip_triangles_near
 
 GEOM_ROWS = 12  # a0 b0 c0 | a1 b1 c1 | za zb zc | iw0 iw1 iw2
@@ -45,14 +49,6 @@ _N_WINDOWS = 4
 _KEY_INF = 0x7FFFFFFF
 _MAX_PAYLOAD_ROWS = 1 << 28  # the attribute kernel flags big-block winners with bit 28
 _MAX_ATTR = 2048  # csrc/raster.cu:kMaxAttr
-
-
-class LaunchCounter(dict):
-    """Kernel launches per variant since the last ``reset``."""
-
-    def reset(self):
-        for k in self:
-            self[k] = 0
 
 
 LAUNCHES = LaunchCounter(k1_raster_depth=0, k1_raster_attributes=0)
@@ -308,6 +304,10 @@ def _bin_planes(geom, act, bbox, near_z, height, width, tile, k_per_range, big_b
     cr_len = torch.where(crows2 >= 0, cr_end - cr_start, torch.zeros_like(cr_end))
     starts4 = torch.cat([r_start, cr_start], dim=-1)
     lens4 = torch.cat([r_len, cr_len], dim=-1)
+    if k_per_range is None:
+        # windows as long as this view's longest (one host read): nothing drops
+        longest = int(lens4.max()) if lens4.numel() else 0
+        k_per_range = max(_LANES, -(-longest // _LANES) * _LANES)
     counts4 = torch.clamp(lens4, max=k_per_range)
     n_drop = (lens4 - counts4).sum()
 
@@ -382,14 +382,21 @@ def _scatter_tiles(vals, tiles, b: Binned, out):
     out[y[ok], x[ok]] = vals[ok]
 
 
-def _chunks(b: Binned, kmax):
-    """Tile index chunks sized to bound the [nt, S², C] temporaries."""
-    c = 4 * kmax + b.big.shape[0]
+def _chunks(b: Binned):
+    """(tile indices, kmax) chunks, the most crowded tiles first, each with
+    its longest window and sized to bound the [nt, S², C] temporaries (a
+    crowded tile does not pad the others)."""
     n_tiles = b.th * b.tw
-    nt = max(1, min(n_tiles, (1 << 24) // max(1, c * b.tile * b.tile)))
-    dev = b.payload.device
-    for s0 in range(0, n_tiles, nt):
-        yield torch.arange(s0, min(s0 + nt, n_tiles), device=dev)
+    longest = b.ranges[:, 4:].amax(dim=1)
+    k_sorted, order = torch.sort(longest.long(), descending=True, stable=True)
+    k_sorted = k_sorted.tolist()
+    s0 = 0
+    while s0 < n_tiles:
+        kmax = k_sorted[s0]
+        c = 4 * kmax + b.big.shape[0]
+        nt = max(1, min(n_tiles - s0, (1 << 24) // max(1, c * b.tile * b.tile)))
+        yield order[s0:s0 + nt], kmax
+        s0 += nt
 
 
 def _cover(rows, px, py, have):
@@ -408,8 +415,7 @@ def raster_depth_plain(b: Binned):
     """Plain PyTorch version of K1's depth variant → depth f32[H, W]."""
     dev = b.payload.device
     out = torch.ones((b.height, b.width), dtype=torch.float32, device=dev)
-    kmax = int(b.ranges[:, 4:].max()) if b.ranges.numel() else 0
-    for tiles in _chunks(b, kmax):
+    for tiles, kmax in _chunks(b):
         rows, _, have = _tile_chunk_candidates(b, tiles, kmax)
         px, py = _pixel_centers(b, tiles)
         cov, z = _cover(rows, px, py, have)
@@ -428,10 +434,9 @@ def raster_attributes_plain(b: Binned, n_attr: int):
     near_o = torch.zeros_like(interp_o)
     z_o = torch.ones((h, w), dtype=torch.float32, device=dev)
     valid_o = torch.zeros((h, w), dtype=torch.bool, device=dev)
-    kmax = int(b.ranges[:, 4:].max()) if b.ranges.numel() else 0
     pos_bits = b.pos_bits
     zmask = (0x7FFFFFFF >> pos_bits) << pos_bits
-    for tiles in _chunks(b, kmax):
+    for tiles, kmax in _chunks(b):
         rows, pos, have = _tile_chunk_candidates(b, tiles, kmax)
         px, py = _pixel_centers(b, tiles)
         cov, z = _cover(rows, px, py, have)
@@ -584,7 +589,7 @@ def bin_depth_pos(tri_pos9, tri_active, vp, height, width, *, tile=16, k_per_ran
 
 
 def rasterize_attributes_pos(tri_pos9, tri_active, vert_attrs, vp, height: int, width: int,
-                             *, tile: int = 16, k_per_range: int = 128,
+                             *, tile: int = 16, k_per_range: int | None = 128,
                              big_budget: int = 128, cull_backfaces: bool = True,
                              return_drops: bool = False):
     """Corner-major attribute raster: world corner positions [T,9], corner-major
@@ -600,7 +605,7 @@ def rasterize_attributes_pos(tri_pos9, tri_active, vert_attrs, vp, height: int, 
 
 
 def rasterize_depth_pos(tri_pos9, tri_active, vp, height: int, width: int, *,
-                        tile: int = 16, k_per_range: int = 128, big_budget: int = 128,
+                        tile: int = 16, k_per_range: int | None = 128, big_budget: int = 128,
                         cull_backfaces: bool = True, return_drops: bool = False):
     """Corner-major depth raster (shadow maps) → depth f32[H,W] (and n_drop)."""
     b = bin_depth_pos(tri_pos9, tri_active, vp, height, width, tile=tile,
@@ -613,7 +618,7 @@ def rasterize_depth_pos(tri_pos9, tri_active, vp, height: int, width: int, *,
 
 
 def rasterize_attributes(clip_pos, tri_active, tri_indices, vert_attrs, height: int,
-                         width: int, *, tile: int = 16, k_per_range: int = 128,
+                         width: int, *, tile: int = 16, k_per_range: int | None = 128,
                          big_budget: int = 128, cull_backfaces: bool = True,
                          corner_major: bool = False, return_drops: bool = False):
     """Attribute raster from clip positions [T,3,4]; ``vert_attrs`` is [V,A]
@@ -642,7 +647,7 @@ def rasterize_attributes(clip_pos, tri_active, tri_indices, vert_attrs, height: 
 
 
 def rasterize_depth(clip_pos, tri_active, height: int, width: int, *, tile: int = 16,
-                    k_per_range: int = 128, big_budget: int = 128,
+                    k_per_range: int | None = 128, big_budget: int = 128,
                     cull_backfaces: bool = True, return_drops: bool = False):
     """Depth raster from clip positions [T,3,4] → depth f32[H,W] (and n_drop)."""
     t = clip_pos.shape[0]

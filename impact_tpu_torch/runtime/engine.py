@@ -35,7 +35,7 @@ from ..physics.step import PhysicsParams, PhysicsState, physics_step
 from ..render.camera import Camera
 from ..render.lights import LightPools
 from ..render.pipeline import RenderState
-from ..scene.assembly import StaticGeometry
+from ..scene.assembly import MeshInstancePool, StaticGeometry
 from ..voxel.chunk_mesh import (
     ChunkMeshPool,
     mark_chunks_dirty,
@@ -98,6 +98,7 @@ class EngineParams(NamedTuple):
     camera: Camera
     static_geometry: StaticGeometry
     material_table: torch.Tensor  # f32[T,10]
+    mesh_instances: MeshInstancePool  # renderable mesh-model entities
 
 
 def gather_objects(pool: VoxelObjectPool, idx) -> VoxelObjectPool:

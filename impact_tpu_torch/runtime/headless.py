@@ -93,7 +93,7 @@ class HeadlessRuntime:
         b = s.phys.bodies
         scene = build_render_scene(
             s.voxels, s.meshes, b.position, b.orientation, s.prev_position,
-            s.prev_orientation, p.static_geometry,
+            s.prev_orientation, p.static_geometry, p.mesh_instances,
             tris_per_object=self.config.tpu.render_tris_per_object)
         return compact_scene_triangles(scene, self.render_config.max_triangles)
 

@@ -2,15 +2,19 @@
 scene constants.
 
 Port of ``impact_tpu/runtime/setup.py:compile_scene`` for the component kinds
-of the tumbler, fracturing and asteroid scenes — camera, ambient light,
-shadowable omni and unidirectional lights, y-up ground planes (static planar
-collidables), dynamic voxel boxes and spheres with motion, contact
-response, gravity, fracture properties, a multifractal noise modifier and
-noise-mixed voxel types, and absorbing spheres and capsules on kinematic
-bodies — plus ``_build_static_geometry`` and
-``render_config_from_engine_config``. Slot layout and order follow the
+of the built-in scenes — camera, ambient light, omni and unidirectional
+lights (plain or shadowable), y-up ground planes (static planar
+collidables), voxel boxes, spheres and capsules (dynamic, or static ones
+that start kinematic) with motion, contact response, gravity, fracture
+properties, a multifractal noise modifier and noise-mixed voxel types,
+absorbing spheres and capsules on kinematic bodies, and dynamic rigid
+spheres (analytic mass and inertia, a spherical collidable, gravity) drawn
+as sphere-mesh entities — plus ``_build_static_geometry`` and
+``render_config_from_engine_config``. A scene may be empty (no voxel
+object, no triangle). Slot layout and order follow the
 reference: voxel object i binds body ``max_bodies - max_voxel_objects + i``;
-ground planes, then absorbers, take the regular bodies 0, 1, ...; forces
+ground planes, then absorbers, then sphere bodies take the regular bodies
+0, 1, ...; mesh entities take mesh-instance slots in the same order; forces
 are applied once before the voxel bodies' mass sync (so the first step's
 accumulated gravity uses the default unit mass, as the reference's does);
 each object's body origin is moved to its centre of mass; identical shapes
@@ -32,16 +36,21 @@ import torch
 from ..physics.collision import CollidablePools
 from ..physics.driven_motion import empty_motion_driver_pools
 from ..physics.forces import apply_forces_and_torques, empty_force_pools
+from ..physics.inertia import sphere_inertia, sphere_mass
 from ..physics.solver import empty_joint_pools
 from ..physics.state import KIND_DYNAMIC, KIND_KINEMATIC, synchronize_momenta
 from ..physics.step import PhysicsParams, init_physics_state
 from ..render.camera import Camera
 from ..render.lights import LightPools
 from ..render.pipeline import RenderConfig, init_render_state
+from ..scene import mesh as meshlib
 from ..scene.assembly import (
+    MeshInstancePool,
     StaticGeometry,
+    bake_mesh_instance_corners,
     bake_static_geometry_corners,
     concat_static_geometry,
+    empty_mesh_instances,
     empty_static_geometry,
     ground_plane_geometry,
 )
@@ -109,37 +118,74 @@ def _stack_meshes(meshes):
     return CompactMesh(*(torch.stack(f) for f in zip(*meshes)))
 
 
-def _plane_pools(planes, n_bodies_used, dev) -> CollidablePools:
+def _collidable_pools(planes, plane_bodies, spheres, sphere_bodies, dev) -> CollidablePools:
     """Collidable pools trimmed to the scene's counts (at least one slot of
     each family, masked off when unused), as the reference trims them."""
     n_pln = max(1, len(planes))
+    n_sph = max(1, len(spheres))
 
-    def f32(rows, n, width):
-        out = torch.zeros((n, width) if width else (n,), device=dev)
+    def f32(rows, n, width, fill=0.0):
+        out = torch.full((n, width) if width else (n,), fill, device=dev)
         for j, r in enumerate(rows):
             out[j] = torch.tensor(r, dtype=torch.float32, device=dev)
         return out
 
-    zi = torch.zeros(1, dtype=torch.int64, device=dev)
+    def mask(k, n):
+        return torch.tensor([True] * k + [False] * (n - k), device=dev)
+
     zb = torch.zeros(1, dtype=torch.bool, device=dev)
     normal = torch.tensor([[0.0, 1.0, 0.0]], device=dev).repeat(n_pln, 1)
     return CollidablePools(
-        sph_body=zi, sph_center=torch.zeros((1, 3), device=dev), sph_radius=torch.ones(1, device=dev),
-        sph_kind=torch.zeros(1, dtype=torch.int32, device=dev),
-        sph_response=torch.zeros((1, 3), device=dev), sph_mask=zb,
-        pln_body=torch.tensor(n_bodies_used + [0] * (n_pln - len(planes)), dtype=torch.int64,
+        sph_body=torch.tensor(sphere_bodies + [0] * (n_sph - len(spheres)), dtype=torch.int64,
+                              device=dev),
+        sph_center=torch.zeros((n_sph, 3), device=dev),
+        sph_radius=f32([sp.radius for sp in spheres], n_sph, 0, fill=1.0),
+        sph_kind=torch.zeros(n_sph, dtype=torch.int32, device=dev),  # dynamic
+        sph_response=f32([sp.response for sp in spheres], n_sph, 3),
+        sph_mask=mask(len(spheres), n_sph),
+        pln_body=torch.tensor(plane_bodies + [0] * (n_pln - len(planes)), dtype=torch.int64,
                               device=dev),
         pln_normal=normal,
         pln_disp=f32([p.y for p in planes], n_pln, 0),
         pln_kind=torch.ones(n_pln, dtype=torch.int32, device=dev),  # static
         pln_response=f32([(p.restitution, p.static_friction, p.dynamic_friction)
                           for p in planes], n_pln, 3),
-        pln_mask=torch.tensor([True] * len(planes) + [False] * (n_pln - len(planes)), device=dev),
-        cap_body=zi.clone(), cap_start=torch.zeros((1, 3), device=dev),
+        pln_mask=mask(len(planes), n_pln),
+        cap_body=torch.zeros(1, dtype=torch.int64, device=dev),
+        cap_start=torch.zeros((1, 3), device=dev),
         cap_end=torch.zeros((1, 3), device=dev), cap_radius=torch.ones(1, device=dev),
         cap_kind=torch.zeros(1, dtype=torch.int32, device=dev),
-        cap_response=torch.zeros((1, 3), device=dev), cap_mask=zb.clone(),
+        cap_response=torch.zeros((1, 3), device=dev), cap_mask=zb,
     )
+
+
+def _mesh_instances(spheres, sphere_bodies, tc, dev) -> MeshInstancePool:
+    """One mesh-instance slot per sphere body's sphere mesh, posed by its
+    body, in a pool of the scene's count, its corners baked."""
+    vm_cap, tm_cap = tc.max_mesh_entity_verts, tc.max_mesh_entity_tris
+    if len(spheres) > tc.max_mesh_entities:
+        raise ValueError("mesh-entity pool exhausted (tpu.max_mesh_entities)")
+    f = empty_mesh_instances(len(spheres), vm_cap, tm_cap, dev)._asdict()
+    for mi, (sp, bi) in enumerate(zip(spheres, sphere_bodies)):
+        n = int(sp.n_rings)
+        tri = meshlib.sphere_mesh(1.0, n, 2 * n + 2)
+        nv, nt = tri.positions.shape[0], tri.indices.shape[0]
+        if nv > vm_cap or nt > tm_cap:
+            raise ValueError(f"mesh entity exceeds caps: {nv} verts/{nt} tris "
+                             f"(tpu.max_mesh_entity_verts/_tris)")
+        f["vert_pos"][mi, :nv] = torch.from_numpy(tri.positions).to(dev)
+        f["vert_normal"][mi, :nv] = torch.from_numpy(tri.normals).to(dev)
+        f["vert_active"][mi, :nv] = True
+        f["tri_indices"][mi, :nt] = torch.from_numpy(tri.indices).to(dev).long()
+        f["tri_active"][mi, :nt] = True
+        # a uniform colour and roughness, no metalness, specular reflectance
+        # or emission: albedo = colour, f0 and emissive stay 0
+        f["albedo"][mi] = torch.tensor([_f32(c) for c in sp.color], device=dev)
+        f["roughness"][mi] = _f32(sp.roughness)
+        f["body_index"][mi] = bi
+        f["position"][mi] = torch.tensor([_f32(e) for e in sp.position], device=dev)
+        f["alive"][mi] = True
+    return bake_mesh_instance_corners(MeshInstancePool(**f))
 
 
 def _f32(x) -> float:
@@ -153,6 +199,8 @@ def _object_grids(ob, g: int, i8: bool, dev):
         graph = sdflib.box(tuple(_f32(e) * ve for e in ob.size))
     elif ob.shape == "sphere":
         graph = sdflib.sphere(_f32(ob.size[0]) * ve)
+    elif ob.shape == "capsule":
+        graph = sdflib.capsule(_f32(ob.size[0]) * ve, _f32(ob.size[1]) * ve)
     else:
         raise ValueError(f"voxel object shape {ob.shape!r} is not ported")
     n = ob.noise
@@ -245,7 +293,8 @@ def compile_scene(scene, config: EngineConfig, registry: VoxelTypeRegistry | Non
     if len(objects) > o_max:
         raise ValueError("voxel object pool exhausted")
     n_absorbers = len(scene.absorbing_spheres) + len(scene.absorbing_capsules)
-    if len(scene.ground_planes) + n_absorbers > n_regular:
+    spheres = scene.sphere_bodies
+    if len(scene.ground_planes) + n_absorbers + len(spheres) > n_regular:
         raise ValueError("regular body pool exhausted")
     i8 = tc.sdf_encoding == "i8"
 
@@ -294,12 +343,13 @@ def compile_scene(scene, config: EngineConfig, registry: VoxelTypeRegistry | Non
         sdf[oi] = grid
         vtype[oi] = vt
         bi = n_regular + oi
-        kind[bi] = KIND_DYNAMIC
+        kind[bi] = KIND_DYNAMIC if ob.dynamic else KIND_KINEMATIC
         position[bi] = vec(ob.position)
         orientation[bi] = vec(ob.orientation)
         velocity[bi] = vec(ob.linear_velocity)
         angular_velocity[bi] = vec(ob.angular_velocity)
-        voxel_response[oi] = vec(ob.response)
+        if ob.response is not None:
+            voxel_response[oi] = vec(ob.response)
         if ob.fracture is not None:
             fracturable[oi] = True
             fracture_threshold[oi], fracture_radius[oi] = ob.fracture
@@ -314,8 +364,8 @@ def compile_scene(scene, config: EngineConfig, registry: VoxelTypeRegistry | Non
                            origin=origin, sdf=sdf, vtype=vtype, mesh_dirty=alive.clone(),
                            split_pending=torch.zeros_like(alive), casts_shadows=casts)
 
-    # --- pass 2: ground planes, then absorbers, take regular bodies 0, 1, ...
-    #     (kinematic) ---------------------------------------------------------
+    # --- pass 2: ground planes, then absorbers (kinematic), then sphere
+    #     bodies (dynamic) take regular bodies 0, 1, ... -----------------------
     plane_bodies = list(range(len(scene.ground_planes)))
     n_planes = len(plane_bodies)
     for bi in range(n_planes + n_absorbers):
@@ -323,8 +373,29 @@ def compile_scene(scene, config: EngineConfig, registry: VoxelTypeRegistry | Non
     for j, a in enumerate(scene.absorbing_spheres + scene.absorbing_capsules):
         position[n_planes + j] = vec([_f32(e) for e in a.position])
     absorbers = _absorber_pools(scene, n_planes, dev)
+    sphere_bodies = [n_planes + n_absorbers + j for j in range(len(spheres))]
+    mass, inv_mass = b.mass.clone(), b.inv_mass.clone()
+    inertia_body, inv_inertia_body = b.inertia_body.clone(), b.inv_inertia_body.clone()
+    for sp, bi in zip(spheres, sphere_bodies):
+        kind[bi] = KIND_DYNAMIC
+        position[bi] = vec([_f32(e) for e in sp.position])
+        # analytic mass (in double precision, as the reference computes it
+        # from component values) and inertia about the centre
+        m = sphere_mass(_f32(sp.mass_density), _f32(sp.radius))
+        mass[bi], inv_mass[bi] = m, 1.0 / m
+        inertia = sphere_inertia(torch.tensor(m, dtype=torch.float32),
+                                 torch.tensor(_f32(sp.radius)))
+        inertia_body[bi] = inertia
+        inv_inertia_body[bi] = torch.linalg.inv(inertia)
+        if sp.acceleration is not None:
+            accel_body[n_accel] = bi
+            accel[n_accel] = vec(sp.acceleration)
+            accel_mask[n_accel] = True
+            n_accel += 1
     bodies = b._replace(kind=kind, position=position, orientation=orientation,
-                        velocity=velocity, angular_velocity=angular_velocity)
+                        velocity=velocity, angular_velocity=angular_velocity, mass=mass,
+                        inv_mass=inv_mass, inertia_body=inertia_body,
+                        inv_inertia_body=inv_inertia_body)
     forces = forces._replace(
         const_accel_body=accel_body, const_accel=accel, const_accel_mask=accel_mask,
         medium_density=torch.tensor(float(config.physics.medium.mass_density), device=dev),
@@ -343,11 +414,13 @@ def compile_scene(scene, config: EngineConfig, registry: VoxelTypeRegistry | Non
             out[j] = vec(r)
         return out if width else out.reshape(n)
 
+    # plain lights take the leading slots, shadowable ones follow
+    om = sorted(scene.omni_lights, key=lambda o: o.shadowable)
+    un = sorted(scene.uni_lights, key=lambda u: u.shadowable)
     uni_dirs = []
-    for u in scene.uni_lights:
+    for u in un:
         d = torch.tensor(u.direction, dtype=torch.float32)
         uni_dirs.append((d / max(float(torch.linalg.vector_norm(d)), 1e-9)).tolist())
-    om, un = scene.omni_lights, scene.uni_lights
     lights = LightPools(
         ambient_luminance=amb / math.pi,
         omni_position=pool_of(n_omni, [o.position for o in om], 3, [0.0] * 3),
@@ -369,13 +442,15 @@ def compile_scene(scene, config: EngineConfig, registry: VoxelTypeRegistry | Non
     material_table = material_corner_table(registry)
     params = EngineParams(
         phys_params=PhysicsParams(
-            collidables=_plane_pools(scene.ground_planes, plane_bodies, dev), forces=forces,
+            collidables=_collidable_pools(scene.ground_planes, plane_bodies, spheres,
+                                          sphere_bodies, dev), forces=forces,
             drivers=empty_motion_driver_pools(device=dev), joints=empty_joint_pools(device=dev)),
         lights=lights, absorbers=absorbers, type_density=registry.mass_density, voxel_response=voxel_response,
         fracturable=fracturable, fracture_threshold=fracture_threshold,
         fracture_radius=fracture_radius, camera=camera,
         static_geometry=_build_static_geometry([p.y for p in scene.ground_planes], dev),
         material_table=material_table,
+        mesh_instances=_mesh_instances(spheres, sphere_bodies, tc, dev),
     )
 
     # --- voxel body sync (mass, inertia, body origin at the COM), then momenta
@@ -416,7 +491,7 @@ def compile_scene(scene, config: EngineConfig, registry: VoxelTypeRegistry | Non
     )
     info = dict(mesh_vert_cap=vert_cap, mesh_tri_cap=tri_cap,
                 n_voxel_objects=len(objects), n_unique_shapes=len(uniq),
-                n_regular_bodies=len(plane_bodies))
+                n_regular_bodies=n_planes + n_absorbers + len(spheres))
     return SceneBuild(sim=sim, params=params, info=info)
 
 
@@ -430,6 +505,9 @@ def render_config_from_engine_config(config: EngineConfig) -> RenderConfig:
         iso = cam.sensitivity.get("iso")
     tone = cc.dynamic_range_compression.tone_mapping_method
     big = config.tpu.render_height >= 720
+    if config.tpu.textured_voxels:
+        raise NotImplementedError("textured materials (tpu.textured_voxels) are not ported "
+                                  "yet: render/textures.py is the next slice of the port")
     return RenderConfig(
         raster_backend=config.tpu.raster_backend,
         view_culling=config.tpu.view_culling,
@@ -459,6 +537,7 @@ def render_config_from_engine_config(config: EngineConfig) -> RenderConfig:
         tone_mapping="None" if tone is None else tone,
         shadows_enabled=r.shadow_mapping.enabled,
         csm_cascades=config.tpu.csm_cascades,
+        soft_shadows=config.tpu.soft_shadows,
         max_triangles=config.tpu.max_render_triangles,
         shadow_pcf_downsample=2 if big else 1,
         ao_downsample=2 if big else 1,

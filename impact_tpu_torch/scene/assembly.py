@@ -1,11 +1,12 @@
-"""Per-frame render-scene assembly (port of the voxel + static-geometry parts
-of ``impact_tpu/scene/assembly.py``; ref: impact_scene lib.rs:160).
+"""Per-frame render-scene assembly (port of ``impact_tpu/scene/assembly.py``;
+ref: impact_scene lib.rs:160).
 
 Each voxel object's compacted, material-baked mesh (or, in chunked mode,
 each chunk-submesh slot) is transformed by its rigid body's current and
-previous pose, and the static geometry's corner-major fields (baked once at
-setup) are appended — elementwise work only, no per-frame triangle-index
-gathers."""
+previous pose, the static geometry's corner-major fields (baked once at
+setup) are appended, and so are the mesh-model entities, each posed by its
+rigid body (or its static frame) — elementwise work only, no per-frame
+triangle-index gathers."""
 
 from __future__ import annotations
 
@@ -33,6 +34,60 @@ class StaticGeometry(NamedTuple):
     tri_indices: torch.Tensor  # i64[Ts,3]
     tri_active: torch.Tensor  # bool[Ts]
     corners: dict | None = None  # tri_pos/tri_normal/... [Ts,9|3]
+
+
+class MeshInstancePool(NamedTuple):
+    """Renderable mesh-model entities with uniform materials (ref:
+    impact_model lib.rs:25-50, impact_material setup/physical.rs:36-214): a
+    fixed-capacity pool of local-space meshes, each posed per frame by its
+    rigid body (``body_index`` ≥ 0) or its static frame."""
+
+    vert_pos: torch.Tensor  # f32[M,Vm,3] local
+    vert_normal: torch.Tensor  # f32[M,Vm,3]
+    vert_active: torch.Tensor  # bool[M,Vm]
+    tri_indices: torch.Tensor  # i64[M,Tm,3]
+    tri_active: torch.Tensor  # bool[M,Tm]
+    albedo: torch.Tensor  # f32[M,3]
+    f0: torch.Tensor  # f32[M,3]
+    roughness: torch.Tensor  # f32[M]
+    emissive: torch.Tensor  # f32[M,3]
+    body_index: torch.Tensor  # i64[M] rigid body slot, -1 = static pose
+    position: torch.Tensor  # f32[M,3] static pose
+    orientation: torch.Tensor  # f32[M,4]
+    alive: torch.Tensor  # bool[M]
+    casts_shadows: torch.Tensor  # bool[M]
+    material: torch.Tensor  # i32[M] texture layer, -1 = uniform only
+    corner_pos: torch.Tensor | None = None  # f32[M,Tm,9] local, baked at setup
+    corner_normal: torch.Tensor | None = None  # f32[M,Tm,9]
+
+
+def empty_mesh_instances(m: int, vm: int, tm: int, device=None) -> MeshInstancePool:
+    return MeshInstancePool(
+        vert_pos=torch.zeros((m, vm, 3), device=device),
+        vert_normal=torch.zeros((m, vm, 3), device=device),
+        vert_active=torch.zeros((m, vm), dtype=torch.bool, device=device),
+        tri_indices=torch.zeros((m, tm, 3), dtype=torch.int64, device=device),
+        tri_active=torch.zeros((m, tm), dtype=torch.bool, device=device),
+        albedo=torch.zeros((m, 3), device=device),
+        f0=torch.zeros((m, 3), device=device),
+        roughness=torch.ones(m, device=device),
+        emissive=torch.zeros((m, 3), device=device),
+        body_index=torch.full((m,), -1, dtype=torch.int64, device=device),
+        position=torch.zeros((m, 3), device=device),
+        orientation=torch.tensor([[0.0, 0.0, 0.0, 1.0]], device=device).repeat(m, 1),
+        alive=torch.zeros(m, dtype=torch.bool, device=device),
+        casts_shadows=torch.ones(m, dtype=torch.bool, device=device),
+        material=torch.full((m,), -1, dtype=torch.int32, device=device),
+    )
+
+
+def bake_mesh_instance_corners(mi: MeshInstancePool) -> MeshInstancePool:
+    """Corner-major local geometry of a finished pool, gathered once at
+    setup: the frame then reads ``corner_pos``/``corner_normal``."""
+    m, tm = mi.tri_indices.shape[:2]
+    rows = torch.arange(m, device=mi.vert_pos.device)[:, None, None]
+    return mi._replace(corner_pos=mi.vert_pos[rows, mi.tri_indices].reshape(m, tm, 9),
+                       corner_normal=mi.vert_normal[rows, mi.tri_indices].reshape(m, tm, 9))
 
 
 def empty_static_geometry(device=None) -> StaticGeometry:
@@ -105,21 +160,64 @@ def _rotate9(q, pos9):
     return torch.cat([quat.rotate(q, pos9[..., 3 * c:3 * c + 3]) for c in range(3)], dim=-1)
 
 
+def _mesh_instance_corners(mi: MeshInstancePool, body_position, body_orientation,
+                           body_position_prev, body_orientation_prev) -> dict:
+    """Posed corner-major fields of the mesh-model entities, current and
+    previous pose (ref: impact_model transform.rs)."""
+    m, tm = mi.tri_active.shape
+    use_body = (mi.body_index >= 0)[:, None]
+    bi = torch.clamp(mi.body_index, min=0)
+    q = torch.where(use_body, body_orientation[bi], mi.orientation)[:, None, :]
+    x = torch.where(use_body, body_position[bi], mi.position)
+    qp = torch.where(use_body, body_orientation_prev[bi], mi.orientation)[:, None, :]
+    xp = torch.where(use_body, body_position_prev[bi], mi.position)
+    local9, nrm9 = mi.corner_pos, mi.corner_normal
+    if local9 is None:
+        baked = bake_mesh_instance_corners(mi)
+        local9, nrm9 = baked.corner_pos, baked.corner_normal
+    world9 = _rotate9(q, local9) + x.repeat(1, 3)[:, None, :]
+    world9_prev = _rotate9(qp, local9) + xp.repeat(1, 3)[:, None, :]
+    tri_ok = mi.tri_active & mi.alive[:, None]
+
+    def per_tri9(a):  # [M,3] uniform → [M*Tm, 9]
+        return a.repeat(1, 3)[:, None, :].expand(m, tm, 9).reshape(-1, 9)
+
+    return dict(
+        tri_pos=world9.reshape(-1, 9),
+        tri_pos_prev=world9_prev.reshape(-1, 9),
+        tri_normal=_rotate9(q, nrm9).reshape(-1, 9),
+        tri_albedo=per_tri9(mi.albedo),
+        tri_f0=per_tri9(mi.f0),
+        tri_roughness=mi.roughness[:, None, None].expand(m, tm, 3).reshape(-1, 3),
+        tri_emissive=per_tri9(mi.emissive),
+        tri_material=mi.material[:, None, None].expand(m, tm, 3).reshape(-1, 3),
+        tri_active=tri_ok.reshape(-1),
+        tri_shadow=(tri_ok & mi.casts_shadows[:, None]).reshape(-1),
+    )
+
+
 def build_render_scene(pool: VoxelObjectPool, meshes: CompactMesh, body_position,
                        body_orientation, body_position_prev, body_orientation_prev,
                        static_geometry: StaticGeometry,
+                       mesh_instances: MeshInstancePool | None = None,
                        tris_per_object: int = 0) -> RenderScene:
-    """Flatten voxel meshes [O,Tc,...] + static geometry into one corner-major
-    RenderScene. ``tris_per_object`` > 0 keeps only each object's leading
-    triangle slots (compaction packs actives to the front). ``meshes`` may
-    be a ChunkMeshPool: its slots are surface chunks already, so the
-    per-object slice does not apply."""
+    """Flatten voxel meshes [O,Tc,...], static geometry and the mesh-model
+    entities into one corner-major RenderScene. ``tris_per_object`` > 0
+    keeps only each object's leading triangle slots (compaction packs
+    actives to the front). ``meshes`` may be a ChunkMeshPool: its slots are
+    surface chunks already, so the per-object slice does not apply."""
+    extra = []
+    if static_geometry.tri_active.shape[0] > 0:
+        extra.append(static_geometry_corners(static_geometry))
+    if mesh_instances is not None and mesh_instances.alive.shape[0] > 0:
+        extra.append(_mesh_instance_corners(mesh_instances, body_position, body_orientation,
+                                            body_position_prev, body_orientation_prev))
     if isinstance(meshes, ChunkMeshPool):
         voxel = chunk_mesh_scene_fields(meshes, pool, body_position, body_orientation,
                                         body_position_prev, body_orientation_prev)
         # untextured voxel surfaces, as in the dense branch below
         voxel["tri_material"] = torch.full_like(voxel["tri_material"], -1)
-        return _concat_scene(voxel, static_geometry)
+        return _concat_scene([voxel] + extra)
     if 0 < tris_per_object < meshes.tri_pos.shape[1]:
         k = tris_per_object
         meshes = meshes._replace(**{
@@ -153,12 +251,9 @@ def build_render_scene(pool: VoxelObjectPool, meshes: CompactMesh, body_position
         tri_active=tri_ok.reshape(-1),
         tri_shadow=(tri_ok & pool.casts_shadows[:, None]).reshape(-1),
     )
-    return _concat_scene(voxel, static_geometry)
+    return _concat_scene([voxel] + extra)
 
 
-def _concat_scene(voxel: dict, static_geometry: StaticGeometry) -> RenderScene:
-    parts = [voxel]
-    if static_geometry.tri_active.shape[0] > 0:
-        parts.append(static_geometry_corners(static_geometry))
+def _concat_scene(parts) -> RenderScene:
     return RenderScene(**{k: torch.cat([p[k].to(parts[0][k].dtype) for p in parts])
                           for k in parts[0]})

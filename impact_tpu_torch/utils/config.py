@@ -161,12 +161,14 @@ class TpuConfig:
     mesh_merge_levels: int = 2
     render_tris_per_object: int = 0
     procedural_sky: bool = False
+    soft_shadows: bool = False  # PCSS-style soft shadows from light extents
+    textured_voxels: bool = False  # triplanar voxel-type textures: not ported yet
     sdf_encoding: str = "f32"  # "f32" | "i8"
     orthographic_camera: bool = False
     sky_luminance: tuple = (3000.0, 4500.0, 9000.0)
     raster_backend: str = "kernel"  # "kernel" (K1) | "raster" (plain tile raster)
     view_culling: bool = True
-    solver_mode: str = "scan"  # only "jacobi" is ported; "scan" raises
+    solver_mode: str = "scan"  # "scan" (Gauss-Seidel parity) | "jacobi" (scale)
     max_fracture_fragments: int = 128
     max_fracture_events: int = 2
     max_split_objects: int = 4
@@ -183,6 +185,10 @@ class TpuConfig:
     chunk_tri_cap: int = 1024  # triangle slots per chunk submesh
     chunk_vert_cap: int = 1024  # vertex budget per chunk compaction
     chunk_remesh_budget: int = 16  # dirty chunks re-meshed per step
+    # renderable mesh-model entities (sphere meshes of BallPit's balls)
+    max_mesh_entities: int = 16
+    max_mesh_entity_verts: int = 1024  # vertex capacity per mesh entity
+    max_mesh_entity_tris: int = 2048
 
 
 @dataclass

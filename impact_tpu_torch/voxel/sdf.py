@@ -1,6 +1,6 @@
 """SDF graph nodes and their evaluation (port of the part of
-``impact_tpu/voxel/sdf.py`` the bench scenes need: the box and sphere
-primitives and the multifractal noise modifier of the asteroid).
+``impact_tpu/voxel/sdf.py`` the built-in scenes need: the box, sphere and
+capsule primitives and the multifractal noise modifier of the asteroid).
 
 Graph nodes are plain dicts with the same keys as the reference's, so a
 graph built by either package evaluates in both.
@@ -23,6 +23,11 @@ def sphere(radius):
 
 def box(extents):
     return {"kind": "box", "extents": tuple(float(e) for e in extents)}
+
+
+def capsule(radius, segment_length):
+    """A capsule along y: a segment of ``segment_length`` swept by ``radius``."""
+    return {"kind": "capsule", "radius": float(radius), "segment_length": float(segment_length)}
 
 
 def noise_modifier(child, octaves=4, frequency=1.0, lacunarity=2.0, persistence=0.5,
@@ -115,6 +120,11 @@ def evaluate(node, p):
         return torch.linalg.vector_norm(torch.clamp(q, min=0.0), dim=-1) + torch.clamp(
             q.amax(dim=-1), max=0.0
         )
+    if kind == "capsule":
+        half = node["segment_length"] * 0.5
+        py = torch.clamp(p[..., 1], -half, half)
+        q = p - torch.stack([torch.zeros_like(py), py, torch.zeros_like(py)], dim=-1)
+        return torch.linalg.vector_norm(q, dim=-1) - node["radius"]
     if kind == "multifractal_noise":
         d = evaluate(node["child"], p)
         n = multifractal_noise(p, octaves=node["octaves"], frequency=node["frequency"],

@@ -168,11 +168,11 @@ def test_fracture_scene_steps_through_event_and_splits():
 @pytest.mark.parametrize("path", ["chunked grids", "absorbers", "distance rules",
                                   "mesh models"])
 def test_paths_outside_the_slice_raise(path, tumbler):
-    """Chunked grids (64³ and up) and absorbers are ported: a 64³ scene
-    resolves to the chunked path and steps, and the reference's absorbers
-    bridge and carve. Distance rules and mesh-model entities are not: the
-    bridge raises, with no fallback. (The scan solver mode raises too:
-    tests/test_torch_physics.py.)"""
+    """Chunked grids (64³ and up), absorbers and mesh-model entities are
+    ported: a 64³ scene resolves to the chunked path and steps, the
+    reference's absorbers bridge and carve, and the reference's mesh-model
+    entities (BallPit's sphere meshes) bridge field for field. Distance
+    rules are not: the bridge raises, with no fallback."""
     from types import SimpleNamespace
 
     from impact_tpu_torch.models.bench import bench_chunked_config, bench_chunked_scene
@@ -211,9 +211,17 @@ def test_paths_outside_the_slice_raise(path, tumbler):
         n_changed = (rt.sim.voxels.sdf != before).flatten(1).sum(dim=1).tolist()
         assert n_changed[0] > 1000 and n_changed[2] == 0
         return
-    off, on = np.zeros(2, bool), np.ones(2, bool)
-    params = SimpleNamespace(dist_rules=SimpleNamespace(mask=on if path == "distance rules"
-                                                        else off),
-                             mesh_instances=SimpleNamespace(vert_active=on))
+    if path == "mesh models":
+        from test_torch_snapshot_scenes import reference_build
+
+        jbuild = reference_build("BallPit")
+        mi = jbuild.params.mesh_instances
+        tp = bridge.engine_params_from_reference(jbuild.params, device="cpu")
+        assert mi.alive.shape[0] == 12 and bool(np.asarray(mi.alive).all())
+        for f in tp.mesh_instances._fields:
+            np.testing.assert_array_equal(getattr(tp.mesh_instances, f).numpy(),
+                                          np.asarray(getattr(mi, f)), err_msg=f)
+        return
+    params = SimpleNamespace(dist_rules=SimpleNamespace(mask=np.ones(2, bool)))
     with pytest.raises(NotImplementedError):
         bridge.engine_params_from_reference(params, device="cpu")

@@ -206,12 +206,25 @@ def test_jacobi_solve_matches_reference_within_reference_spread(n_bodies, monkey
 
 
 def test_scan_mode_is_not_ported():
+    """The scan mode is ported (it raised before the port had it): one scan
+    solve on these random bodies and contacts matches impact_tpu's within
+    rtol 1e-5 and 1e-6 of each field's magnitude, the bar of
+    tests/test_torch_scan_solver.py."""
     jb = random_bodies(8, 0)
-    tb = port(tstate.BodyState, jb)
-    c = port(tcoll.ContactBuffer, random_contacts(jb, 16, 1))
-    prep = tsolver.prepare_contacts(tb, c, tsolver.empty_solver_cache(16), ConstraintSolverConfig())
-    with pytest.raises(NotImplementedError):
-        tsolver.solve_contacts(tb, prep, ConstraintSolverConfig(), mode="scan")
+    jc = random_contacts(jb, 16, 1)
+    jprep = jsolver.prepare_contacts(jb, jc, jsolver.empty_solver_cache(16), JSolverConfig())
+    ref_b, ref_c = jsolver.solve_contacts(jb, jprep, JSolverConfig(), mode="scan")
+    got_b, got_c = tsolver.solve_contacts(port(tstate.BodyState, jb),
+                                          port(tsolver.PreparedContacts, jprep),
+                                          ConstraintSolverConfig(), mode="scan")
+    assert int(np.asarray(jprep.active).sum()) > 0
+    for f in FIELDS:
+        ref = np.asarray(getattr(ref_b, f))
+        np.testing.assert_allclose(getattr(got_b, f).numpy(), ref, rtol=1e-5,
+                                   atol=1e-6 * max(np.abs(ref).max(), 1.0), err_msg=f)
+    ref = np.asarray(ref_c.impulses)
+    np.testing.assert_allclose(got_c.impulses.numpy(), ref, rtol=1e-5,
+                               atol=1e-6 * max(np.abs(ref).max(), 1.0))
 
 
 def test_solve_joints_matches_reference():

@@ -190,6 +190,85 @@ def test_window_overflow_fault_is_reproduced():
     assert (dt.numpy() < 1.0).mean() < (full.depth.numpy() < 1.0).mean() - 0.3
 
 
+@pytest.mark.parametrize("variant", ["depth", "attributes"])
+def test_fitted_windows_drop_nothing(variant):
+    """``k_per_range=None`` (the port's render passes) fits the windows to
+    the view's longest: nothing drops, and the output matches the reference
+    kernel's (interpret mode) at that window size, which is the longest
+    window rounded up to 128 positions, within the bars above; coverage
+    agrees with the untruncated tile raster's on 99% of the pixels."""
+    pos9, attrs, active = _soup(0, n_tris=600)
+    vp = _vp()
+    args = (torch.from_numpy(pos9), torch.from_numpy(active), torch.from_numpy(vp), H, W)
+    b = trp.bin_depth_pos(*args, tile=32, k_per_range=None, big_budget=128,
+                          cull_backfaces=False)
+    longest = int(trp.bin_depth_pos(*args, tile=32, k_per_range=1 << 20, big_budget=128,
+                                    cull_backfaces=False).ranges[:, 4:].max())
+    assert longest > 128 and b.k_per_range == -(-longest // 128) * 128
+    assert int(b.n_drop) == 0 and int(b.ranges[:, 4:].max()) == longest
+    jargs = (jnp.asarray(pos9), jnp.asarray(active), jnp.asarray(vp), H, W)
+    kw = dict(tile=32, big_budget=128, cull_backfaces=False, return_drops=True)
+    if variant == "depth":
+        dt, nt = trp.rasterize_depth_pos(*args, k_per_range=None, **kw)
+        dj, nj = jrp.rasterize_depth_pos(*jargs, k_per_range=b.k_per_range, interpret=True,
+                                         **kw)
+        _cov_depth_check(dt.numpy(), np.asarray(dj))
+        covered = dt.numpy() < 1.0
+    else:
+        ta = torch.from_numpy(attrs)
+        it, nrt, vt, nt = trp.rasterize_attributes_pos(*args[:2], ta, *args[2:],
+                                                       k_per_range=None, **kw)
+        ij, nrj, vj, nj = jrp.rasterize_attributes_pos(
+            *jargs[:2], jnp.asarray(attrs), *jargs[2:], k_per_range=b.k_per_range,
+            interpret=True, **kw)
+        vj, vt = np.asarray(vj), vt.numpy()
+        assert np.mean(vj == vt) > 0.99
+        both = vj & vt
+        for a, r in ((it.numpy(), np.asarray(ij)), (nrt.numpy(), np.asarray(nrj))):
+            close = np.all(np.isclose(a[both], r[both], atol=5e-2, rtol=5e-2), axis=-1)
+            assert np.mean(close) > 0.99
+        covered = vt
+    assert int(nt) == int(nj) == 0
+    clip = project_corners(torch.from_numpy(pos9), torch.from_numpy(vp))
+    full, _, _ = traster.rasterize(clip, torch.from_numpy(active), H, W, cull_backfaces=False,
+                                   k_per_tile=2048, big_budget=128)
+    assert np.mean(covered == (full.depth.numpy() < 1.0)) > 0.99
+
+
+def test_fitted_tile_raster_drops_nothing():
+    """The plain tile raster with ``fit_k`` (the port's render passes) keeps
+    every candidate of every tile (here up to 857, past the reference's
+    256): it matches the reference XLA raster at a k_per_tile past the most
+    crowded tile (depth within the bars above, winners and coverage equal,
+    attributes as test_plain_matches_tile_rasters holds them)."""
+    pos9, attrs, active = _soup(0, n_tris=3000)
+    clip = project_corners(torch.from_numpy(pos9), torch.from_numpy(_vp()))
+    act = torch.from_numpy(active)
+    clip2, _, act2 = traster.clip_triangles_near(clip, act)
+    crowd = int(traster._bin_small_and_big(clip2, act2, H, W, 32, 128, False).counts.max())
+    assert 256 < crowd <= 4096
+    fit, _, _ = traster.rasterize(clip, act, H, W, cull_backfaces=False, big_budget=128,
+                                  fit_k=True)
+    cj, aj = jnp.asarray(clip.numpy()), jnp.asarray(active)
+    ref, _, _ = jraster.rasterize(cj, aj, H, W, cull_backfaces=False, k_per_tile=4096,
+                                  big_budget=128)
+    _cov_depth_check(fit.depth.numpy(), np.asarray(ref.depth))
+    np.testing.assert_array_equal(fit.tri_id.numpy(), np.asarray(ref.tri_id))
+
+    t = pos9.shape[0]
+    idx = np.arange(3 * t, dtype=np.int32).reshape(t, 3)
+    a_flat = attrs.reshape(3 * t, -1)
+    it, nt, vt = traster.rasterize_attributes(
+        clip, act, torch.from_numpy(idx).long(), torch.from_numpy(a_flat), H, W,
+        big_budget=128, cull_backfaces=False, fit_k=True)
+    ij, nj, vj = jraster.rasterize_attributes(
+        cj, aj, jnp.asarray(idx), jnp.asarray(a_flat), H, W, k_per_tile=4096, big_budget=128,
+        cull_backfaces=False)
+    np.testing.assert_array_equal(vt.numpy(), np.asarray(vj))
+    np.testing.assert_allclose(it.numpy(), np.asarray(ij), atol=1e-4)
+    np.testing.assert_allclose(nt.numpy(), np.asarray(nj), atol=1e-6)
+
+
 def test_bound_counts_each_referenced_row_once():
     """bound_ms reads each referenced payload row once however many windows
     hold it, and evaluates only in-image pixels."""
