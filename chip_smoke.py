@@ -39,14 +39,16 @@ then drives these paths through the port's entry points:
    320x200 frame of the filled 64³ phase through K1, held against K1's
    plain version and scored against the plain tile raster;
 9. the scan solver (the default ``scan`` mode, ``csrc/scan_solver.cu``):
-   its two kernels held against ``scan_iterations_plain`` on the solver
-   inputs of one substep of the snapshot tester's VoxelBoxTumbler and
-   Bloom (24 bodies, 128 slots) and of the bench tumbler stepped under
-   ``scan`` (80 bodies, 1024 slots), each with at least 20 active slots,
-   timed (CUDA events, 20 calls after 2;
-   device time alone through torch.profiler) beside their bound, and the
-   bench tumbler's step under ``scan`` and ``jacobi`` in turns in one
-   process, with launches per step;
+   its two kernels held equal to ``scan_iterations_plain``, and the
+   schedule they walk equal to ``scan_schedule``'s, on the solver inputs
+   of one substep of the snapshot tester's VoxelBoxTumbler and Bloom (24
+   bodies, 128 slots), of the bench tumbler stepped under ``scan`` (80
+   bodies, 1024 slots), each with at least 20 active slots, and of the
+   bench tumbler's widened to the default config (1024 bodies, 4096
+   slots); timed (CUDA events, 20 calls after 2; device time alone through
+   torch.profiler) beside the bytes bound and the chain bound (levels ×
+   one slot's dependent latency), and the bench tumbler's step under
+   ``scan`` and ``jacobi`` in turns in one process, with launches per step;
 10. the snapshot tester's 19 ported scenes
    (``impact_tpu_torch.apps.snapshot_tester``: 320x240, 4 objects of 32³,
    the ``scan`` solver) stepped their warm-up counts and rendered through
@@ -139,10 +141,11 @@ SCAN_MIN_ACTIVE = 20
 # the bench tumbler's steps per turn when timing scan against jacobi (turns
 # jacobi, scan, scan, jacobi)
 SCAN_TURN_STEPS = 20
-# the kernels against their plain version: equal is expected (every float
-# operation rounded the same way in the same order); held within the CPU
-# parity bar against impact_tpu (tests/test_torch_scan_solver.py): rtol
-# 1e-5 and an atol of 1e-6 of each field's largest magnitude
+# the kernels against their plain version: equal is required (every float
+# operation rounded the same way, each body's slots in slot order); a field
+# that is not is also reported against the CPU parity bar against
+# impact_tpu (tests/test_torch_scan_solver.py): rtol 1e-5 and an atol of
+# 1e-6 of each field's largest magnitude
 SCAN_RTOL, SCAN_ATOL_OF_MAGNITUDE = 1e-5, 1e-6
 
 
@@ -917,6 +920,16 @@ def host_us(fn, reps=50):
     return dt / reps * 1e6
 
 
+def card_query(field: str) -> str:
+    """One ``nvidia-smi --query-gpu`` field of the first card (e.g.
+    clocks.max.sm → "1980 MHz")."""
+    import subprocess
+
+    return subprocess.run(["nvidia-smi", f"--query-gpu={field}", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60,
+                          check=True).stdout.strip().splitlines()[0]
+
+
 def body_state_finite(sim):
     import torch
 
@@ -1418,84 +1431,168 @@ def record_scan_inputs(rt, before, steps, what):
 
 def hold_scan(args, what):
     """The kernels against ``scan_iterations_plain`` on one recorded input:
-    (max abs err, bit-equal). Raises past SCAN_RTOL / SCAN_ATOL_OF_MAGNITUDE."""
+    v, w, the impulses, positions and orientations must each be equal
+    (``torch.equal``); a field past SCAN_RTOL / SCAN_ATOL_OF_MAGNITUDE is
+    reported as such. The schedule the kernels wrote must equal
+    ``scan_schedule``'s. Returns (max abs err, the plain loop's ms for one
+    call, the ScanSchedule)."""
     import torch
 
     from impact_tpu_torch.physics import scan_solver
 
-    got = scan_solver.scan_iterations(*args)
+    *got, sched = scan_solver.scan_iterations(*args, with_schedule=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     ref = scan_solver.scan_iterations_plain(*args)
     torch.cuda.synchronize()
-    err, equal = 0.0, True
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err, faults = 0.0, []
     for name, g, r in zip(("v", "w", "impulses", "position", "orientation"), got, ref):
         if g.shape != r.shape or not bool(torch.isfinite(g).all()):
             raise AssertionError(f"scan {what}: {name} is {tuple(g.shape)} or not finite")
         d = (g - r).abs()
         e = d.max().item() if d.numel() else 0.0
         err = max(err, e)
-        equal = equal and torch.equal(g, r)
         atol = SCAN_ATOL_OF_MAGNITUDE * max(r.abs().max().item() if r.numel() else 0.0, 1.0)
         if bool((d > atol + SCAN_RTOL * r.abs()).any()):
-            raise AssertionError(f"scan {what}: {name} differs from the plain version by "
-                                 f"{e:.3g} (rtol {SCAN_RTOL}, atol {atol:.3g})")
-    return err, equal
+            faults.append(f"{name} differs by {e:.3g} (rtol {SCAN_RTOL}, atol {atol:.3g})")
+        elif not torch.equal(g, r):
+            faults.append(f"{name} is not equal: {int((g != r).sum())} elements, max abs err "
+                          f"{e:.3g} (within rtol {SCAN_RTOL}, atol {atol:.3g})")
+    if faults:
+        raise AssertionError(f"scan {what}: against the plain version: {'; '.join(faults)}")
+    prep = args[6]
+    want = scan_solver.scan_schedule(prep.body_a, prep.body_b, prep.active, args[4], args[5],
+                                     args[3])
+    if not torch.equal(sched, want.packed()):
+        raise AssertionError(f"scan {what}: the kernels' schedule differs from scan_schedule's")
+    return err, plain_ms, want
+
+
+def pad_inputs(args, n_bodies: int, n_slots: int, like_body: int):
+    """``scan_iterations``' arguments widened to ``n_bodies`` bodies and
+    ``n_slots`` slots as wider pools would hold them: each extra slot a copy
+    of the last one (which must be compaction's padding, inactive), each
+    extra body at rest (zero v and w) with body ``like_body``'s pose,
+    inverse mass and inverse inertia (an unused body slot)."""
+    import torch
+
+    v, w, pos, ori, inv_mass, inv_inertia, prep, acc, *rest = args
+    if bool(prep.active[-1]):
+        raise ValueError("the last slot must be inactive padding")
+
+    def grow(t, size, row):
+        return torch.cat([t, t[row][None].expand(size - t.shape[0], *t.shape[1:])])
+
+    def at_rest(t):
+        return torch.cat([t, t.new_zeros((n_bodies - t.shape[0], 3))])
+
+    prep = prep._replace(**{f: grow(getattr(prep, f), n_slots, -1) for f in prep._fields})
+    return (at_rest(v), at_rest(w), grow(pos, n_bodies, like_body),
+            grow(ori, n_bodies, like_body), grow(inv_mass, n_bodies, like_body),
+            grow(inv_inertia, n_bodies, like_body), prep, grow(acc, n_slots, -1), *rest)
+
+
+def default_width_input(args):
+    """The bench tumbler's recorded substep widened to the default
+    EngineConfig's pools (``max_bodies`` × ``max_contacts``): extra slots
+    copies of its padding (inactive on body 0), extra bodies at rest with
+    the inverse mass and inertia of an unused body slot of the bench's
+    state (the last body no slot points at with zero inverse mass)."""
+    from impact_tpu_torch.utils.config import TpuConfig
+
+    tc = TpuConfig()
+    prep, im = args[6], args[4]
+    used = set(prep.body_a.tolist()) | set(prep.body_b.tolist())
+    unused = [i for i in range(im.shape[0]) if i not in used and float(im[i]) == 0.0]
+    if not unused:
+        raise AssertionError("the bench tumbler's state has no unused body slot")
+    return pad_inputs(args, tc.max_bodies, tc.max_contacts, unused[-1]), unused[-1]
+
+
+def record_scan_phase_inputs(dev):
+    """The scan phase's four solver inputs, by name: one substep with at
+    least SCAN_MIN_ACTIVE active slots of the snapshot VoxelBoxTumbler and
+    of Bloom (128 slots), of the bench tumbler under scan (1024 slots), and
+    the bench tumbler's widened to the default config."""
+    from impact_tpu_torch.apps import snapshot_tester as st
+    from impact_tpu_torch.models.bench import bench_config, bench_step_scene
+    from impact_tpu_torch.runtime import HeadlessRuntime, compile_scene
+
+    inputs = {}
+    for name, (before, steps) in SCAN_RECORD_STEPS.items():
+        inputs[name] = record_scan_inputs(st.build_runtime(name, dev), before, steps, name)
+    cfg = bench_config()
+    cfg.tpu.solver_mode = "scan"
+    rt = HeadlessRuntime(compile_scene(bench_step_scene(), cfg, device=dev), cfg,
+                         enable_fracturing=False)
+    inputs["bench tumbler"] = record_scan_inputs(rt, *BENCH_SCAN_RECORD_STEPS, "bench tumbler")
+    inputs["default width"], like = default_width_input(inputs["bench tumbler"])
+    log(f"scan inputs default width: the bench tumbler's padded with copies of its last "
+        f"slot and of its unused body {like}")
+    for name, a in inputs.items():
+        prep = a[6]
+        log(f"scan inputs {name}: {a[0].shape[0]} bodies, {prep.active.shape[0]} slots, "
+            f"{int(prep.active.sum())} active, {a[8]} velocity and {a[9]} correction sweeps")
+    return inputs
 
 
 def scan_phase(dev, record, kernels):
-    """The scan solver's kernels on recorded solver inputs, and the bench
-    tumbler stepped under scan and jacobi in turns."""
+    """The scan solver's kernels on recorded solver inputs and on the bench
+    tumbler's widened to the default config, and the bench tumbler stepped
+    under scan and jacobi in turns."""
     import torch
 
-    from impact_tpu_torch.apps import snapshot_tester as st
     from impact_tpu_torch.devtools import cuda_time_ms
     from impact_tpu_torch.models.bench import bench_config, bench_step_scene
     from impact_tpu_torch.physics import scan_solver
     from impact_tpu_torch.runtime import HeadlessRuntime, compile_scene
 
-    inputs = {}
     with Phase(f"scan solver: record one substep's solver inputs with at least "
                f"{SCAN_MIN_ACTIVE} active slots (snapshot VoxelBoxTumbler and Bloom, 128 "
-               f"slots; bench tumbler under scan, 1024 slots)"):
-        for name, (before, steps) in SCAN_RECORD_STEPS.items():
-            inputs[name] = record_scan_inputs(st.build_runtime(name, dev), before, steps, name)
-        cfg = bench_config()
-        cfg.tpu.solver_mode = "scan"
-        rt = HeadlessRuntime(compile_scene(bench_step_scene(), cfg, device=dev), cfg,
-                             enable_fracturing=False)
-        inputs["bench tumbler"] = record_scan_inputs(rt, *BENCH_SCAN_RECORD_STEPS,
-                                                     "bench tumbler")
-        for name, a in inputs.items():
-            prep = a[6]
-            log(f"scan inputs {name}: {a[0].shape[0]} bodies, {prep.active.shape[0]} slots, "
-                f"{int(prep.active.sum())} active, {a[8]} velocity and {a[9]} correction sweeps")
+               f"slots; bench tumbler under scan, 1024 slots; the bench tumbler's widened to "
+               f"the default config)"):
+        inputs = record_scan_phase_inputs(dev)
 
     rows = {}
-    with Phase("scan solver kernels vs scan_iterations_plain on the recorded inputs; timed"):
+    with Phase("scan solver kernels vs scan_iterations_plain on the recorded inputs (equal, "
+               "and the kernels' schedule equal to scan_schedule's); timed"):
+        clock_hz = float(card_query("clocks.max.sm").split()[0]) * 1e6
         for name, a in inputs.items():
-            err, equal = hold_scan(a, name)
+            err, plain, sch = hold_scan(a, name)
             ms = kernel_ms(lambda a=a: scan_solver.scan_iterations(*a),
                            ("scan_velocity_kernel", "scan_correction_kernel"))
             vel_ms = kernel_ms(lambda a=a: scan_solver.scan_iterations(*a),
                                "scan_velocity_kernel")
             wrapper = cuda_time_ms(lambda a=a: scan_solver.scan_iterations(*a), reps=20)
-            t0 = time.perf_counter()
-            scan_solver.scan_iterations_plain(*a)
-            torch.cuda.synchronize()
-            plain = (time.perf_counter() - t0) * 1e3
             n, c = a[0].shape[0], a[6].active.shape[0]
             bound, by = scan_solver.bound_ms(n, c, a[8], a[9])
-            walks = c * (a[8] + a[9])
-            per_slot_us = ms * 1e3 / max(walks, 1)
+            chain = scan_solver.chain_bound_ms(sch.velocity_depth, sch.correction_depth, a[8],
+                                               a[9], clock_hz)
+            runs = sch.runs[:, 1].tolist()
+            # inactive slots on two fixed bodies: no node, never walked
+            dropped = int((sch.correction_level == 0).sum())
             rows[name] = dict(bodies=n, slots=c, active=int(a[6].active.sum()),
-                              max_abs_err=err, bit_equal=equal, ms=ms, velocity_ms=vel_ms,
-                              wrapper_ms=wrapper,
-                              plain_ms=plain, bound_ms=bound, bound_by=by,
-                              us_per_slot_update=per_slot_us)
-            log(f"scan {name}: {'bit-equal to' if equal else f'max abs err {err:.3g} against'} "
-                f"the plain version; kernels alone {ms:.4f} ms (velocity sweeps {vel_ms:.4f} "
-                f"ms), wrapper {wrapper:.4f} ms, plain "
-                f"{plain:.1f} ms (1 call), bound {bound:.6f} ms ({by}); {walks} slot updates, "
-                f"{per_slot_us:.4f} us each")
+                              velocity_fixed=int(sch.velocity_fixed.sum()),
+                              correction_fixed=int(sch.correction_fixed.sum()),
+                              velocity_levels=sch.velocity_depth,
+                              correction_levels=sch.correction_depth, runs=runs,
+                              slots_on_fixed_bodies=dropped,
+                              max_abs_err=err, ms=ms, velocity_ms=vel_ms,
+                              wrapper_ms=wrapper, plain_ms=plain, bound_ms=bound, bound_by=by,
+                              chain_bound_ms=chain, sm_clock_hz=clock_hz,
+                              us_per_level=ms * 1e3 / max(a[8] * sch.velocity_depth
+                                                          + a[9] * sch.correction_depth, 1))
+            log(f"scan {name}: equal to the plain version, schedule equal to scan_schedule's; "
+                f"{rows[name]['active']} active of {c} slots, fixed bodies "
+                f"{rows[name]['velocity_fixed']} (velocity) and "
+                f"{rows[name]['correction_fixed']} (correction), {sch.velocity_depth} levels "
+                f"a velocity sweep, "
+                f"{sch.correction_depth} a correction sweep, runs collapsed {runs}, "
+                f"{dropped} inactive slots on two fixed bodies not walked; kernels "
+                f"alone {ms:.4f} ms (velocity sweeps {vel_ms:.4f} ms), wrapper {wrapper:.4f} "
+                f"ms, plain {plain:.1f} ms (1 call); bound {bound:.7f} ms ({by}), chain bound "
+                f"{chain:.5f} ms at {clock_hz / 1e6:.0f} MHz")
         record["scan_kernels"] = rows
 
     with Phase(f"bench tumbler step (80 bodies, 1024 slots): jacobi and scan in turns "
@@ -1532,14 +1629,15 @@ def scan_phase(dev, record, kernels):
             f"launched per step (torch.profiler, 2 steps): {total}")
         record["bench_tumbler_scan_vs_jacobi"] = dict(step_ms=turns, scan_launches=launches,
                                                       kernels_per_step=total)
+    bench = rows["bench tumbler"]
     kernels.append(dict(
         name="scan_solver", route="cuda", source="impact_tpu_torch/csrc/scan_solver.cu",
         replaces="impact_tpu/physics/solver.py:258 (lax.scan, no pallas_call)", launches=None,
         max_abs_err=max(r["max_abs_err"] for r in rows.values()),
-        ms=rows["bench tumbler"]["ms"], plain_ms=rows["bench tumbler"]["plain_ms"],
-        bound_ms=rows["bench tumbler"]["bound_ms"], bound_by=rows["bench tumbler"]["bound_by"],
-        library_ms=None, wrapper_ms=rows["bench tumbler"]["wrapper_ms"],
-        snapshot_ms=rows["VoxelBoxTumbler"]["ms"]))
+        ms=bench["ms"], plain_ms=bench["plain_ms"], bound_ms=bench["bound_ms"],
+        bound_by=bench["bound_by"], library_ms=None, chain_bound_ms=bench["chain_bound_ms"],
+        wrapper_ms=bench["wrapper_ms"], snapshot_ms=rows["VoxelBoxTumbler"]["ms"],
+        default_width_ms=rows["default width"]["ms"]))
 
 
 def held_k1(held):

@@ -38,8 +38,8 @@ SIGNATURES = {
     "k2_ccl_wide": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "p1_probe_floor": [_I, _P, _P, _I, _P, _I, _P],
     "p2_probe_ablate": [_I, _I, _I, _I, _P, _P, _I, _P, _I, _I, _P, _P],
-    "scan_velocity_iterations": [_P] * 16 + [_I, _I, _I, _P],
-    "scan_position_correction": [_P] * 10 + [_F, _I, _I, _I, _P],
+    "scan_velocity_iterations": [_P] * 21 + [_I, _I, _I, _P],
+    "scan_position_correction": [_P] * 14 + [_F, _I, _I, _I, _P],
 }
 
 _lib = None

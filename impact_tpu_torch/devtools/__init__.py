@@ -2,7 +2,9 @@
 probe_kernel_floor.py``, ``devtools/probe_kernel_ablate.py``) written again
 as Hopper kernels with their plain PyTorch versions and entry points
 (``python -m impact_tpu_torch.devtools.probe_kernel_floor`` and
-``... .probe_kernel_ablate``, on the card)."""
+``... .probe_kernel_ablate``, on the card), and ``probe_scan_walk``, the
+scan kernels' level walk against a serial walk of the same schedule with
+the operation latencies of their chain bound."""
 
 from __future__ import annotations
 

@@ -1,5 +1,5 @@
 """The sequential (Gauss-Seidel) contact solve of the ``scan`` solver mode:
-the CUDA kernels' wrapper and their plain PyTorch version.
+the CUDA kernels' wrapper, their plain PyTorch version and their schedule.
 
 Port of the two ``lax.scan`` loops of ``impact_tpu/physics/solver.py``
 (``one_contact`` inside the velocity iterations, :258-298, and
@@ -9,22 +9,30 @@ reference does this; the reference calls the mode "bitwise-deterministic,
 used for reference parity".
 
 ``scan_iterations`` runs both loops. On CUDA tensors it launches the two
-kernels of ``csrc/scan_solver.cu`` (one block each, one thread walking the
-slots, bodies and contacts in shared memory while they fit); on CPU tensors
-it runs ``scan_iterations_plain``, a loop over slots that repeats the
-reference's operations in its order, each float operation a separate torch
-op. The kernel rounds each operation the same way, so on the same inputs
-the two agree bit for bit. There is no fallback: on a CUDA tensor the
-kernel launches or the call raises. ``LAUNCHES`` counts the launches.
+kernels of ``csrc/scan_solver.cu`` (one block each); on CPU tensors it runs
+``scan_iterations_plain``, a loop over slots that repeats the reference's
+operations in its order, each float operation a separate torch op. The
+kernels round each operation the same way, so on the same inputs the two
+agree bit for bit (up to the sign of a zero). There is no fallback: on a
+CUDA tensor the kernel launches or the call raises. ``LAUNCHES`` counts the
+launches.
 
-Every slot is walked, inactive ones included: an inactive slot changes no
-velocity and no position, but its correction renormalizes the orientations
-of its bodies, as the reference's does.
+The kernels do not walk the slots one by one. They walk the levels of
+``scan_schedule``: a slot's level is one more than the largest level of an
+earlier slot on one of its bodies, so each body still sees its slots in
+slot order, and the slots of one level run in parallel. Inactive slots
+change no velocity and no position (their change is ±0); in the correction
+they still renormalize the orientations of their bodies, as the
+reference's do, and a run of them on one pair is applied as one node.
+Bodies no slot can change (``fixed_bodies``: the ground plane; in the
+velocity sweeps any body with zero inverse mass and inertia) are no
+dependency. ``csrc/scan_solver.cu``'s note gives the argument in full.
 """
 
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -47,6 +55,35 @@ LAUNCHES = LaunchCounter(scan_velocity_iterations=0, scan_position_correction=0)
 #     product 28, step 12, length 8, clamp 1, four divs): 317
 VELOCITY_OPS_PER_SLOT = 147
 CORRECTION_OPS_PER_SLOT = 317
+# The longest dependent path of one slot's own arithmetic, from the load of
+# its bodies' state to the last value it stores (an angular velocity, an
+# orientation), by kind of operation, counted from velocity_apply and
+# correction_apply in csrc/scan_solver.cu (clamp: clamp_min, a compare and
+# a select; select: the Coulomb scale's; the mul by dt = 1 counts):
+#   velocity: w × d (mul, sub), + v, rel (2 adds), a tangent's dot (mul, 2
+#     adds), the mul by -e and the add of old, s1·s1 + s2·s2 (mul, add),
+#     the square root, the clamp, the division, the select, the mul by
+#     scale, fresh − old and the mul by on, dp (mul, 2 adds), d × dp (mul,
+#     sub), the matvec's dot (mul, 2 adds), the add into w: 14 adds, 9 muls;
+#   correction: rotate (3 muls, 3 adds), + pos, pb − pos, × normal (mul,
+#     sub), the matvec's and the quadratic's dots (2 muls, 4 adds), the last
+#     two adds of the denominator, the clamp, the division, the pseudo-
+#     impulse (3 muls), dp (mul), d × dp (mul, sub), the matvec's dot (mul,
+#     2 adds), the quaternion product (mul, 3 adds), the step (0.5·, 1·, +),
+#     the squares and their sum (mul, 3 adds), the square root, the clamp,
+#     the division: 22 adds, 16 muls.
+# Loads, stores and barriers are left out: they are the design's.
+VELOCITY_CHAIN_OPS = dict(add=14, mul=9, clamp=1, select=1, sqrt=1, div=1)
+CORRECTION_CHAIN_OPS = dict(add=22, mul=16, clamp=2, sqrt=1, div=2)
+# SM cycles of one dependent operation of each kind on the H100 (add.rn,
+# mul.rn, a setp and selp, a selp, sqrt.rn, div.rn through its divisor),
+# measured by devtools/probe_scan_walk.py on an NVIDIA H100 80GB HBM3 at
+# 700 W: one slot's chain is then 192.4 cycles (velocity), 301.6 (correction)
+OP_LATENCY_CYCLES = dict(add=4.069, mul=4.071, clamp=8.108, select=4.109, sqrt=42.413,
+                         div=44.173)
+VELOCITY_CHAIN_CYCLES = sum(k * OP_LATENCY_CYCLES[op] for op, k in VELOCITY_CHAIN_OPS.items())
+CORRECTION_CHAIN_CYCLES = sum(k * OP_LATENCY_CYCLES[op]
+                              for op, k in CORRECTION_CHAIN_OPS.items())
 
 
 @functools.lru_cache(maxsize=None)
@@ -203,6 +240,90 @@ def scan_iterations_plain(v, w, pos, ori, inv_mass, inv_inertia, prep, acc, n_it
     return v, w, acc, pos, ori
 
 
+def fixed_bodies(inv_mass, inv_inertia, ori=None):
+    """Bodies no slot can change: zero inverse mass and an all-zero world
+    inverse inertia (the velocity sweeps, ``ori`` None) and, for the
+    correction, a finite orientation ``ori`` that the zero-rate integration
+    (``_integrate``, the kernels' rounding) leaves bitwise as it is →
+    bool [N]."""
+    zero = (inv_mass == 0.0) & (inv_inertia.reshape(-1, 9) == 0.0).all(-1)
+    if ori is None:
+        return zero
+    ori = ori.contiguous()
+    signs = [torch.tensor(s, device=ori.device) for s in _SIGN]
+    step = _integrate(ori, torch.zeros_like(ori[:, :3]), signs).contiguous()
+    same = (step.view(torch.int32) == ori.view(torch.int32)).all(-1)
+    return zero & torch.isfinite(ori).all(-1) & same
+
+
+class ScanSchedule(NamedTuple):
+    """The kernels' walk of one sweep (``scan_schedule``)."""
+    velocity_fixed: torch.Tensor    # bool [N]
+    correction_fixed: torch.Tensor  # bool [N]
+    velocity_level: torch.Tensor    # int32 [C]; 0: skipped (inactive)
+    correction_level: torch.Tensor  # int32 [C]; a run's slots share its level, 0: none
+    runs: torch.Tensor              # int64 [R, 2]: first slot and length of each run walked
+    velocity_depth: int
+    correction_depth: int
+
+    def packed(self):
+        """int32 [2C + 2 + 2N] as the kernels write it: velocity levels,
+        correction levels, the two depths, the two loops' fixed flags."""
+        dev = self.velocity_level.device
+        depths = torch.tensor([self.velocity_depth, self.correction_depth], dtype=torch.int32,
+                              device=dev)
+        return torch.cat([self.velocity_level, self.correction_level, depths,
+                          self.velocity_fixed.to(torch.int32),
+                          self.correction_fixed.to(torch.int32)])
+
+
+def scan_schedule(body_a, body_b, active, inv_mass, inv_inertia, ori) -> ScanSchedule:
+    """The levels the kernels walk, in plain torch on any device. A node is
+    an active slot (both loops) or, in the correction, a run: consecutive
+    inactive slots on one (a, b) pair, which renormalizes ori[a] and ori[b]
+    once a slot. A node's level is 1 + the largest level of an earlier
+    node on body a or b, fixed bodies (each loop's ``fixed_bodies``) not
+    counted; a run on two fixed bodies has none. Each sweep walks levels
+    1..depth in order."""
+    v_fixed = fixed_bodies(inv_mass, inv_inertia)
+    c_fixed = fixed_bodies(inv_mass, inv_inertia, ori)
+    a_list, b_list = body_a.tolist(), body_b.tolist()
+    on = active.tolist()
+    n_slots = len(on)
+
+    def walk(nodes, fx):
+        """nodes: (first slot, length, walked on two fixed bodies) → levels, depth"""
+        last, levels, depth = [0] * len(fx), [0] * n_slots, 0
+        for c, k, always in nodes:
+            a, b = a_list[c], b_list[c]
+            if fx[a] and fx[b] and not always:
+                continue
+            lv = max(0 if fx[a] else last[a], 0 if fx[b] else last[b]) + 1
+            for body in (a, b):
+                if not fx[body]:
+                    last[body] = lv
+            levels[c:c + k] = [lv] * k
+            depth = max(depth, lv)
+        return levels, depth
+
+    vel, v_depth = walk([(c, 1, True) for c in range(n_slots) if on[c]], v_fixed.tolist())
+    nodes, c = [], 0
+    while c < n_slots:
+        e = c + 1
+        if not on[c]:
+            while e < n_slots and not on[e] and (a_list[e], b_list[e]) == (a_list[c], b_list[c]):
+                e += 1
+        nodes.append((c, e - c, bool(on[c])))
+        c = e
+    corr, c_depth = walk(nodes, c_fixed.tolist())
+    runs = [(c, k) for c, k, is_slot in nodes if not is_slot and corr[c] > 0]
+    dev = body_a.device
+    return ScanSchedule(
+        v_fixed, c_fixed, torch.tensor(vel, dtype=torch.int32, device=dev),
+        torch.tensor(corr, dtype=torch.int32, device=dev),
+        torch.tensor(runs, dtype=torch.int64, device=dev).reshape(-1, 2), v_depth, c_depth)
+
+
 def _f32(t, shape, what):
     if t.dtype != torch.float32 or tuple(t.shape) != shape:
         raise ValueError(f"{what} must be float32 {shape}, got {t.dtype} {tuple(t.shape)}")
@@ -210,24 +331,42 @@ def _f32(t, shape, what):
 
 
 def scan_iterations(v, w, pos, ori, inv_mass, inv_inertia, prep, acc, n_iterations: int,
-                    n_corrections: int, factor: float):
+                    n_corrections: int, factor: float, with_schedule: bool = False):
     """``scan_iterations_plain``'s function: its plain version on CPU tensors,
     the two kernels of ``csrc/scan_solver.cu`` on CUDA tensors (one launch
-    each). Body indices must lie in [0, N)."""
+    each). Body indices must lie in [0, N). With ``with_schedule`` it also
+    returns the schedule the kernels walked, as ``ScanSchedule.packed``
+    gives it (on CPU tensors ``scan_schedule``'s)."""
     dev = v.device
     if dev.type == "cpu":
-        return scan_iterations_plain(v, w, pos, ori, inv_mass, inv_inertia, prep, acc,
-                                     n_iterations, n_corrections, factor)
+        out = scan_iterations_plain(v, w, pos, ori, inv_mass, inv_inertia, prep, acc,
+                                    n_iterations, n_corrections, factor)
+        if not with_schedule:
+            return out
+        return (*out, scan_schedule(prep.body_a, prep.body_b, prep.active, inv_mass,
+                                    inv_inertia, ori).packed())
     if dev.type != "cuda":
         raise ValueError(f"the scan solver runs on cuda or cpu tensors, not {dev}")
+    from .. import _build
+
+    return _launch(_build.load(), v, w, pos, ori, inv_mass, inv_inertia, prep, acc,
+                   n_iterations, n_corrections, factor, with_schedule)
+
+
+def _launch(lib, v, w, pos, ori, inv_mass, inv_inertia, prep, acc, n_iterations,
+            n_corrections, factor, with_schedule):
+    """The two kernels of ``lib`` (the package's library, or a build of
+    ``csrc/scan_solver.cu`` with other flags) on CUDA tensors."""
+    dev = v.device
     n, c = v.shape[0], prep.active.shape[0]
     if n == 0:
         raise ValueError("the scan solver needs at least one body")
     if n_iterations < 0 or n_corrections < 0:
         raise ValueError("iteration counts must be non-negative")
-    v, w, acc, pos, ori = (_f32(t, s, k).clone() for t, s, k in (
+    ins = [_f32(t, s, k) for t, s, k in (
         (v, (n, 3), "v"), (w, (n, 3), "w"), (acc, (c, 3), "acc"), (pos, (n, 3), "pos"),
-        (ori, (n, 4), "ori")))
+        (ori, (n, 4), "ori"))]
+    outs = [torch.empty_like(t) for t in ins]
     im = _f32(inv_mass, (n,), "inv_mass")
     ii = _f32(inv_inertia, (n, 3, 3), "inv_inertia")
     ia = prep.body_a.to(torch.int32).contiguous()
@@ -237,27 +376,32 @@ def scan_iterations(v, w, pos, ori, inv_mass, inv_inertia, prep, acc, n_iteratio
         "normal", "tangent", "bitangent", "disp_a", "disp_b", "eff_mass", "local_a", "local_b")}
     fr = _f32(prep.friction_coef, (c,), "friction_coef")
     tsv = _f32(prep.target_sep_vel, (c,), "target_sep_vel")
-    from .. import _build
-
-    lib = _build.load()
+    # the schedule written out (2C + 2 + 2N), then the kernels' scratch
+    # (4C + 2 + 2N) for a schedule that shared memory does not hold
+    work = torch.empty(6 * c + 4 + 4 * n, dtype=torch.int32, device=dev)
+    sched, scratch = work[:2 * c + 2 + 2 * n], work[2 * c + 2 + 2 * n:]
+    sched_ptr = sched.data_ptr() if with_schedule else None
     stream = torch.cuda.current_stream(dev).cuda_stream
+    (v_in, w_in, acc_in, pos_in, ori_in), (v, w, acc, pos, ori) = ins, outs
     rc = lib.scan_velocity_iterations(
-        v.data_ptr(), w.data_ptr(), im.data_ptr(), ii.data_ptr(), ia.data_ptr(), ib.data_ptr(),
-        on.data_ptr(), f3["normal"].data_ptr(), f3["tangent"].data_ptr(),
+        v_in.data_ptr(), w_in.data_ptr(), acc_in.data_ptr(), v.data_ptr(), w.data_ptr(),
+        acc.data_ptr(), im.data_ptr(), ii.data_ptr(), ia.data_ptr(),
+        ib.data_ptr(), on.data_ptr(), f3["normal"].data_ptr(), f3["tangent"].data_ptr(),
         f3["bitangent"].data_ptr(), f3["disp_a"].data_ptr(), f3["disp_b"].data_ptr(),
-        f3["eff_mass"].data_ptr(), fr.data_ptr(), tsv.data_ptr(), acc.data_ptr(), n, c,
-        int(n_iterations), stream)
+        f3["eff_mass"].data_ptr(), fr.data_ptr(), tsv.data_ptr(), sched_ptr,
+        scratch.data_ptr(), n, c, int(n_iterations), stream)
     if rc != 0:
         raise RuntimeError(f"scan_velocity_iterations launch failed: cudaError {rc}")
     LAUNCHES["scan_velocity_iterations"] += 1
     rc = lib.scan_position_correction(
-        pos.data_ptr(), ori.data_ptr(), im.data_ptr(), ii.data_ptr(), ia.data_ptr(),
-        ib.data_ptr(), on.data_ptr(), f3["normal"].data_ptr(), f3["local_a"].data_ptr(),
-        f3["local_b"].data_ptr(), float(factor), n, c, int(n_corrections), stream)
+        pos_in.data_ptr(), ori_in.data_ptr(), pos.data_ptr(), ori.data_ptr(), im.data_ptr(),
+        ii.data_ptr(), ia.data_ptr(), ib.data_ptr(), on.data_ptr(), f3["normal"].data_ptr(),
+        f3["local_a"].data_ptr(), f3["local_b"].data_ptr(), sched_ptr,
+        scratch.data_ptr(), float(factor), n, c, int(n_corrections), stream)
     if rc != 0:
         raise RuntimeError(f"scan_position_correction launch failed: cudaError {rc}")
     LAUNCHES["scan_position_correction"] += 1
-    return v, w, acc, pos, ori
+    return (v, w, acc, pos, ori, sched) if with_schedule else (v, w, acc, pos, ori)
 
 
 def bound_ms(n_bodies: int, n_slots: int, n_iterations: int, n_corrections: int,
@@ -280,3 +424,17 @@ def bound_ms(n_bodies: int, n_slots: int, n_iterations: int, n_corrections: int,
     t_bytes = (read + written) / peak_bytes_per_s
     t_ops = ops / peak_flops
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def chain_bound_ms(velocity_depth: int, correction_depth: int, n_iterations: int,
+                   n_corrections: int, clock_hz: float):
+    """Least time (ms) the function's dependency chain takes on the card:
+    every sweep walks its levels (the schedule's depths: each body's slots
+    in slot order) one after another, and a level takes at least the
+    longest dependent path of one slot's own arithmetic
+    (VELOCITY_CHAIN_CYCLES, CORRECTION_CHAIN_CYCLES) at the SM clock
+    ``clock_hz``. Loads, stores, barriers and the schedule's build are not
+    counted."""
+    cycles = (n_iterations * velocity_depth * VELOCITY_CHAIN_CYCLES
+              + n_corrections * correction_depth * CORRECTION_CHAIN_CYCLES)
+    return cycles / clock_hz * 1e3

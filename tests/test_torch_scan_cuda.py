@@ -2,14 +2,18 @@
 plain PyTorch version (``physics/scan_solver.py:scan_iterations_plain``) on
 the card, on random contact sets: slot counts that are not a multiple of 32,
 body pools past a block's shared memory (the walk then reads and writes
-global memory), every slot inactive, one body in every slot, and no slot.
+global memory), every slot inactive, one body in every slot (a chain as
+deep as the slots), no slot, the crafted scenes of
+``tests/test_torch_scan_schedule.py`` widened to 1024 and 4096 slots with a
+long tail, a level wider than the block, and inputs that are not finite.
 
 Needs an NVIDIA GPU with nvcc (the kernels have no CPU or interpret mode),
 so these tests skip elsewhere; they import no JAX, so they run on the GPU
 host: ``python -m pytest --noconftest -q -m cuda tests/test_torch_scan_cuda.py``.
 Bar: equal. The kernels round every float operation as the plain version's
-elementwise torch ops do, in the same order, and walk the slots in the same
-order, so v, w, the impulses, positions and orientations must be equal."""
+elementwise torch ops do, in the same order, and keep each body's slots in
+slot order, so v, w, the impulses, positions and orientations must be
+equal; the schedule the kernels write out must equal ``scan_schedule``'s."""
 
 import numpy as np
 import pytest
@@ -74,16 +78,20 @@ def random_inputs(n, c, seed, device, active_share=0.7, same_body=None):
             t(inv_mass), t(inv_inertia), prep, prep.warm_impulses, 8, 3, 0.2)
 
 
-def run_both(args):
+def run_both(args, equal=torch.equal):
     scan_solver.LAUNCHES.reset()
-    got = scan_solver.scan_iterations(*args)
+    *got, sched = scan_solver.scan_iterations(*args, with_schedule=True)
     torch.cuda.synchronize()
     assert scan_solver.LAUNCHES["scan_velocity_iterations"] == 1
     assert scan_solver.LAUNCHES["scan_position_correction"] == 1
     ref = scan_solver.scan_iterations_plain(*args)
     for name, g, r in zip(("v", "w", "impulses", "position", "orientation"), got, ref):
         assert g.shape == r.shape and g.dtype == r.dtype, name
-        assert torch.equal(g, r), (name, (g - r).abs().max().item())
+        assert equal(g, r), (name, (g - r).abs().max().item())
+    prep = args[6]
+    want = scan_solver.scan_schedule(prep.body_a, prep.body_b, prep.active, args[4], args[5],
+                                     args[3])
+    assert torch.equal(sched, want.packed())
     return got
 
 
@@ -98,9 +106,9 @@ def test_kernel_matches_plain_on_card(cuda_device, n, c):
 @pytest.mark.parametrize("n", [3600, 4000])
 def test_bodies_past_shared_memory(cuda_device, n):
     """The velocity walk keeps 16 floats a body in shared memory: 3600
-    bodies (230 kB) leave no room for 64 slots' contacts beside them, and
-    the correction's 17 floats a body do not fit; at 4000 (256 kB) both
-    walks read and write global memory."""
+    bodies (230 kB) leave no room for the schedule or 64 slots' contacts
+    beside them, and the correction's 17 floats a body do not fit; at 4000
+    (256 kB) both walks read and write global memory."""
     run_both(random_inputs(n, 64, n, cuda_device))
 
 
@@ -119,3 +127,69 @@ def test_every_slot_inactive(cuda_device):
 @pytest.mark.parametrize("same", ["both", "a"])
 def test_one_body_in_every_slot(cuda_device, same):
     run_both(random_inputs(24, 96, 9, cuda_device, same_body=same))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("slots", [1024, 4096])
+@pytest.mark.parametrize("ground", ["at_identity", "not_unit", "moving"],
+                         ids=["ground_at_identity", "ground_not_unit", "ground_moving"])
+def test_crafted_scenes_with_a_long_tail(cuda_device, slots, ground):
+    """The crafted scenes of test_torch_scan_schedule.py (a shared ground
+    body, fixed in both loops, in the velocity's only, or in neither, a = b,
+    inactive slots mid-buffer, -0.0 in v and w) padded to 1024 bodies and
+    ``slots`` slots with copies of their tail slot (chip_smoke.py's
+    ``pad_inputs``); at 4096 the contacts stay in global memory."""
+    from test_torch_scan_schedule import crafted
+
+    from chip_smoke import pad_inputs
+
+    args = pad_inputs(crafted(ground), 1024, slots, like_body=0)
+    prep = args[6]._replace(**{f: getattr(args[6], f).to(cuda_device)
+                               for f in PreparedContacts._fields})
+    run_both(tuple(prep if i == 6 else a.to(cuda_device) if isinstance(a, torch.Tensor) else a
+                   for i, a in enumerate(args)))
+
+
+@pytest.mark.cuda
+def test_a_level_wider_than_the_block(cuda_device):
+    """600 active slots, each between its own body and a fixed ground body:
+    one level of 600 slots, more than the block's 256 threads."""
+    args = list(random_inputs(601, 640, 17, cuda_device, active_share=1.0))
+    prep = args[6]
+    ids = torch.arange(1, 601, device=cuda_device)
+    zero = torch.zeros(40, dtype=torch.int64, device=cuda_device)
+    args[6] = prep._replace(body_a=torch.cat([ids, zero]), body_b=torch.cat([ids * 0, zero]),
+                            active=torch.arange(640, device=cuda_device) < 600)
+    im, ii, ori = args[4].clone(), args[5].clone(), args[3].clone()
+    im[0], ii[0] = 0.0, 0.0
+    ori[0] = torch.tensor([0.0, 0.0, 0.0, 1.0], device=cuda_device)
+    args[3], args[4], args[5] = ori, im, ii
+    run_both(tuple(args))
+    sch = scan_solver.scan_schedule(args[6].body_a, args[6].body_b, args[6].active, im, ii, ori)
+    assert (sch.velocity_depth, sch.correction_depth) == (1, 1)
+
+
+def equal_or_both_nan(g, r):
+    return torch.equal(torch.isnan(g), torch.isnan(r)) and torch.equal(
+        torch.nan_to_num(g, nan=0.0), torch.nan_to_num(r, nan=0.0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("where", ["inactive_slot_normal", "body_velocity"])
+def test_inputs_not_finite_walk_in_slot_order(cuda_device, where):
+    """A NaN normal on an inactive slot (which the schedule would skip) or an
+    infinite velocity: the kernels walk every slot in slot order and give
+    the plain loop's values, NaN where it has NaN."""
+    args = list(random_inputs(24, 128, 21, cuda_device))
+    prep = args[6]
+    if where == "inactive_slot_normal":
+        c = int(torch.nonzero(~prep.active)[0])
+        normal = prep.normal.clone()
+        normal[c, 0] = float("nan")
+        args[6] = prep._replace(normal=normal)
+    else:
+        v = args[0].clone()
+        v[int(prep.body_a[0]), 1] = float("inf")
+        args[0] = v
+    got = run_both(tuple(args), equal=equal_or_both_nan)
+    assert not all(bool(torch.isfinite(x).all()) for x in got)
