@@ -49,15 +49,27 @@ then drives these paths through the port's entry points:
    torch.profiler) beside the bytes bound and the chain bound (levels ×
    one slot's dependent latency), and the bench tumbler's step under
    ``scan`` and ``jacobi`` in turns in one process, with launches per step;
-10. the snapshot tester's 19 ported scenes
+10. the snapshot tester's 20 scenes
    (``impact_tpu_torch.apps.snapshot_tester``: 320x240, 4 objects of 32³,
-   the ``scan`` solver) stepped their warm-up counts and rendered through
+   the ``scan`` solver; TexturedMaterials through the textured shade path)
+   stepped their warm-up counts and rendered through
    K1 (windows fit to each view, so nothing drops), each frame scored
    against its golden (``apps/snapshots/reference``) at 0.93, every K1
    launch of the path (the G-buffers, cubemap faces, directional maps and
    cascades) held against K1's plain version on the same inputs, and the
    same state rendered again with the plain tile raster, held to K1's
-   frame at 0.95.
+   frame at 0.95;
+11. the scene-driven physics: HarmonicOscillation, FreeRotation and
+   DragDrop (as written, and in a medium of density 10) at the snapshot
+   configuration, 150 steps each and a K1 frame of each with every launch
+   held against K1's plain version; the oscillator on its driver's path
+   within 1e-3, FreeRotation's angular momentum and unit quaternion within
+   1e-5 and its orientation and angular velocity after 20 steps (at 8
+   contact slots) held to the port's run on the CPU (rtol 1e-5), DragDrop's spheres falling alike as written and the drag sphere
+   slower in the medium, every body state finite; one DragDrop substep
+   with floor contacts through the scan kernels, held equal to their plain
+   loop; and a textured box mesh entity (colour, normal and parallax maps)
+   through K1, held to the plain tile raster's frame at 0.95.
 
 Kernel launch counts are zeroed just before each path and read just after
 it. Every phase prints one flushed line with its seconds; any failure exits
@@ -83,7 +95,8 @@ so two trees' probe kernels can be timed in turns in one call; the
 empty frame is shorter than the wrapper's host work) and the wrapper's.
 ``--chunked-only`` runs only the four chunked phases (and the labels entry
 of the record), so two trees can be timed in turns in one call.
-``--snapshots-only`` runs only the scan solver and snapshot phases.
+``--snapshots-only`` runs only the scan solver, snapshot and scene physics
+phases; ``--scene-physics-only`` only the scene physics phase.
 """
 
 from __future__ import annotations
@@ -147,6 +160,22 @@ SCAN_TURN_STEPS = 20
 # impact_tpu (tests/test_torch_scan_solver.py): rtol 1e-5 and an atol of
 # 1e-6 of each field's largest magnitude
 SCAN_RTOL, SCAN_ATOL_OF_MAGNITUDE = 1e-5, 1e-6
+# the scene physics phase: steps of each scene and the step of the DragDrop
+# fall check (its spheres reach the floor at ~step 124 of 0.01 s), the
+# oscillator's bar (tests/test_physics.py:232-247), FreeRotation's
+# (tests/test_physics.py:140-151), and the DragDrop steps before recording
+# and recorded for the scan hold (floor contacts at steps 125-127 on the CPU)
+SCENE_PHYSICS_STEPS = 150
+FALL_STEPS = 100
+OSC_ATOL = 1e-3
+CONSERVED_RTOL = 1e-5
+# FreeRotation's steps on the card and on the CPU, held to each other at the
+# scan tests' bar: it spins near its intermediate axis, where a difference
+# grows as e^(7.1 t), so 0.2 s (×4) keeps the bar meaningful; at 8 contact
+# slots, where the CPU's plain scan loop takes ~0.1 s a step (~0.65 s at the
+# snapshot configuration's 128)
+ROT_CPU_STEPS, ROT_CPU_CONTACTS = 20, 8
+DRAG_DROP_SCAN_STEPS = (118, 20)
 
 
 def log(msg: str) -> None:
@@ -949,7 +978,9 @@ def main(argv=None) -> int:
     ap.add_argument("--chunked-only", action="store_true",
                     help="run only the four chunked bench phases")
     ap.add_argument("--snapshots-only", action="store_true",
-                    help="run only the scan solver and snapshot tester phases")
+                    help="run only the scan solver, snapshot tester and scene physics phases")
+    ap.add_argument("--scene-physics-only", action="store_true",
+                    help="run only the scene physics phase and the textured-entity check")
     args = ap.parse_args(argv)
     k1_only, ccl_only = args.k1_only, args.ccl_only
     t_all = time.perf_counter()
@@ -1021,6 +1052,11 @@ def main(argv=None) -> int:
         kernels = []
         scan_phase(dev, record, kernels)
         snapshot_phase(dev, record, kernels)
+        scene_physics_phase(dev, record, kernels)
+        return finish(t_all, record, kernels, kind, count)
+    if args.scene_physics_only:
+        kernels = []
+        scene_physics_phase(dev, record, kernels)
         return finish(t_all, record, kernels, kind, count)
 
     with Phase("K2 vs plain version, G=32: random fills, serpentine, empty, full"):
@@ -1398,15 +1434,17 @@ def main(argv=None) -> int:
     chunked_phases(dev, record, kernels)
     scan_phase(dev, record, kernels)
     snapshot_phase(dev, record, kernels)
+    scene_physics_phase(dev, record, kernels)
     return finish(t_all, record, kernels, kind, count)
 
 
-def record_scan_inputs(rt, before, steps, what):
+def record_scan_inputs(rt, before, steps, what, min_active=SCAN_MIN_ACTIVE):
     """Step ``rt`` ``before`` steps, then ``steps`` more, keeping the
     arguments of the ``scan_iterations`` call (the engine's solve calls it
     once per substep) with the most active slots. Fails below
-    SCAN_MIN_ACTIVE active slots: the kernel's point is the chain of slots
-    that share bodies, which a nearly empty substep does not exercise."""
+    ``min_active`` active slots (SCAN_MIN_ACTIVE: the kernel's point is the
+    chain of slots that share bodies, which a nearly empty substep does not
+    exercise)."""
     from impact_tpu_torch.physics import solver
 
     rt.step(before)
@@ -1423,9 +1461,9 @@ def record_scan_inputs(rt, before, steps, what):
         rt.step(steps)
     finally:
         solver.scan_iterations = real
-    if best[1] < SCAN_MIN_ACTIVE:
+    if best[1] < min_active:
         raise AssertionError(f"scan inputs {what}: at most {best[1]} active slots in steps "
-                             f"{before}-{before + steps}, fewer than {SCAN_MIN_ACTIVE}")
+                             f"{before}-{before + steps}, fewer than {min_active}")
     return best[0]
 
 
@@ -1670,7 +1708,7 @@ def held_k1(held):
 
 
 def snapshot_phase(dev, record, kernels):
-    """The snapshot tester's 19 ported scenes through its runner: K1's frame
+    """The snapshot tester's 20 scenes through its runner: K1's frame
     scored against the golden, each K1 launch held against K1's plain
     version, and the plain tile raster's frame of the same state against
     K1's."""
@@ -1703,13 +1741,15 @@ def snapshot_phase(dev, record, kernels):
                       and parity >= st.RASTER_PARITY_BAR)
                 rows[name] = dict(score=golden_score, vs_tile_raster=parity,
                                   drops=list(rt.last_drops), warmup_steps=warmup,
-                                  step_ms=rt.step_ms, seconds=seconds,
+                                  step_ms=rt.step_ms, stage_ms=dict(rt.stage_ms),
+                                  frame_ms=sum(rt.stage_ms.values()), seconds=seconds,
                                   finite=body_state_finite(rt.sim))
                 log(f"[{'PASS' if ok else 'FAIL'}] {name}: K1 frame golden score "
                     f"{golden_score:.4f} (bar {st.MIN_SCORE_TO_PASS}), vs the plain tile "
                     f"raster's frame {parity:.4f} (bar {st.RASTER_PARITY_BAR}), K1 drops "
                     f"(geometry, shadows) {rt.last_drops}; {warmup} steps in "
-                    f"{rt.step_ms:.1f} ms")
+                    f"{rt.step_ms:.1f} ms, frame {rows[name]['frame_ms']:.1f} ms (stages "
+                    f"{ {k: round(v, 2) for k, v in rt.stage_ms.items()} })")
                 if not (ok and rows[name]["finite"]):
                     failed.append(name)
         finally:
@@ -1732,6 +1772,202 @@ def snapshot_phase(dev, record, kernels):
         if k["name"] == "scan_solver":
             k["launches"] = path_launches["scan_velocity_iterations"] + path_launches[
                 "scan_position_correction"]
+
+
+def textured_box_scene():
+    """tests/test_textured_materials.py's scene as port data: a box mesh
+    entity with a checkerboard colour, a noise normal map and a parallax
+    height map (32² textures), lit by ambient and a directional light."""
+    import math
+
+    from impact_tpu_torch.render.textures import checkerboard, noise_normal_map, value_noise
+    from impact_tpu_torch.scene import spec as ts
+
+    s = ts.Scene(textures=dict(checker=checkerboard(32, tiles=8),
+                               normal=noise_normal_map(32, cells=6, seed=2, strength=4.0),
+                               height=value_noise(32, cells=4, seed=9)))
+    s.camera = ts.CameraSpec(position=(0.0, 0.0, 0.0), orientation=(0.0, 1.0, 0.0, 0.0),
+                             vertical_fov=math.radians(50), near=0.01, far=100.0)
+    s.ambient_illuminance = (3e3, 3e3, 3e3)
+    s.mesh_entities.append(ts.MeshEntity(ts.MeshSpec(
+        shape="box", scale=1.4, material=ts.Material(
+            color=(0.6, 0.6, 0.6), color_texture="checker", normal_map="normal",
+            parallax_map=("height", 0.08))), position=(0.0, 0.0, 2.6)))
+    s.uni_lights.append(ts.UniLight(direction=(0.4, -0.4, 0.8),
+                                    perpendicular_illuminance=(3e3, 3e3, 3e3),
+                                    angular_source_extent=0.0, shadowable=False))
+    return s
+
+
+def textured_box_config(cfg):
+    """The textured box's 128x96 configuration (tests/test_textured_materials.py:
+    _cfg), set on an engine config of either package."""
+    t = cfg.tpu
+    t.max_voxel_objects, t.max_bodies, t.max_contacts, t.voxel_grid_size = 1, 8, 32, 8
+    t.render_width, t.render_height, t.texture_resolution = 128, 96, 32
+    cfg.rendering.shadow_mapping.enabled = False
+    return cfg
+
+
+def scene_physics_phase(dev, record, kernels):
+    """HarmonicOscillation, FreeRotation and DragDrop (as written, and in a
+    medium of density 10) stepped at the snapshot configuration and each
+    rendered through K1 with every launch held against K1's plain version;
+    the analytic and conservation checks; FreeRotation's short run against
+    the CPU's; one DragDrop substep's scan kernels held equal to their
+    plain loop; and a textured box entity through K1 against the plain tile
+    raster's frame."""
+    import math
+
+    import torch
+
+    from impact_tpu_torch.apps import snapshot_tester as st
+    from impact_tpu_torch.models import SCENES
+    from impact_tpu_torch.physics import scan_solver
+    from impact_tpu_torch.render import raster_pallas as rp
+    from impact_tpu_torch.runtime import HeadlessRuntime, compile_scene
+    from impact_tpu_torch.utils.config import EngineConfig
+    from impact_tpu_torch.utils.image import rgb_hybrid_compare
+
+    def runtime(name, medium=0.0, device=dev, max_contacts=None):
+        cfg = st.snapshot_config()
+        cfg.tpu.max_contacts = max_contacts or cfg.tpu.max_contacts
+        cfg.physics.medium.mass_density = medium
+        cfg.physics.rigid_body_force.drag_load_map_config.directory = None
+        return HeadlessRuntime(compile_scene(SCENES[name](), cfg, device=device), cfg)
+
+    rows = {}
+    held = dict(depth=0, attributes=0, max_abs_err=0.0)
+    with Phase(f"scene physics: HarmonicOscillation, FreeRotation and DragDrop at the "
+               f"snapshot configuration ({SCENE_PHYSICS_STEPS} steps of 0.01 s, scan), a K1 "
+               f"frame of each with every launch held against K1's plain version"):
+        run_depth, run_attr = rp.raster_depth, rp.raster_attributes
+        rp.raster_depth, rp.raster_attributes = held_k1(held)
+        rp.LAUNCHES.reset()
+        scan_solver.LAUNCHES.reset()
+        try:
+            rts = {}
+            for name, medium in (("HarmonicOscillation", 0.0), ("FreeRotation", 0.0),
+                                 ("DragDrop", 0.0), ("DragDrop", 10.0)):
+                key = name if medium == 0.0 else f"{name} (medium {medium:g})"
+                rt = rts[key] = runtime(name, medium)
+                l0 = rt.sim.phys.bodies.angular_momentum[0].clone()
+                rt.step(FALL_STEPS)
+                fall_ms = rt.step_ms
+                fall_vy = rt.sim.phys.bodies.velocity[1:3, 1].tolist()
+                rest = SCENE_PHYSICS_STEPS - FALL_STEPS
+                if medium > 0.0:
+                    # the substep of the floor contacts, for the scan hold below
+                    before, steps = DRAG_DROP_SCAN_STEPS
+                    scan_args = record_scan_inputs(rt, before - FALL_STEPS, steps, "DragDrop",
+                                                   min_active=1)
+                    rest -= before - FALL_STEPS + steps
+                    fall_ms += rt.step_ms
+                rt.step(rest)
+                t0 = time.perf_counter()
+                img = rt.render()
+                torch.cuda.synchronize()
+                b = rt.sim.phys.bodies
+                rows[key] = dict(step_ms=(fall_ms + rt.step_ms) / SCENE_PHYSICS_STEPS,
+                                 steps=SCENE_PHYSICS_STEPS,
+                                 fall_vy=fall_vy,
+                                 frame_ms=(time.perf_counter() - t0) * 1e3,
+                                 finite=body_state_finite(rt.sim), drops=list(rt.last_drops),
+                                 frame_mean=float(img.float().mean()),
+                                 l0=l0.tolist(), l1=b.angular_momentum[0].tolist())
+                if not rows[key]["finite"]:
+                    raise AssertionError(f"{key}: non-finite body state")
+        finally:
+            rp.raster_depth, rp.raster_attributes = run_depth, run_attr
+        launches = {**dict(rp.LAUNCHES), **dict(scan_solver.LAUNCHES)}
+
+        osc = rts["HarmonicOscillation"].sim.phys
+        t = float(osc.time)
+        want = 2.0 + 2.0 * math.sin(2.0 * math.pi * t / 2.0)
+        pos = osc.bodies.position[0].tolist()
+        osc_err = max(abs(pos[0]), abs(pos[1] - want), abs(pos[2]))
+        log(f"HarmonicOscillation at t = {t:.4f} s: position {pos}, center + dir·A·"
+            f"sin(2πt/T) = (0, {want:.6f}, 0), max abs err {osc_err:.3g} (bar "
+            f"{OSC_ATOL})")
+        if osc_err > OSC_ATOL:
+            raise AssertionError(f"the oscillator is {osc_err:.3g} off its driver's path")
+
+        rot = rts["FreeRotation"].sim.phys.bodies
+        l0 = torch.tensor(rows["FreeRotation"]["l0"], device=dev)
+        l_err = float((rot.angular_momentum[0] - l0).norm() / l0.norm())
+        q_err = abs(float(rot.orientation[0].norm()) - 1.0)
+        log(f"FreeRotation: angular momentum {rot.angular_momentum[0].tolist()} against "
+            f"{l0.tolist()} (relative err {l_err:.3g}), |q| - 1 = {q_err:.3g} (bar "
+            f"{CONSERVED_RTOL})")
+        if l_err > CONSERVED_RTOL or q_err > CONSERVED_RTOL:
+            raise AssertionError("FreeRotation does not keep its angular momentum and a unit "
+                                 "quaternion")
+        # what the card computes for it (the integration, the scan kernels'
+        # renormalizing walk of the idle slots), against the port on the CPU
+        rot_err = {}
+        rot_runs = [runtime("FreeRotation", device=d, max_contacts=ROT_CPU_CONTACTS)
+                    for d in (dev, "cpu")]
+        for r in rot_runs:
+            r.step(ROT_CPU_STEPS)
+        for f in ("orientation", "angular_velocity"):
+            got, want = (getattr(r.sim.phys.bodies, f)[0].cpu() for r in rot_runs)
+            atol = SCAN_ATOL_OF_MAGNITUDE * max(float(want.abs().max()), 1.0)
+            rot_err[f] = float((got - want).abs().max())
+            log(f"FreeRotation {f} after {ROT_CPU_STEPS} steps at {ROT_CPU_CONTACTS} contact "
+                f"slots: card {got.tolist()}, CPU "
+                f"{want.tolist()} (rtol {SCAN_RTOL}, atol {atol:.3g})")
+            if not torch.allclose(got, want, rtol=SCAN_RTOL, atol=atol):
+                raise AssertionError(f"FreeRotation {f}: the card is off the CPU port's run")
+
+        fall = {k: rows[k]["fall_vy"] for k in ("DragDrop", "DragDrop (medium 10)")}
+        log(f"DragDrop vertical velocities (drag-free, drag 4) after {FALL_STEPS} steps: as "
+            f"written {fall['DragDrop']}, in a medium of density 10 "
+            f"{fall['DragDrop (medium 10)']}")
+        if fall["DragDrop"][0] != fall["DragDrop"][1]:
+            raise AssertionError("DragDrop as written: the spheres fall differently, but the "
+                                 "default medium (density 0) gives no drag")
+        drag_free, drag = fall["DragDrop (medium 10)"]
+        if not drag > drag_free:
+            raise AssertionError("DragDrop in a medium: the drag sphere does not fall slower")
+        log(f"scene physics launches {launches}; K1 launches held against K1's plain version: "
+            f"{held}; per scene {rows}")
+        for name, cnt in launches.items():
+            if cnt <= 0:
+                raise AssertionError(f"{name} was not launched on the scene physics path")
+        if (held["depth"], held["attributes"]) != (launches["k1_raster_depth"],
+                                                   launches["k1_raster_attributes"]):
+            raise AssertionError(f"K1 launches {launches} but {held} held")
+        record["scene_physics"] = dict(rows=rows, launches=launches, k1_held=held,
+                                       oscillator_err=osc_err, angular_momentum_err=l_err,
+                                       quaternion_err=q_err, rotation_vs_cpu=rot_err, fall=fall)
+
+    with Phase("scene physics: the DragDrop substep with floor contacts recorded above, the "
+               "scan kernels against scan_iterations_plain"):
+        err, plain_ms, _ = hold_scan(scan_args, "DragDrop")
+        prep = scan_args[6]
+        log(f"scan DragDrop: {int(prep.active.sum())} active of {prep.active.shape[0]} "
+            f"slots, equal to the plain version (plain loop {plain_ms:.1f} ms)")
+        record["scene_physics"]["scan_held"] = dict(max_abs_err=err, plain_ms=plain_ms)
+
+    with Phase("textured box entity (colour, normal and parallax maps) through K1, against "
+               "the plain tile raster's frame"):
+        scene, cfg = textured_box_scene(), textured_box_config(EngineConfig())
+        rp.LAUNCHES.reset()
+        rt = HeadlessRuntime(compile_scene(scene, cfg, device=dev), cfg, enable_fracturing=False)
+        img = rt.render().cpu().numpy()
+        if rp.LAUNCHES["k1_raster_attributes"] <= 0:
+            raise AssertionError("the textured box frame did not go through K1")
+        parity = rgb_hybrid_compare(img, st.render_again(rt, "raster"))
+        face_std = float(img[28:68, 44:84].astype("float32").std(axis=(0, 1)).max())
+        log(f"textured box: K1 frame vs the plain tile raster's {parity:.4f} (bar "
+            f"{PARITY_BAR}), face colour spread {face_std:.1f}")
+        if parity < PARITY_BAR or face_std <= 8.0:
+            raise AssertionError(f"textured box: parity {parity:.4f}, face spread {face_std}")
+        record["scene_physics"]["textured_box"] = dict(parity=parity, face_std=face_std)
+    for k in kernels:
+        if k["name"] == "scan_solver":
+            k["scene_physics_launches"] = (launches["scan_velocity_iterations"]
+                                           + launches["scan_position_correction"])
 
 
 def finish(t_all, record, kernels, kind, count) -> int:

@@ -18,10 +18,9 @@ never into ``apps/snapshots``.
     python -m impact_tpu_torch.apps.snapshot_tester                  # on the card
     python -m impact_tpu_torch.apps.snapshot_tester --device cpu --scenes Blank
 
-``TexturedMaterials`` needs the textured shade path (``render/textures.py``),
-the next slice of the port: it is not in the default scene list, and asking
-for it raises ``NotImplementedError`` (its config turns on
-``tpu.textured_voxels``, which the port refuses).
+All 20 of the reference's scenes run; ``TexturedMaterials`` turns on
+``tpu.textured_voxels``, the triplanar voxel-type textures of
+``render/textures.py`` applied in the shade pass.
 """
 
 from __future__ import annotations
@@ -126,7 +125,7 @@ FEATURE_SCENES = {
     ),
 }
 
-NOT_PORTED = ("TexturedMaterials",)
+NOT_PORTED = ()
 ALL_SCENES = TEST_SCENES + [(name, 1) for name in FEATURE_SCENES]
 PORTED_SCENES = [(n, w) for n, w in ALL_SCENES if n not in NOT_PORTED]
 

@@ -22,7 +22,7 @@ from .physics.step import PhysicsParams, PhysicsState
 from .render.camera import Camera
 from .render.lights import LightPools
 from .render.pipeline import RenderScene, RenderState
-from .runtime.engine import EngineParams, SimState
+from .runtime.engine import DistanceRulePools, EngineParams, SimState
 from .runtime.setup import SceneBuild
 from .scene.assembly import MeshInstancePool, StaticGeometry
 from .voxel.chunk_mesh import ChunkMeshPool
@@ -68,7 +68,7 @@ def lights_from_reference(lp, device="cuda") -> LightPools:
     return _tuple(LightPools, lp, device)
 
 
-_INDEX_FIELDS = ("body_index", "drag_map_index", "body_a", "body_b")
+_INDEX_FIELDS = ("body_index", "drag_map_index", "body_a", "body_b", "body", "obj_slot")
 
 
 def _field(name, x, device):
@@ -142,10 +142,8 @@ def mesh_instances_from_reference(mi, device="cuda") -> MeshInstancePool:
 
 
 def engine_params_from_reference(params, device="cuda") -> EngineParams:
-    """The reference's EngineParams → the port's. Distance rules are not
-    ported: a scene that uses them raises."""
-    if np.asarray(params.dist_rules.mask).any():
-        raise NotImplementedError("distance rules are not ported yet")
+    """The reference's EngineParams → the port's: collidables, forces (drag
+    tables included), motion drivers, joints, distance rules and the rest."""
     pp = params.phys_params
     sg = params.static_geometry
     static = _tuple(StaticGeometry, sg, device, fields=StaticGeometry._fields[:-1],
@@ -169,6 +167,8 @@ def engine_params_from_reference(params, device="cuda") -> EngineParams:
         static_geometry=static,
         material_table=to_torch(params.material_table, device),
         mesh_instances=mesh_instances_from_reference(params.mesh_instances, device),
+        dist_rules=tuple_from_reference(DistanceRulePools, params.dist_rules, device),
+        casts_shadows_base=to_torch(params.casts_shadows_base, device),
     )
 
 

@@ -3,10 +3,13 @@ from .scenes import (
     asteroid,
     ball_pit,
     blank,
+    drag_drop,
     fracturing,
+    free_rotation,
+    harmonic_oscillation,
     rendering_test,
     voxel_box_tumbler,
 )
 
-__all__ = ["SCENES", "asteroid", "ball_pit", "blank", "fracturing", "rendering_test",
-           "voxel_box_tumbler"]
+__all__ = ["SCENES", "asteroid", "ball_pit", "blank", "drag_drop", "fracturing",
+           "free_rotation", "harmonic_oscillation", "rendering_test", "voxel_box_tumbler"]

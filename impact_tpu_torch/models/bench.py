@@ -35,8 +35,9 @@
 
 from __future__ import annotations
 
+from ..scene.spec import AbsorbingSphere
 from ..utils.config import EngineConfig
-from .scenes import AbsorbingSphere, asteroid, fracturing, voxel_box_tumbler
+from .scenes import asteroid, fracturing, voxel_box_tumbler
 
 N_BOXES, SEED, BOX_EXTENT = 62, 3, 26.0
 N_OBJECTS = 64

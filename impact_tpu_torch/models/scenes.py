@@ -1,167 +1,35 @@
-"""Built-in scenes as plain data (port of the blank, tumbler, fracturing,
-ball pit, asteroid and rendering-test scenes of
-``impact_tpu/models/scenes.py``).
+"""Built-in scenes as plain data (port of the nine scenes of
+``impact_tpu/models/scenes.py``: Blank, VoxelBoxTumbler, Fracturing,
+BallPit, Asteroid, HarmonicOscillation, FreeRotation, DragDrop and
+RenderingTest).
 
-The reference builds an ECS world; the port has no ECS, so a scene is a
-:class:`Scene` record holding exactly what ``runtime.setup.compile_scene``
-reads, with voxel objects in the reference's entity order (which fixes
-their object and body slots). Regular bodies go to ground planes, then
-absorbing spheres, then absorbing capsules, then dynamic sphere bodies, the
-entity order of the reference's scenes. ``voxel_box_tumbler`` and
-``ball_pit`` make the same ``np.random.default_rng(seed)`` draws in the
-same order as the reference, so both packages place the same bodies.
+Each builder returns a :class:`~impact_tpu_torch.scene.spec.Scene` (see
+there for the slot order the records keep). ``voxel_box_tumbler`` and
+``ball_pit`` make the same ``np.random.default_rng(seed)`` draws in the same
+order as the reference, so both packages place the same bodies.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass, field
-
 import numpy as np
 
 from ..render.camera import look_at
-
-
-@dataclass
-class CameraSpec:
-    position: tuple
-    orientation: tuple  # (x, y, z, w) camera-to-world
-    vertical_fov: float
-    near: float
-    far: float
-
-
-@dataclass
-class OmniLight:
-    position: tuple
-    luminous_intensity: tuple
-    source_extent: float
-    shadowable: bool
-
-
-@dataclass
-class UniLight:
-    direction: tuple
-    perpendicular_illuminance: tuple
-    angular_source_extent: float
-    shadowable: bool
-
-
-@dataclass
-class GroundPlane:
-    """A static y-up planar collidable (ref scene helper ``_ground``)."""
-
-    y: float = 0.0
-    restitution: float = 0.3
-    static_friction: float = 0.7
-    dynamic_friction: float = 0.5
-
-
-@dataclass
-class NoiseSpec:
-    """The multifractal noise added to a voxel object's SDF (ref component
-    MultifractalNoiseSDFModification)."""
-
-    octaves: int = 4
-    frequency: float = 0.15
-    lacunarity: float = 2.0
-    persistence: float = 0.5
-    amplitude: float = 2.0
-    seed: int = 0
-
-
-@dataclass
-class GradientNoiseTypesSpec:
-    """Voxel types mixed by gradient noise, up to 4 (ref component
-    GradientNoiseVoxelTypes)."""
-
-    n_voxel_types: int = 1
-    voxel_types: tuple = (0, 0, 0, 0)
-    noise_frequency: float = 0.15
-    voxel_type_frequency: float = 1.0
-    seed: int = 0
-
-
-@dataclass
-class AbsorbingSphere:
-    """A voxel-absorbing sphere on a kinematic body of its own at
-    ``position`` (ref component VoxelAbsorbingSphere; offset in the body's
-    frame)."""
-
-    position: tuple
-    offset: tuple = (0.0, 0.0, 0.0)
-    radius: float = 1.0
-    rate: float = 1.0
-
-
-@dataclass
-class AbsorbingCapsule:
-    """A voxel-absorbing capsule on a kinematic body of its own at
-    ``position`` (ref component VoxelAbsorbingCapsule; segment in the
-    body's frame)."""
-
-    position: tuple
-    segment_start: tuple = (0.0, -0.5, 0.0)
-    segment_end: tuple = (0.0, 0.5, 0.0)
-    radius: float = 1.0
-    rate: float = 1.0
-
-
-@dataclass
-class VoxelObjectSpec:
-    """A voxel object: a box (``size`` = extents in voxels), a sphere
-    (``size`` = (radius,) in voxels) or a capsule along y (``size`` =
-    (radius, segment_length) in voxels), with its motion, contact response
-    (None: no voxel collidable, a zero response), gravity and fracture
-    properties, an optional noise modifier of its SDF and optional
-    noise-mixed voxel types (else ``voxel_type``). ``dynamic=False`` is the
-    reference's voxel object without DynamicVoxels: its body starts
-    kinematic."""
-
-    position: tuple
-    voxel_extent: float
-    shape: str = "box"  # "box" | "sphere" | "capsule"
-    size: tuple = (10.0, 10.0, 10.0)
-    orientation: tuple = (0.0, 0.0, 0.0, 1.0)
-    voxel_type: int = 0
-    linear_velocity: tuple = (0.0, 0.0, 0.0)
-    angular_velocity: tuple = (0.0, 0.0, 0.0)
-    response: tuple | None = (0.3, 0.7, 0.5)  # restitution, static and dynamic friction
-    dynamic: bool = True
-    acceleration: tuple | None = (0.0, -9.81, 0.0)  # constant acceleration (gravity)
-    fracture: tuple | None = None  # (impulse_threshold, fracture_radius)
-    casts_shadows: bool = True
-    noise: NoiseSpec | None = None
-    voxel_types: GradientNoiseTypesSpec | None = None
-
-
-@dataclass
-class SphereBody:
-    """A dynamic rigid sphere (ref components SphericalCollidable,
-    DynamicRigidBodySubstance, ConstantAcceleration) drawn as a UV sphere
-    mesh of ``n_rings`` rings and radius 1 (ref SphereMesh) with a uniform
-    colour and roughness."""
-
-    position: tuple
-    radius: float = 0.5
-    mass_density: float = 1.0
-    response: tuple = (0.0, 0.5, 0.3)  # restitution, static and dynamic friction
-    acceleration: tuple | None = (0.0, -9.81, 0.0)
-    n_rings: int = 15
-    color: tuple = (1.0, 1.0, 1.0)
-    roughness: float = 1.0
-
-
-@dataclass
-class Scene:
-    camera: CameraSpec | None = None
-    ambient_illuminance: tuple = (0.0, 0.0, 0.0)
-    omni_lights: list = field(default_factory=list)
-    uni_lights: list = field(default_factory=list)
-    ground_planes: list = field(default_factory=list)  # GroundPlane
-    voxel_objects: list = field(default_factory=list)  # VoxelObjectSpec
-    absorbing_spheres: list = field(default_factory=list)  # AbsorbingSphere
-    absorbing_capsules: list = field(default_factory=list)  # AbsorbingCapsule
-    sphere_bodies: list = field(default_factory=list)  # SphereBody
+from ..scene.spec import (
+    CameraSpec,
+    GradientNoiseTypesSpec,
+    GroundPlane,
+    HarmonicOscillationSpec,
+    Inertia,
+    Material,
+    MeshSpec,
+    NoiseSpec,
+    OmniLight,
+    RigidBody,
+    Scene,
+    SphereCollidableSpec,
+    UniLight,
+    VoxelObjectSpec,
+)
 
 
 def _camera(scene: Scene, eye, target, fov=np.pi / 3):
@@ -257,10 +125,13 @@ def ball_pit(n_balls: int = 12, seed: int = 0) -> Scene:
     for i in range(n_balls):
         x = float(rng.uniform(-4, 4))
         z = float(rng.uniform(-4, 4))
-        s.sphere_bodies.append(SphereBody(
-            position=(x, float(3.0 + 1.5 * i), z), radius=0.5, mass_density=1200.0,
-            response=(0.6, 0.5, 0.3), n_rings=12, color=palette[i % len(palette)],
-            roughness=0.4,
+        # a dynamic sphere under gravity, drawn as a UV sphere of radius 1
+        s.rigid_bodies.append(RigidBody(
+            position=(x, float(3.0 + 1.5 * i), z), mass_density=1200.0,
+            sphere=SphereCollidableSpec(radius=0.5, response=(0.6, 0.5, 0.3)),
+            acceleration=(0.0, -9.81, 0.0),
+            mesh=MeshSpec(shape="sphere", n_rings=12, material=Material(
+                color=palette[i % len(palette)], roughness=0.4)),
         ))
     return s
 
@@ -281,6 +152,48 @@ def asteroid(seed: int = 7) -> Scene:
                                            noise_frequency=0.35, voxel_type_frequency=1.0,
                                            seed=seed),
     ))
+    return s
+
+
+def harmonic_oscillation() -> Scene:
+    """Ref experiment HarmonicOscillation: a phantom sphere on a kinematic
+    body driven up and down."""
+    s = Scene()
+    _camera(s, (0.0, 2.0, 14.0), (0.0, 2.0, 0.0))
+    _standard_lights(s)
+    s.rigid_bodies.append(RigidBody(
+        position=(0.0, 2.0, 0.0), sphere=SphereCollidableSpec(radius=0.5, kind=2),
+        driver=HarmonicOscillationSpec(center=(0.0, 2.0, 0.0), direction=(0.0, 1.0, 0.0),
+                                       amplitude=2.0, period=2.0)))
+    return s
+
+
+def free_rotation() -> Scene:
+    """Ref experiment FreeRotation: torque-free tumbling of an asymmetric
+    body spun near its intermediate axis."""
+    s = Scene()
+    _camera(s, (0.0, 0.0, 10.0), (0.0, 0.0, 0.0))
+    _standard_lights(s)
+    s.rigid_bodies.append(RigidBody(
+        angular_velocity=(0.01, 5.0, 0.01),
+        inertia=Inertia(mass=1.0, inertia_tensor=((0.2, 0.0, 0.0), (0.0, 1.0, 0.0),
+                                                  (0.0, 0.0, 2.0)))))
+    return s
+
+
+def drag_drop() -> Scene:
+    """Ref experiment DragDrop: two spheres dropped over a floor, one with
+    detailed drag (coefficient 4) and one without. The drag acts only where
+    ``physics.medium.mass_density`` > 0, which defaults to 0: as written
+    both fall alike (ROADMAP Queue 3)."""
+    s = Scene()
+    _camera(s, (0.0, 5.0, 16.0), (0.0, 4.0, 0.0))
+    _standard_lights(s)
+    _ground(s, y=0.0)
+    for x, drag in ((-2.0, 0.0), (2.0, 4.0)):
+        s.rigid_bodies.append(RigidBody(
+            position=(x, 8.0, 0.0), sphere=SphereCollidableSpec(radius=0.5),
+            mass_density=500.0, drag_coefficient=drag, acceleration=(0.0, -9.81, 0.0)))
     return s
 
 
@@ -324,5 +237,8 @@ SCENES = {
     "Fracturing": fracturing,
     "BallPit": ball_pit,
     "Asteroid": asteroid,
+    "HarmonicOscillation": harmonic_oscillation,
+    "FreeRotation": free_rotation,
+    "DragDrop": drag_drop,
     "RenderingTest": rendering_test,
 }

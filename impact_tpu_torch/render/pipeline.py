@@ -89,6 +89,11 @@ class RenderConfig(NamedTuple):
     csm_cascades: int = 1
     soft_shadows: bool = False
     sky_luminance: tuple = (0.0, 0.0, 0.0)
+    # textured-material path: triplanar voxel-type texture layers, and the
+    # textured mesh entities' full-PBR layers, applied in deferred_shade
+    textured: bool = False
+    texture_scale: float = 0.5  # world units → uv tiling frequency
+    normal_map_strength: float = 1.0
     shadow_pcf_downsample: int = 1
     ao_downsample: int = 1
     procedural_sky: bool = False
@@ -311,14 +316,82 @@ def shadow_pass(scene: RenderScene, lights: LightPools, cam: Camera, config: Ren
     return omni_shadows, (quad_pack(uni_depths), uni_vps, splits), n_drop
 
 
+def apply_textures(gb: GBuffer, cam: Camera, config: RenderConfig, textures) -> GBuffer:
+    """The G-buffer with its textured pixels (material layer ≥ 0) re-shaded
+    from ``textures`` (a ``VoxelTextureSet``): triplanar albedo and normal
+    mapping at the mip level of each pixel's footprint; full-PBR layers
+    (textured entities) also take roughness, metalness, specular and
+    emissive from their property textures, after a one-step parallax shift
+    of the sample position (ref: setup/physical.rs:36-214, the voxel-type
+    texture arrays of voxel_types.rs)."""
+    from .textures import lod_from_scale, sample_triplanar, triplanar_normal
+
+    vm = view_matrix(cam)
+    has_tex = gb.material >= 0
+    layer = torch.clamp(gb.material, min=0).long()
+    # mip level from the texel footprint of one pixel at this depth
+    view_depth = -(vm[2, 0] * gb.world_pos[..., 0] + vm[2, 1] * gb.world_pos[..., 1]
+                   + vm[2, 2] * gb.world_pos[..., 2] + vm[2, 3])
+    tex_size = textures.albedo.mips[0].shape[1]
+    world_per_pixel = view_depth * (2.0 * torch.tan(0.5 * cam.vertical_fov) / config.height)
+    lod = lod_from_scale(world_per_pixel * config.texture_scale * tex_size)
+    scale = config.texture_scale
+
+    wp = gb.world_pos
+    props = None
+    if textures.props is not None:
+        props = sample_triplanar(textures.props, layer, wp, gb.normal, scale, lod)
+        # one parallax step: shift the sample position along the view's
+        # tangential part by the height sample (displacement scale baked)
+        hgt = props[..., 4]
+        v = cam.position - wp
+        v = v / torch.clamp(torch.linalg.vector_norm(v, dim=-1, keepdim=True), min=1e-6)
+        ndv = (v * gb.normal).sum(dim=-1, keepdim=True)
+        vtan = v - ndv * gb.normal
+        wp = wp - vtan * (hgt / torch.clamp(ndv[..., 0], min=0.2))[..., None]
+        props = sample_triplanar(textures.props, layer, wp, gb.normal, scale, lod)
+
+    tex_albedo = sample_triplanar(textures.albedo, layer, wp, gb.normal, scale, lod)
+    metal_mask = (gb.f0 > 0.5).any(dim=-1)
+    albedo = torch.where((has_tex & ~metal_mask)[..., None], tex_albedo, gb.albedo)
+    normal = triplanar_normal(textures.normal, layer, wp, gb.normal, config.normal_map_strength,
+                              scale, lod)
+    normal = torch.where(has_tex[..., None], normal, gb.normal)
+    if props is None:
+        return gb._replace(albedo=albedo, normal=normal)
+    # full-PBR layers recompute the material from the sampled stack (the
+    # reference's metal/dielectric mix: dielectric F0 = specular, diffuse =
+    # colour; metal F0 = colour·specular, no diffuse); voxel-type layers
+    # (full_pbr 0) keep the albedo and normal above
+    fp = textures.full_pbr[layer] * has_tex
+    rough_t, metal_t, spec_t, emis_t = props[..., 0], props[..., 1], props[..., 2], props[..., 3]
+    m1 = metal_t[..., None]
+    alb_full = tex_albedo * (1.0 - m1)
+    f0_full = spec_t[..., None] * ((1.0 - m1) + tex_albedo * m1)
+    emis_full = tex_albedo * emis_t[..., None]
+    fpx = fp[..., None]
+    return gb._replace(
+        albedo=albedo * (1.0 - fpx) + alb_full * fpx,
+        normal=normal,
+        f0=gb.f0 * (1.0 - fpx) + f0_full * fpx,
+        roughness=gb.roughness * (1.0 - fp) + rough_t * fp,
+        emissive=gb.emissive * (1.0 - fpx) + emis_full * fpx,
+    )
+
+
 def deferred_shade(gb: GBuffer, lights: LightPools, cam: Camera, omni_shadows, uni_shadows,
-                   config: RenderConfig):
-    """AO + deferred lighting → HDR luminance [H,W,3] (sky where no geometry)."""
+                   config: RenderConfig, textures=None):
+    """AO + deferred lighting → HDR luminance [H,W,3] (sky where no geometry).
+    ``textures``: the scene's ``VoxelTextureSet`` when ``config.textured``
+    (see ``apply_textures``)."""
     h, w = config.height, config.width
     vm = view_matrix(cam)
 
     def view_row(wp, m, i):
         return m[i, 0] * wp[..., 0] + m[i, 1] * wp[..., 1] + m[i, 2] * wp[..., 2] + m[i, 3]
+
+    if config.textured and textures is not None:
+        gb = apply_textures(gb, cam, config, textures)
 
     if config.ao_enabled:
         k = config.ao_downsample
@@ -390,12 +463,12 @@ def postprocess(lum, motion, state: RenderState, config: RenderConfig):
 
 
 def render_frame(scene: RenderScene, lights: LightPools, cam: Camera, cam_prev: Camera,
-                 state: RenderState, config: RenderConfig):
+                 state: RenderState, config: RenderConfig, textures=None):
     """Render one frame → (u8 image [H,W,3], hdr luminance, new state)."""
     with fp32_render():
         scene = compact_scene_triangles(scene, config.max_triangles)
         gb, geo_drops = geometry_pass(scene, cam, cam_prev, state.frame_index, config)
         omni, uni, shadow_drops = shadow_pass(scene, lights, cam, config)
         state = state._replace(n_raster_drops=state.n_raster_drops + geo_drops + shadow_drops)
-        lum = deferred_shade(gb, lights, cam, omni, uni, config)
+        lum = deferred_shade(gb, lights, cam, omni, uni, config, textures)
         return postprocess(lum, gb.motion, state, config)

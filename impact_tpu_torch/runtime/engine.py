@@ -30,6 +30,7 @@ import torch
 
 from ..math import quaternion as quat
 from ..math.quaternion import cross
+from ..physics.driven_motion import _scatter
 from ..physics.state import KIND_DYNAMIC, compute_velocities, synchronize_momenta
 from ..physics.step import PhysicsParams, PhysicsState, physics_step
 from ..render.camera import Camera
@@ -84,6 +85,53 @@ class SimState(NamedTuple):
     rng: torch.Generator  # fracture seeds
 
 
+class DistanceRulePools(NamedTuple):
+    """Distance-triggered rules (ref: impact_scene DistanceTriggeredRules,
+    systems.rs:80): beyond a distance from an anchor body the entity stops
+    casting shadows, beyond another it is removed."""
+
+    body: torch.Tensor  # i64[Dr] ruled entity's body slot
+    anchor_body: torch.Tensor  # i64[Dr]
+    obj_slot: torch.Tensor  # i64[Dr] voxel-object slot, −1 = not a voxel object
+    no_shadow_d2: torch.Tensor  # f32[Dr]
+    removal_d2: torch.Tensor  # f32[Dr]
+    mask: torch.Tensor  # bool[Dr]
+
+
+def empty_distance_rule_pools(cap: int = 16, device=None) -> DistanceRulePools:
+    return DistanceRulePools(
+        body=torch.zeros(cap, dtype=torch.int64, device=device),
+        anchor_body=torch.zeros(cap, dtype=torch.int64, device=device),
+        obj_slot=torch.full((cap,), -1, dtype=torch.int64, device=device),
+        no_shadow_d2=torch.full((cap,), 1e30, device=device),
+        removal_d2=torch.full((cap,), 1e30, device=device),
+        mask=torch.zeros(cap, dtype=torch.bool, device=device),
+    )
+
+
+def apply_distance_rules(phys: PhysicsState, pool: VoxelObjectPool, rules: DistanceRulePools,
+                         casts_shadows_base):
+    """Beyond ``no_shadow_d2`` from its anchor a ruled voxel object stops
+    casting shadows (and casts again within it); beyond ``removal_d2`` its
+    body becomes empty (kind 0) and its object slot dies (ref:
+    runtime/engine.py:_apply_distance_rules). Masked-off rules write a
+    spare row that is dropped, where the reference scatters to index
+    ``n_objects`` with mode="drop"."""
+    b = phys.bodies
+    d2 = ((b.position[rules.body] - b.position[rules.anchor_body]) ** 2).sum(dim=-1)
+    remove = rules.mask & (d2 > rules.removal_d2)
+    no_shadow = rules.mask & (d2 > rules.no_shadow_d2)
+    kind = _scatter(b.kind, rules.body, rules.mask,
+                         torch.where(remove, 0, b.kind[rules.body]))
+    on_obj = rules.mask & (rules.obj_slot >= 0)
+    slot = torch.clamp(rules.obj_slot, min=0)
+    alive = _scatter(pool.alive, slot, on_obj, pool.alive[slot] & ~remove)
+    casts = _scatter(pool.casts_shadows, slot, on_obj,
+                          casts_shadows_base[slot] & ~no_shadow)
+    return (phys._replace(bodies=b._replace(kind=kind)),
+            pool._replace(alive=alive, casts_shadows=casts))
+
+
 class EngineParams(NamedTuple):
     """Scene-constant parameters."""
 
@@ -99,6 +147,8 @@ class EngineParams(NamedTuple):
     static_geometry: StaticGeometry
     material_table: torch.Tensor  # f32[T,10]
     mesh_instances: MeshInstancePool  # renderable mesh-model entities
+    dist_rules: DistanceRulePools | None = None
+    casts_shadows_base: torch.Tensor | None = None  # bool[O] shadow casting from the scene
 
 
 def gather_objects(pool: VoxelObjectPool, idx) -> VoxelObjectPool:
@@ -210,8 +260,10 @@ def make_engine_step(params: EngineParams, config, mesh_vert_cap: int, mesh_tri_
     n_split_objs = max(1, min(tc.max_split_objects, o_max))
     n_split_regions = max(1, min(tc.max_split_regions, o_max))
     draw = fracture_uniforms or draw_fracture_uniforms
-    # scenes without absorbers skip the pass (the pools are scene constants)
+    # scenes without absorbers skip the pass, without distance rules the
+    # rules (the pools are scene constants)
     absorb = bool(params.absorbers.sph_mask.any() or params.absorbers.cap_mask.any())
+    rules = params.dist_rules is not None and bool(params.dist_rules.mask.any())
 
     def host(t):
         step.host_syncs += 1
@@ -327,6 +379,9 @@ def make_engine_step(params: EngineParams, config, mesh_vert_cap: int, mesh_tri_
     def step(sim: SimState) -> SimState:
         phys, pool = sim.phys, sim.voxels
         prev_pos, prev_ori = phys.bodies.position, phys.bodies.orientation
+        if rules:
+            phys, pool = apply_distance_rules(phys, pool, params.dist_rules,
+                                              params.casts_shadows_base)
         phys = physics_step(phys, params.phys_params, dt, n_substeps, solver_cfg, max_contacts,
                             tc.solver_mode, extra_contacts(pool, sim.probes))
         absorb_changed = absorb_chunks = None

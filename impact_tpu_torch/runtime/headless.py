@@ -3,7 +3,8 @@
 Port of ``impact_tpu/runtime/headless.py`` (ref: engine/src/runtime/
 headless.rs). ``step(n)`` advances the engine step n times; ``render()``
 runs the four render stages — scene assembly + geometry pass, shadow pass,
-deferred shading, postprocess — in float32 on the current state;
+deferred shading (with the scene's texture set when textured), postprocess
+— in float32 on the current state;
 ``step_and_render()`` does one of each. Wall milliseconds are recorded in
 ``stage_ms`` (render stages) and ``step_ms`` (the last ``step`` call),
 measured between ``torch.cuda.synchronize()`` calls when the scene lives on
@@ -44,7 +45,7 @@ class HeadlessRuntime:
         self.sim = build.sim
         self._initial_sim = build.sim
         self._initial_rng = build.sim.rng.get_state()
-        self.render_config = render_config_from_engine_config(config)
+        self.invalidate_render()
         self._step = make_engine_step(
             self.params, config, self.info["mesh_vert_cap"], self.info["mesh_tri_cap"],
             enable_splitting=enable_splitting, enable_fracturing=enable_fracturing,
@@ -54,6 +55,32 @@ class HeadlessRuntime:
         self.last_gbuffer = None
         self.last_hdr = None
         self.last_drops = (0, 0)  # (geometry, shadow) raster drops of the last render
+
+    def invalidate_render(self):
+        """Derive the render configuration and the texture set from the
+        config and the scene: textured mesh entities turn the textured shade
+        path on, and their layers follow the voxel-type layers (when
+        ``tpu.textured_voxels`` is on) in the scene's texture arrays."""
+        rc = render_config_from_engine_config(self.config)
+        self._voxel_textured = rc.textured
+        entity_layers = self.info.get("entity_texture_layers", [])
+        mi = self.params.mesh_instances
+        if entity_layers:
+            rc = rc._replace(textured=True)
+            # entity-local layer indices → indices into the scene's arrays
+            offset = self.params.material_table.shape[0] if self._voxel_textured else 0
+            mi = mi._replace(material=torch.where(mi.material >= 0, mi.material + offset,
+                                                  -1).to(mi.material.dtype))
+        self._mesh_instances = mi
+        self.render_config = rc
+        self.textures = None
+        if rc.textured:
+            from ..render.textures import build_scene_texture_set
+
+            self.textures = build_scene_texture_set(
+                self.params.material_table.shape[0], entity_layers,
+                self.config.tpu.texture_resolution, include_voxel_layers=self._voxel_textured,
+                device=self.sim.phys.bodies.position.device)
 
     @property
     def host_syncs(self) -> int:
@@ -93,8 +120,9 @@ class HeadlessRuntime:
         b = s.phys.bodies
         scene = build_render_scene(
             s.voxels, s.meshes, b.position, b.orientation, s.prev_position,
-            s.prev_orientation, p.static_geometry, p.mesh_instances,
-            tris_per_object=self.config.tpu.render_tris_per_object)
+            s.prev_orientation, p.static_geometry, self._mesh_instances,
+            tris_per_object=self.config.tpu.render_tris_per_object,
+            voxel_texture_layers=self._voxel_textured)
         return compact_scene_triangles(scene, self.render_config.max_triangles)
 
     def render(self):
@@ -114,7 +142,7 @@ class HeadlessRuntime:
             self._sync()
             t2 = time.perf_counter()
             times["shadows"] = (t2 - t1) * 1e3
-            lum = deferred_shade(gb, p.lights, p.camera, omni, uni, rc)
+            lum = deferred_shade(gb, p.lights, p.camera, omni, uni, rc, self.textures)
             self._sync()
             t3 = time.perf_counter()
             times["shade"] = (t3 - t2) * 1e3

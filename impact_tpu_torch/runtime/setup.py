@@ -7,14 +7,20 @@ lights (plain or shadowable), y-up ground planes (static planar
 collidables), voxel boxes, spheres and capsules (dynamic, or static ones
 that start kinematic) with motion, contact response, gravity, fracture
 properties, a multifractal noise modifier and noise-mixed voxel types,
-absorbing spheres and capsules on kinematic bodies, and dynamic rigid
-spheres (analytic mass and inertia, a spherical collidable, gravity) drawn
-as sphere-mesh entities — plus ``_build_static_geometry`` and
-``render_config_from_engine_config``. A scene may be empty (no voxel
-object, no triangle). Slot layout and order follow the
-reference: voxel object i binds body ``max_bodies - max_voxel_objects + i``;
-ground planes, then absorbers, then sphere bodies take the regular bodies
-0, 1, ...; mesh entities take mesh-instance slots in the same order; forces
+absorbing spheres and capsules on kinematic bodies, rigid bodies (dynamic
+by substance, with analytic mass and inertia, or by explicit inertia, else
+kinematic; sphere, capsule and plane collidables, phantoms included;
+constant acceleration, local forces, dynamic gravity, detailed drag with
+its drag-load map, alignment torques; the circular, harmonic, rotation and
+orbital drivers; a mesh), box, sphere and capsule mesh entities with
+uniform or textured materials (lowered into texture-array layers),
+spherical joints and distance rules — plus
+``_build_static_geometry`` and ``render_config_from_engine_config``. A
+scene may be empty (no voxel object, no triangle). Slot layout and order
+follow the reference: voxel object i binds body ``max_bodies -
+max_voxel_objects + i``; ground planes, then absorbers, then rigid
+bodies take the regular bodies 0, 1, ...; mesh entities take
+mesh-instance slots in the same order; forces
 are applied once before the voxel bodies' mass sync (so the first step's
 accumulated gravity uses the default unit mass, as the reference's does);
 each object's body origin is moved to its centre of mass; identical shapes
@@ -34,13 +40,14 @@ import numpy as np
 import torch
 
 from ..physics.collision import CollidablePools
-from ..physics.driven_motion import empty_motion_driver_pools
+from ..physics.drag_map import get_or_build_drag_load_map
+from ..physics.driven_motion import MotionDriverPools, empty_motion_driver_pools
 from ..physics.forces import apply_forces_and_torques, empty_force_pools
-from ..physics.inertia import sphere_inertia, sphere_mass
+from ..physics.inertia import capsule_inertia, capsule_mass, sphere_inertia, sphere_mass
 from ..physics.solver import empty_joint_pools
 from ..physics.state import KIND_DYNAMIC, KIND_KINEMATIC, synchronize_momenta
 from ..physics.step import PhysicsParams, init_physics_state
-from ..render.camera import Camera
+from ..render.camera import Camera, look_at
 from ..render.lights import LightPools
 from ..render.pipeline import RenderConfig, init_render_state
 from ..scene import mesh as meshlib
@@ -55,6 +62,15 @@ from ..scene.assembly import (
     ground_plane_geometry,
 )
 from ..scene.materials import VoxelTypeRegistry, default_registry, material_corner_table
+from ..scene.spec import (
+    CameraSpec,
+    CircularTrajectorySpec,
+    ConstantRotationSpec,
+    HarmonicOscillationSpec,
+    MeshSpec,
+    OrbitalTrajectorySpec,
+    PlaneCollidableSpec,
+)
 from ..utils.config import EngineConfig
 from ..voxel import sdf as sdflib
 from ..voxel.chunk_mesh import (
@@ -68,7 +84,7 @@ from ..voxel.encoding import encode_sdf_i8, sdf_world
 from ..voxel.interaction import empty_absorber_pools
 from ..voxel.mesh import CompactMesh, bake_mesh_materials, compact_mesh, surface_nets
 from ..voxel.object import VoxelObjectPool, generate_sdf_grid
-from .engine import EngineParams, SimState, _sync_voxel_bodies
+from .engine import EngineParams, SimState, _sync_voxel_bodies, empty_distance_rule_pools
 
 
 @dataclass
@@ -118,78 +134,226 @@ def _stack_meshes(meshes):
     return CompactMesh(*(torch.stack(f) for f in zip(*meshes)))
 
 
-def _collidable_pools(planes, plane_bodies, spheres, sphere_bodies, dev) -> CollidablePools:
+def _collidable_pools(spheres, planes, capsules, n_bodies: int, dev) -> CollidablePools:
     """Collidable pools trimmed to the scene's counts (at least one slot of
-    each family, masked off when unused), as the reference trims them."""
-    n_pln = max(1, len(planes))
-    n_sph = max(1, len(spheres))
+    each family, masked off when unused), as the reference trims them.
+    Each family is a list of (body, spec) in slot order."""
+    caps = {"sphere": min(64, n_bodies), "plane": 8, "capsule": 16}
+    for name, fam in (("sphere", spheres), ("plane", planes), ("capsule", capsules)):
+        if len(fam) > caps[name]:
+            raise ValueError(f"{name} collidable pool exhausted ({caps[name]} slots)")
 
-    def f32(rows, n, width, fill=0.0):
-        out = torch.full((n, width) if width else (n,), fill, device=dev)
-        for j, r in enumerate(rows):
-            out[j] = torch.tensor(r, dtype=torch.float32, device=dev)
+    def col(fam, get, width=0, fill=0.0, dtype=torch.float32):
+        n = max(1, len(fam))
+        row = fill if isinstance(fill, list) else [fill] * width if width else fill
+        out = torch.tensor([row] * n, dtype=dtype, device=dev)
+        for j, (bi, c) in enumerate(fam):
+            v = get(bi, c)
+            out[j] = torch.tensor([_f32(e) for e in v] if width else v, dtype=dtype)
         return out
 
-    def mask(k, n):
-        return torch.tensor([True] * k + [False] * (n - k), device=dev)
+    def body(fam):
+        return col(fam, lambda bi, c: bi, dtype=torch.int64)
 
-    zb = torch.zeros(1, dtype=torch.bool, device=dev)
-    normal = torch.tensor([[0.0, 1.0, 0.0]], device=dev).repeat(n_pln, 1)
+    def kind(fam, default):
+        return col(fam, lambda bi, c: int(c.kind), fill=default, dtype=torch.int32)
+
+    def resp(fam):
+        return col(fam, lambda bi, c: c.response, 3)
+
+    def mask(fam):
+        return col(fam, lambda bi, c: True, fill=False, dtype=torch.bool)
+
     return CollidablePools(
-        sph_body=torch.tensor(sphere_bodies + [0] * (n_sph - len(spheres)), dtype=torch.int64,
-                              device=dev),
-        sph_center=torch.zeros((n_sph, 3), device=dev),
-        sph_radius=f32([sp.radius for sp in spheres], n_sph, 0, fill=1.0),
-        sph_kind=torch.zeros(n_sph, dtype=torch.int32, device=dev),  # dynamic
-        sph_response=f32([sp.response for sp in spheres], n_sph, 3),
-        sph_mask=mask(len(spheres), n_sph),
-        pln_body=torch.tensor(plane_bodies + [0] * (n_pln - len(planes)), dtype=torch.int64,
-                              device=dev),
-        pln_normal=normal,
-        pln_disp=f32([p.y for p in planes], n_pln, 0),
-        pln_kind=torch.ones(n_pln, dtype=torch.int32, device=dev),  # static
-        pln_response=f32([(p.restitution, p.static_friction, p.dynamic_friction)
-                          for p in planes], n_pln, 3),
-        pln_mask=mask(len(planes), n_pln),
-        cap_body=torch.zeros(1, dtype=torch.int64, device=dev),
-        cap_start=torch.zeros((1, 3), device=dev),
-        cap_end=torch.zeros((1, 3), device=dev), cap_radius=torch.ones(1, device=dev),
-        cap_kind=torch.zeros(1, dtype=torch.int32, device=dev),
-        cap_response=torch.zeros((1, 3), device=dev), cap_mask=zb,
+        sph_body=body(spheres), sph_center=col(spheres, lambda bi, c: c.center, 3),
+        sph_radius=col(spheres, lambda bi, c: _f32(c.radius), fill=1.0),
+        sph_kind=kind(spheres, 0), sph_response=resp(spheres), sph_mask=mask(spheres),
+        pln_body=body(planes),
+        pln_normal=col(planes, lambda bi, c: c.normal, 3, fill=[0.0, 1.0, 0.0]),
+        pln_disp=col(planes, lambda bi, c: _f32(c.displacement)),
+        pln_kind=kind(planes, 1), pln_response=resp(planes), pln_mask=mask(planes),
+        cap_body=body(capsules), cap_start=col(capsules, lambda bi, c: c.segment_start, 3),
+        cap_end=col(capsules, lambda bi, c: c.segment_end, 3),
+        cap_radius=col(capsules, lambda bi, c: _f32(c.radius), fill=1.0),
+        cap_kind=kind(capsules, 0), cap_response=resp(capsules), cap_mask=mask(capsules),
     )
 
 
-def _mesh_instances(spheres, sphere_bodies, tc, dev) -> MeshInstancePool:
-    """One mesh-instance slot per sphere body's sphere mesh, posed by its
-    body, in a pool of the scene's count, its corners baked."""
-    vm_cap, tm_cap = tc.max_mesh_entity_verts, tc.max_mesh_entity_tris
-    if len(spheres) > tc.max_mesh_entities:
-        raise ValueError("mesh-entity pool exhausted (tpu.max_mesh_entities)")
-    f = empty_mesh_instances(len(spheres), vm_cap, tm_cap, dev)._asdict()
-    for mi, (sp, bi) in enumerate(zip(spheres, sphere_bodies)):
-        n = int(sp.n_rings)
+def _resolve_texture(textures: dict, name, resolution: int, srgb: bool):
+    """A scene texture by name → float [S,S,C]: PNG paths are decoded (sRGB
+    to linear when ``srgb``) and Lanczos-resized, arrays resized
+    nearest-neighbour, as the reference resolves a registered texture id.
+    A name the scene lacks raises KeyError."""
+    from ..render.textures import _resize_nearest, load_image_layer
+
+    if name not in textures:
+        raise KeyError(f"texture {name!r} is not in the scene's textures")
+    src = textures[name]
+    if isinstance(src, (str, bytes)):
+        return load_image_layer(src, resolution=resolution, srgb=srgb)
+    arr = np.asarray(src, np.float32)
+    if arr.ndim == 2:
+        arr = arr[..., None]
+    if arr.shape[:2] != (resolution, resolution):
+        arr = _resize_nearest(arr, resolution)
+    return arr
+
+
+def _entity_layer(mat, textures: dict, size: int):
+    """Lower a textured material into one texture-array layer (albedo,
+    normal, props) with the scale factors baked in; untextured properties
+    take their uniform values (ref: runtime/setup.py:912-972)."""
+    from ..render.textures import build_entity_material_layer
+
+    def prop(tex, uniform):
+        if tex is None:
+            return uniform
+        name, scale = tex
+        return _resolve_texture(textures, name, size, srgb=False)[..., 0] * _f32(scale)
+
+    height = None
+    if mat.parallax_map is not None:
+        name, disp = mat.parallax_map
+        height = _resolve_texture(textures, name, size, srgb=False)[..., 0] * _f32(disp)
+    color = (_resolve_texture(textures, mat.color_texture, size, srgb=True)
+             if mat.color_texture is not None else np.asarray(mat.color, np.float32))
+    normal = (_resolve_texture(textures, mat.normal_map, size, srgb=False)
+              if mat.normal_map is not None else None)
+    return build_entity_material_layer(
+        size, color=color, normal=normal,
+        roughness=prop(mat.roughness_texture, _f32(mat.roughness)),
+        metalness=prop(mat.metalness_texture, _f32(mat.metalness)),
+        specular=prop(mat.specular_texture, _f32(mat.specular)),
+        emissive=prop(mat.emissive_texture, _f32(mat.emissive)), height=height)
+
+
+def _mesh_geometry(spec: MeshSpec):
+    """The entity's local mesh (positions scaled and offset)."""
+    if spec.shape == "box":
+        tri = meshlib.box_mesh(tuple(_f32(e) for e in spec.extents))
+    elif spec.shape == "sphere":
+        n = int(spec.n_rings)
         tri = meshlib.sphere_mesh(1.0, n, 2 * n + 2)
-        nv, nt = tri.positions.shape[0], tri.indices.shape[0]
+    elif spec.shape == "capsule":
+        nc = int(spec.n_circumference_vertices)
+        tri = meshlib.capsule_mesh(0.5 * _f32(spec.diameter), _f32(spec.segment_length),
+                                   max(4, nc // 2), nc)
+    else:
+        raise ValueError(f"mesh shape {spec.shape!r} is not ported")
+    pos = tri.positions * np.float32(spec.scale) + np.asarray(spec.offset, np.float32)
+    return pos, tri.normals, tri.indices
+
+
+def _mesh_instances(records, scene_textures: dict, tc, dev):
+    """The mesh-instance pool of the scene's count, corners baked, and the
+    textured entities' layers. ``records``: (MeshSpec, body or −1,
+    position, orientation) in slot order. A material's albedo, f0 and
+    emissive follow the reference's metal/dielectric mix."""
+    vm_cap, tm_cap = tc.max_mesh_entity_verts, tc.max_mesh_entity_tris
+    if len(records) > tc.max_mesh_entities:
+        raise ValueError("mesh-entity pool exhausted (tpu.max_mesh_entities)")
+    f = empty_mesh_instances(len(records), vm_cap, tm_cap, dev)._asdict()
+    layers = []
+    for mi, (spec, bi, position, orientation) in enumerate(records):
+        pos, nrm, idx = _mesh_geometry(spec)
+        nv, nt = pos.shape[0], idx.shape[0]
         if nv > vm_cap or nt > tm_cap:
             raise ValueError(f"mesh entity exceeds caps: {nv} verts/{nt} tris "
                              f"(tpu.max_mesh_entity_verts/_tris)")
-        f["vert_pos"][mi, :nv] = torch.from_numpy(tri.positions).to(dev)
-        f["vert_normal"][mi, :nv] = torch.from_numpy(tri.normals).to(dev)
+        mat = spec.material
+        color = np.asarray([_f32(c) for c in mat.color], np.float32)
+        metal, spec_r = _f32(mat.metalness), _f32(mat.specular)
+        f["vert_pos"][mi, :nv] = torch.from_numpy(pos).to(dev)
+        f["vert_normal"][mi, :nv] = torch.from_numpy(nrm).to(dev)
         f["vert_active"][mi, :nv] = True
-        f["tri_indices"][mi, :nt] = torch.from_numpy(tri.indices).to(dev).long()
+        f["tri_indices"][mi, :nt] = torch.from_numpy(idx).to(dev).long()
         f["tri_active"][mi, :nt] = True
-        # a uniform colour and roughness, no metalness, specular reflectance
-        # or emission: albedo = colour, f0 and emissive stay 0
-        f["albedo"][mi] = torch.tensor([_f32(c) for c in sp.color], device=dev)
-        f["roughness"][mi] = _f32(sp.roughness)
+        f["albedo"][mi] = torch.from_numpy(color * (1.0 - metal))
+        f["f0"][mi] = torch.from_numpy(np.full(3, spec_r, np.float32) * (1.0 - metal)
+                                       + color * metal)
+        f["roughness"][mi] = _f32(mat.roughness)
+        f["emissive"][mi] = torch.from_numpy(color * _f32(mat.emissive))
         f["body_index"][mi] = bi
-        f["position"][mi] = torch.tensor([_f32(e) for e in sp.position], device=dev)
+        f["position"][mi] = torch.tensor([_f32(e) for e in position])
+        f["orientation"][mi] = torch.tensor([_f32(e) for e in orientation])
         f["alive"][mi] = True
-    return bake_mesh_instance_corners(MeshInstancePool(**f))
+        f["casts_shadows"][mi] = bool(spec.casts_shadows)
+        if mat.textured:
+            layers.append(_entity_layer(mat, scene_textures, tc.texture_resolution))
+            f["material"][mi] = len(layers) - 1
+    return bake_mesh_instance_corners(MeshInstancePool(**f)), layers
 
 
 def _f32(x) -> float:
     return float(np.float32(x))
+
+
+def _fill_driver(drivers: dict, d, bi: int, slot, vec):
+    """Write motion driver ``d`` (a scene.spec *Spec, or None) of body
+    ``bi`` into the next slot of its pool (ref: runtime/setup.py:777-827)."""
+    if d is None:
+        return
+    if isinstance(d, CircularTrajectorySpec):
+        key, vals = "circ", dict(center=vec(d.center), radius=_f32(d.radius),
+                                 speed=_f32(d.angular_speed), axis=vec(d.axis),
+                                 phase=_f32(d.phase))
+    elif isinstance(d, HarmonicOscillationSpec):
+        key, vals = "osc", dict(center=vec(d.center), dir=vec(d.direction),
+                                amplitude=_f32(d.amplitude), period=_f32(d.period),
+                                phase=_f32(d.phase))
+    elif isinstance(d, ConstantRotationSpec):
+        key, vals = "rot", dict(q0=vec(d.initial_orientation), omega=vec(d.angular_velocity))
+    elif isinstance(d, OrbitalTrajectorySpec):
+        key, vals = "orb", dict(focus=vec(d.focal_position), a=_f32(d.semi_major_axis),
+                                e=_f32(d.eccentricity), period=_f32(d.orbital_period),
+                                orient=vec(d.orientation), phase=_f32(d.phase))
+    else:
+        raise ValueError(f"unknown motion driver {d!r}")
+    j = slot(key)
+    drivers[f"{key}_body"][j] = bi
+    for name, v in vals.items():
+        drivers[f"{key}_{name}"][j] = v
+    drivers[f"{key}_mask"][j] = True
+
+
+def _entity_bodies(scene, plane_bodies, rigid_bodies, n_regular: int):
+    """(list name, index) → body slot, for joints and distance rules."""
+    lists = {"ground_plane": plane_bodies, "rigid_body": rigid_bodies,
+             "voxel_object": [n_regular + i for i in range(len(scene.voxel_objects))]}
+
+    def body_of(ref):
+        kind_, i = ref
+        return lists[kind_][i]
+
+    return body_of
+
+
+def _joint_pools(specs, body_of, dev):
+    """The spherical joints (ref: runtime/setup.py:864-877), 16 slots."""
+    f = {k: v.clone() for k, v in empty_joint_pools(device=dev)._asdict().items()}
+    if len(specs) > f["mask"].shape[0]:
+        raise ValueError("joint pool exhausted")
+    for j, sj in enumerate(specs):
+        f["body_a"][j], f["body_b"][j] = body_of(sj.entity_a), body_of(sj.entity_b)
+        f["anchor_a"][j] = torch.tensor([_f32(e) for e in sj.anchor_a])
+        f["anchor_b"][j] = torch.tensor([_f32(e) for e in sj.anchor_b])
+        f["mask"][j] = True
+    return type(empty_joint_pools())(**f)
+
+
+def _distance_rule_pools(rules, body_of, dev):
+    """The distance-triggered rules (ref: runtime/setup.py:879-898), 16
+    slots; a rule on a voxel object also names its object slot."""
+    f = {k: v.clone() for k, v in empty_distance_rule_pools(device=dev)._asdict().items()}
+    if len(rules) > f["mask"].shape[0]:
+        raise ValueError("distance-rule pool exhausted")
+    for j, r in enumerate(rules):
+        f["body"][j], f["anchor_body"][j] = body_of(r.entity), body_of(r.anchor)
+        f["obj_slot"][j] = r.entity[1] if r.entity[0] == "voxel_object" else -1
+        f["no_shadow_d2"][j] = _f32(r.no_shadowing_dist_squared)
+        f["removal_d2"][j] = _f32(r.removal_dist_squared)
+        f["mask"][j] = True
+    return type(empty_distance_rule_pools())(**f)
 
 
 def _object_grids(ob, g: int, i8: bool, dev):
@@ -276,7 +440,7 @@ def _chunk_meshes(pool, tc, material_table, dev):
 
 def compile_scene(scene, config: EngineConfig, registry: VoxelTypeRegistry | None = None,
                   device="cuda", rng_seed: int = 0) -> SceneBuild:
-    """Lower a :class:`~impact_tpu_torch.models.scenes.Scene` into device
+    """Lower a :class:`~impact_tpu_torch.scene.spec.Scene` into device
     state. The fracture generator is a ``torch.Generator`` on the device,
     seeded with ``rng_seed``."""
     dev = torch.device(device)
@@ -293,8 +457,7 @@ def compile_scene(scene, config: EngineConfig, registry: VoxelTypeRegistry | Non
     if len(objects) > o_max:
         raise ValueError("voxel object pool exhausted")
     n_absorbers = len(scene.absorbing_spheres) + len(scene.absorbing_capsules)
-    spheres = scene.sphere_bodies
-    if len(scene.ground_planes) + n_absorbers + len(spheres) > n_regular:
+    if len(scene.ground_planes) + n_absorbers + len(scene.rigid_bodies) > n_regular:
         raise ValueError("regular body pool exhausted")
     i8 = tc.sdf_encoding == "i8"
 
@@ -364,8 +527,8 @@ def compile_scene(scene, config: EngineConfig, registry: VoxelTypeRegistry | Non
                            origin=origin, sdf=sdf, vtype=vtype, mesh_dirty=alive.clone(),
                            split_pending=torch.zeros_like(alive), casts_shadows=casts)
 
-    # --- pass 2: ground planes, then absorbers (kinematic), then sphere
-    #     bodies (dynamic) take regular bodies 0, 1, ... -----------------------
+    # --- pass 2: ground planes, then absorbers (kinematic), then the rigid
+    #     bodies take regular bodies 0, 1, ... ---------------------------------------
     plane_bodies = list(range(len(scene.ground_planes)))
     n_planes = len(plane_bodies)
     for bi in range(n_planes + n_absorbers):
@@ -373,35 +536,144 @@ def compile_scene(scene, config: EngineConfig, registry: VoxelTypeRegistry | Non
     for j, a in enumerate(scene.absorbing_spheres + scene.absorbing_capsules):
         position[n_planes + j] = vec([_f32(e) for e in a.position])
     absorbers = _absorber_pools(scene, n_planes, dev)
-    sphere_bodies = [n_planes + n_absorbers + j for j in range(len(spheres))]
+    rigid_bodies = [n_planes + n_absorbers + j for j in range(len(scene.rigid_bodies))]
     mass, inv_mass = b.mass.clone(), b.inv_mass.clone()
     inertia_body, inv_inertia_body = b.inertia_body.clone(), b.inv_inertia_body.clone()
-    for sp, bi in zip(spheres, sphere_bodies):
-        kind[bi] = KIND_DYNAMIC
-        position[bi] = vec([_f32(e) for e in sp.position])
-        # analytic mass (in double precision, as the reference computes it
-        # from component values) and inertia about the centre
-        m = sphere_mass(_f32(sp.mass_density), _f32(sp.radius))
+
+    def set_mass(bi, m, inertia):
         mass[bi], inv_mass[bi] = m, 1.0 / m
-        inertia = sphere_inertia(torch.tensor(m, dtype=torch.float32),
-                                 torch.tensor(_f32(sp.radius)))
         inertia_body[bi] = inertia
         inv_inertia_body[bi] = torch.linalg.inv(inertia)
-        if sp.acceleration is not None:
-            accel_body[n_accel] = bi
-            accel[n_accel] = vec(sp.acceleration)
-            accel_mask[n_accel] = True
-            n_accel += 1
+
+    def add_accel(bi, a):
+        nonlocal n_accel
+        accel_body[n_accel] = bi
+        accel[n_accel] = vec(a)
+        accel_mask[n_accel] = True
+        n_accel += 1
+
+    sph_coll = []
+    pln_coll = [(bi, PlaneCollidableSpec(displacement=p.y, response=(
+        p.restitution, p.static_friction, p.dynamic_friction)))
+        for p, bi in zip(scene.ground_planes, plane_bodies)]
+    cap_coll = []
+    ground_ys = [p.y for p in scene.ground_planes]
+    mesh_records = []
+    drivers = {k: v.clone() for k, v in empty_motion_driver_pools(device=dev)._asdict().items()}
+    fp = {k: v.clone() for k, v in forces._asdict().items()
+          if not k.startswith(("const_accel", "medium"))}
+    caps = dict(local=fp["local_force_mask"].shape[0], align=fp["align_mask"].shape[0],
+                **{k: drivers[f"{k}_mask"].shape[0] for k in ("circ", "osc", "rot", "orb")})
+    counts = dict.fromkeys(caps, 0)
+    drag_tables = []
+
+    def slot(pool_name):
+        j = counts[pool_name]
+        if j >= caps[pool_name]:
+            raise ValueError(f"{pool_name} pool exhausted ({caps[pool_name]} slots)")
+        counts[pool_name] += 1
+        return j
+
+    for rb, bi in zip(scene.rigid_bodies, rigid_bodies):
+        kind[bi] = KIND_DYNAMIC if rb.dynamic else KIND_KINEMATIC
+        position[bi] = vec([_f32(e) for e in rb.position])
+        orientation[bi] = vec([_f32(e) for e in rb.orientation])
+        velocity[bi] = vec([_f32(e) for e in rb.linear_velocity])
+        angular_velocity[bi] = vec([_f32(e) for e in rb.angular_velocity])
+        seg = None
+        if rb.capsule is not None:
+            seg = float(np.linalg.norm(np.asarray(rb.capsule.segment_end, np.float32)
+                                       - np.asarray(rb.capsule.segment_start, np.float32)))
+        if rb.inertia is not None:
+            set_mass(bi, _f32(rb.inertia.mass),
+                     torch.tensor(np.asarray(rb.inertia.inertia_tensor, np.float32)))
+        elif rb.mass_density is not None:
+            # analytic mass (in double precision, as the reference computes
+            # it from component values) and inertia about the centre
+            rho = _f32(rb.mass_density)
+            if rb.sphere is not None:
+                r = _f32(rb.sphere.radius)
+                m = sphere_mass(rho, r)
+                inertia = sphere_inertia(torch.tensor(m, dtype=torch.float32), torch.tensor(r))
+            elif rb.capsule is not None:
+                r = _f32(rb.capsule.radius)
+                m = capsule_mass(rho, r, seg)
+                inertia = capsule_inertia(torch.tensor(m, dtype=torch.float32), torch.tensor(r),
+                                          torch.tensor(seg))
+            else:
+                m, inertia = rho, torch.eye(3) * rho
+            set_mass(bi, m, inertia)
+        if rb.sphere is not None:
+            sph_coll.append((bi, rb.sphere))
+        if rb.plane is not None:
+            pln_coll.append((bi, rb.plane))
+            if tuple(np.round(rb.plane.normal, 3)) == (0.0, 1.0, 0.0):
+                ground_ys.append(rb.plane.displacement)
+        if rb.capsule is not None:
+            cap_coll.append((bi, rb.capsule))
+        if rb.acceleration is not None:
+            add_accel(bi, rb.acceleration)
+        if rb.local_force is not None:
+            j = slot("local")
+            fp["local_force_body"][j] = bi
+            fp["local_force"][j] = vec(rb.local_force[0])
+            fp["local_point"][j] = vec(rb.local_force[1])
+            fp["local_force_mask"][j] = True
+        if rb.dynamic_gravity:
+            fp["gravity_participant"][bi] = True
+        if rb.drag_coefficient is not None:
+            # the analytic area, and a drag-load map of the collidable's mesh
+            area, shape = 1.0, None
+            if rb.sphere is not None:
+                r = _f32(rb.sphere.radius)
+                area = float(np.pi * r * r)
+                shape = meshlib.sphere_mesh(radius=r, n_rings=12, n_segments=24)
+            elif rb.capsule is not None:
+                r = _f32(rb.capsule.radius)
+                area = float(2 * r * seg + np.pi * r ** 2)
+                shape = meshlib.capsule_mesh(radius=r, segment_length=seg, n_rings=8,
+                                             n_segments=24)
+            fp["drag_coef"][bi] = _f32(rb.drag_coefficient)
+            fp["drag_area"][bi] = area
+            if shape is not None:
+                dm = config.physics.rigid_body_force.drag_load_map_config
+                n_theta = max(8, dm.n_theta_coords // 2)
+                table = get_or_build_drag_load_map(
+                    shape.positions, shape.indices, n_theta=n_theta, n_phi=2 * n_theta,
+                    directory=dm.directory, use_saved=dm.use_saved_maps,
+                    save_generated=dm.save_generated_maps,
+                    overwrite=dm.overwrite_existing_map_files).table
+                drag_tables.append(table)
+                fp["drag_map_index"][bi] = len(drag_tables) - 1
+        if rb.alignment_torque is not None:
+            at = rb.alignment_torque
+            j = slot("align")
+            fp["align_body"][j] = bi
+            fp["align_axis"][j] = vec(at.axis)
+            fp["align_target"][j] = vec(at.direction)
+            fp["align_strength"][j] = _f32(at.strength)
+            fp["align_damping"][j] = _f32(at.damping)
+            fp["align_mask"][j] = True
+        _fill_driver(drivers, rb.driver, bi, slot, vec)
+        if rb.mesh is not None:
+            mesh_records.append((rb.mesh, bi, rb.position, rb.orientation))
+    mesh_records += [(me.mesh, -1, me.position, me.orientation) for me in scene.mesh_entities]
+    if drag_tables:
+        fp["drag_map_table"] = torch.from_numpy(np.stack(drag_tables)).to(dev)
     bodies = b._replace(kind=kind, position=position, orientation=orientation,
                         velocity=velocity, angular_velocity=angular_velocity, mass=mass,
                         inv_mass=inv_mass, inertia_body=inertia_body,
                         inv_inertia_body=inv_inertia_body)
     forces = forces._replace(
-        const_accel_body=accel_body, const_accel=accel, const_accel_mask=accel_mask,
+        **fp, const_accel_body=accel_body, const_accel=accel, const_accel_mask=accel_mask,
         medium_density=torch.tensor(float(config.physics.medium.mass_density), device=dev),
         medium_velocity=vec(config.physics.medium.velocity),
     )
     phys = phys._replace(bodies=apply_forces_and_torques(bodies, forces))
+    body_of = _entity_bodies(scene, plane_bodies, rigid_bodies, n_regular)
+    joints = _joint_pools(scene.joints, body_of, dev)
+    dist_rules = _distance_rule_pools(scene.distance_rules, body_of, dev)
+    mesh_instances, entity_layers = _mesh_instances(mesh_records, scene.textures, tc, dev)
 
     # --- lights + camera ----------------------------------------------------------
     amb = vec(scene.ambient_illuminance)
@@ -437,20 +709,23 @@ def compile_scene(scene, config: EngineConfig, registry: VoxelTypeRegistry | Non
         uni_mask=torch.tensor([True] * len(un) + [False] * (n_uni - len(un)), device=dev),
     )
     cs = scene.camera
+    if cs is None:  # the reference's default camera
+        cs = CameraSpec(position=(0.0, 5.0, 20.0),
+                        orientation=tuple(look_at((0.0, 5.0, 20.0), (0.0, 0.0, 0.0)).tolist()),
+                        vertical_fov=math.pi / 3, near=0.05, far=500.0)
     camera = Camera(vec(cs.position), vec(cs.orientation), vec(cs.vertical_fov), vec(cs.near),
                     vec(cs.far))
     material_table = material_corner_table(registry)
     params = EngineParams(
         phys_params=PhysicsParams(
-            collidables=_collidable_pools(scene.ground_planes, plane_bodies, spheres,
-                                          sphere_bodies, dev), forces=forces,
-            drivers=empty_motion_driver_pools(device=dev), joints=empty_joint_pools(device=dev)),
+            collidables=_collidable_pools(sph_coll, pln_coll, cap_coll, tc.max_bodies, dev),
+            forces=forces, drivers=MotionDriverPools(**drivers), joints=joints),
         lights=lights, absorbers=absorbers, type_density=registry.mass_density, voxel_response=voxel_response,
         fracturable=fracturable, fracture_threshold=fracture_threshold,
         fracture_radius=fracture_radius, camera=camera,
-        static_geometry=_build_static_geometry([p.y for p in scene.ground_planes], dev),
-        material_table=material_table,
-        mesh_instances=_mesh_instances(spheres, sphere_bodies, tc, dev),
+        static_geometry=_build_static_geometry(ground_ys, dev),
+        material_table=material_table, mesh_instances=mesh_instances,
+        dist_rules=dist_rules, casts_shadows_base=casts.clone(),
     )
 
     # --- voxel body sync (mass, inertia, body origin at the COM), then momenta
@@ -491,7 +766,8 @@ def compile_scene(scene, config: EngineConfig, registry: VoxelTypeRegistry | Non
     )
     info = dict(mesh_vert_cap=vert_cap, mesh_tri_cap=tri_cap,
                 n_voxel_objects=len(objects), n_unique_shapes=len(uniq),
-                n_regular_bodies=n_planes + n_absorbers + len(spheres))
+                n_regular_bodies=n_planes + n_absorbers + len(rigid_bodies),
+                entity_texture_layers=entity_layers)
     return SceneBuild(sim=sim, params=params, info=info)
 
 
@@ -505,10 +781,8 @@ def render_config_from_engine_config(config: EngineConfig) -> RenderConfig:
         iso = cam.sensitivity.get("iso")
     tone = cc.dynamic_range_compression.tone_mapping_method
     big = config.tpu.render_height >= 720
-    if config.tpu.textured_voxels:
-        raise NotImplementedError("textured materials (tpu.textured_voxels) are not ported "
-                                  "yet: render/textures.py is the next slice of the port")
     return RenderConfig(
+        textured=config.tpu.textured_voxels,
         raster_backend=config.tpu.raster_backend,
         view_culling=config.tpu.view_culling,
         exposure_iso=iso,

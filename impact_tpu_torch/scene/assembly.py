@@ -200,12 +200,16 @@ def build_render_scene(pool: VoxelObjectPool, meshes: CompactMesh, body_position
                        body_orientation, body_position_prev, body_orientation_prev,
                        static_geometry: StaticGeometry,
                        mesh_instances: MeshInstancePool | None = None,
-                       tris_per_object: int = 0) -> RenderScene:
+                       tris_per_object: int = 0,
+                       voxel_texture_layers: bool = True) -> RenderScene:
     """Flatten voxel meshes [O,Tc,...], static geometry and the mesh-model
     entities into one corner-major RenderScene. ``tris_per_object`` > 0
     keeps only each object's leading triangle slots (compaction packs
     actives to the front). ``meshes`` may be a ChunkMeshPool: its slots are
-    surface chunks already, so the per-object slice does not apply."""
+    surface chunks already, so the per-object slice does not apply. Voxel
+    corners carry their voxel type as texture layer, or −1 (untextured)
+    when ``voxel_texture_layers`` is off (the scene's texture set then has
+    no voxel-type layers, as with ``tpu.textured_voxels`` off)."""
     extra = []
     if static_geometry.tri_active.shape[0] > 0:
         extra.append(static_geometry_corners(static_geometry))
@@ -215,8 +219,8 @@ def build_render_scene(pool: VoxelObjectPool, meshes: CompactMesh, body_position
     if isinstance(meshes, ChunkMeshPool):
         voxel = chunk_mesh_scene_fields(meshes, pool, body_position, body_orientation,
                                         body_position_prev, body_orientation_prev)
-        # untextured voxel surfaces, as in the dense branch below
-        voxel["tri_material"] = torch.full_like(voxel["tri_material"], -1)
+        if not voxel_texture_layers:
+            voxel["tri_material"] = torch.full_like(voxel["tri_material"], -1)
         return _concat_scene([voxel] + extra)
     if 0 < tris_per_object < meshes.tri_pos.shape[1]:
         k = tris_per_object
@@ -236,9 +240,10 @@ def build_render_scene(pool: VoxelObjectPool, meshes: CompactMesh, body_position
     world9_prev = _rotate9(qp, local9) + xp
     normal9 = _rotate9(q, meshes.tri_normal)
     tri_ok = meshes.tri_active & pool.alive[:, None]
-    # no texture arrays in the port: voxel surfaces take the untextured path,
-    # as the reference does with tpu.textured_voxels off
-    mat3 = torch.full_like(meshes.tri_type, -1)
+    if voxel_texture_layers:
+        mat3 = torch.where(tri_ok[..., None], meshes.tri_type, -1)
+    else:
+        mat3 = torch.full_like(meshes.tri_type, -1)
     voxel = dict(
         tri_pos=world9.reshape(-1, 9),
         tri_pos_prev=world9_prev.reshape(-1, 9),

@@ -1,5 +1,5 @@
-"""Procedural triangle meshes (port of the primitives of
-``impact_tpu/scene/mesh.py:32-98`` that scenes use; ref: impact_mesh
+"""Procedural triangle meshes (port of the box, sphere and capsule of
+``impact_tpu/scene/mesh.py`` that scenes and drag maps use; ref: impact_mesh
 generation.rs). Meshes are host-side numpy, made at scene setup; they reach
 the device as mesh-instance pools (``scene/assembly.py``)."""
 
@@ -70,3 +70,12 @@ def sphere_mesh(radius=1.0, n_rings=16, n_segments=32) -> TriangleMesh:
             b = a + stride
             idx.extend([(a, a + 1, b), (a + 1, b + 1, b)])
     return _mesh(pos, nrm, idx)
+
+
+def capsule_mesh(radius=0.5, segment_length=1.0, n_rings=8, n_segments=32) -> TriangleMesh:
+    """y-axis capsule: a UV sphere of 2·n_rings rings split at the equator,
+    its halves moved by ±segment_length/2."""
+    sp = sphere_mesh(radius, n_rings * 2, n_segments)
+    pos = sp.positions.copy()
+    pos[:, 1] += np.where(pos[:, 1] >= 0, segment_length * 0.5, -segment_length * 0.5)
+    return _mesh(pos, sp.normals, sp.indices)

@@ -112,10 +112,28 @@ class MediumConfig:
 
 
 @dataclass
+class DragLoadMapConfig:
+    """Drag-load map tables and their disk cache (``physics/drag_map.py``);
+    ``directory`` None builds the tables without the cache."""
+
+    n_theta_coords: int = 64
+    save_generated_maps: bool = True
+    overwrite_existing_map_files: bool = False
+    use_saved_maps: bool = True
+    directory: str | None = "resources/drag_load_maps"
+
+
+@dataclass
+class RigidBodyForceConfig:
+    drag_load_map_config: DragLoadMapConfig = field(default_factory=DragLoadMapConfig)
+
+
+@dataclass
 class PhysicsConfig:
     simulator: SimulatorConfig = field(default_factory=SimulatorConfig)
     constraint_solver: ConstraintSolverConfig = field(default_factory=ConstraintSolverConfig)
     medium: MediumConfig = field(default_factory=MediumConfig)
+    rigid_body_force: RigidBodyForceConfig = field(default_factory=RigidBodyForceConfig)
 
 
 @dataclass
@@ -162,7 +180,8 @@ class TpuConfig:
     render_tris_per_object: int = 0
     procedural_sky: bool = False
     soft_shadows: bool = False  # PCSS-style soft shadows from light extents
-    textured_voxels: bool = False  # triplanar voxel-type textures: not ported yet
+    textured_voxels: bool = False  # triplanar voxel-type texture arrays
+    texture_resolution: int = 64  # procedural texture-array base size
     sdf_encoding: str = "f32"  # "f32" | "i8"
     orthographic_camera: bool = False
     sky_luminance: tuple = (3000.0, 4500.0, 9000.0)

@@ -66,9 +66,12 @@ def _unfilter(raw: np.ndarray, h: int, stride: int, bpp: int) -> np.ndarray:
 
 
 def load_png(path) -> np.ndarray:
-    """An 8-bit RGB or RGBA PNG → u8 [H,W,3] (alpha dropped, as the
-    reference converts to RGB)."""
-    data = Path(path).read_bytes()
+    """An 8-bit RGB or RGBA PNG (a path or the file's bytes) → u8 [H,W,3]
+    (alpha dropped, as the reference converts to RGB)."""
+    if isinstance(path, (bytes, bytearray)):
+        data, path = bytes(path), "PNG bytes"
+    else:
+        data = Path(path).read_bytes()
     if not data.startswith(_SIGNATURE):
         raise ValueError(f"{path} is not a PNG file")
     header, idat = None, []

@@ -119,7 +119,7 @@ def test_chunk_gated_absorption(case, rotation):
 
 def test_scene_absorbers_compile_onto_kinematic_bodies():
     from impact_tpu_torch.models import voxel_box_tumbler
-    from impact_tpu_torch.models.scenes import AbsorbingCapsule, AbsorbingSphere
+    from impact_tpu_torch.scene.spec import AbsorbingCapsule, AbsorbingSphere
     from impact_tpu_torch.physics.state import KIND_KINEMATIC
     from impact_tpu_torch.runtime import HeadlessRuntime, compile_scene
     from impact_tpu_torch.utils.config import EngineConfig

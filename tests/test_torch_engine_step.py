@@ -168,13 +168,11 @@ def test_fracture_scene_steps_through_event_and_splits():
 @pytest.mark.parametrize("path", ["chunked grids", "absorbers", "distance rules",
                                   "mesh models"])
 def test_paths_outside_the_slice_raise(path, tumbler):
-    """Chunked grids (64³ and up), absorbers and mesh-model entities are
-    ported: a 64³ scene resolves to the chunked path and steps, the
-    reference's absorbers bridge and carve, and the reference's mesh-model
-    entities (BallPit's sphere meshes) bridge field for field. Distance
-    rules are not: the bridge raises, with no fallback."""
-    from types import SimpleNamespace
-
+    """Chunked grids (64³ and up), absorbers, distance rules and mesh-model
+    entities are ported: a 64³ scene resolves to the chunked path and
+    steps, the reference's absorbers bridge and carve, its distance rules
+    and mesh-model entities (BallPit's sphere meshes) bridge field for
+    field (the bridge refused distance rules until they were ported)."""
     from impact_tpu_torch.models.bench import bench_chunked_config, bench_chunked_scene
     from impact_tpu_torch.voxel.chunk_mesh import ChunkMeshPool
 
@@ -222,6 +220,15 @@ def test_paths_outside_the_slice_raise(path, tumbler):
             np.testing.assert_array_equal(getattr(tp.mesh_instances, f).numpy(),
                                           np.asarray(getattr(mi, f)), err_msg=f)
         return
-    params = SimpleNamespace(dist_rules=SimpleNamespace(mask=np.ones(2, bool)))
-    with pytest.raises(NotImplementedError):
-        bridge.engine_params_from_reference(params, device="cpu")
+    build = tumbler["build"]
+    r = build.params.dist_rules
+    params = build.params._replace(dist_rules=r._replace(
+        body=r.body.at[0].set(int(build.sim.voxels.body_index[1])),
+        obj_slot=r.obj_slot.at[0].set(1), removal_d2=r.removal_d2.at[0].set(400.0),
+        mask=r.mask.at[0].set(True)))
+    tp = bridge.engine_params_from_reference(params, device="cpu")
+    for f in tp.dist_rules._fields:
+        np.testing.assert_array_equal(getattr(tp.dist_rules, f).numpy(),
+                                      np.asarray(getattr(params.dist_rules, f)), err_msg=f)
+    np.testing.assert_array_equal(tp.casts_shadows_base.numpy(),
+                                  np.asarray(params.casts_shadows_base))

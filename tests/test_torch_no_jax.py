@@ -50,3 +50,24 @@ def test_no_reference_or_jax_import(path):
     for name in _imports(path):
         top = name.split(".")[0]
         assert top not in ("jax", "jaxlib", "impact_tpu"), f"{path}: imports {name}"
+
+
+ENTRY_MODULES = ("impact_tpu_torch.runtime.setup", "impact_tpu_torch.bridge",
+                 "impact_tpu_torch.apps.snapshot_tester", "impact_tpu_torch.render.textures",
+                 "impact_tpu_torch.render.pipeline")
+
+
+@pytest.mark.parametrize("module", ENTRY_MODULES)
+def test_entry_points_default_to_the_card(module):
+    """Every public function of the entry-point modules that takes a
+    ``device`` puts its tensors on ``cuda`` unless told otherwise."""
+    import importlib
+    import inspect
+
+    mod = importlib.import_module(module)
+    fns = [f for n, f in inspect.getmembers(mod, inspect.isfunction)
+           if f.__module__ == module and not n.startswith("_")
+           and "device" in inspect.signature(f).parameters]
+    assert fns, module
+    for f in fns:
+        assert inspect.signature(f).parameters["device"].default == "cuda", f.__name__

@@ -13,8 +13,8 @@ that ``--dist loadfile`` spreads them over workers).
   field's largest magnitude for the off-diagonal inertia of ~0).
 * PNG: ``utils/image.py:load_png`` equal to PIL on every golden and on
   images written with each of the five scanline filters.
-* The runner's scene table equals the reference harness's, and
-  ``TexturedMaterials`` raises.
+* The runner's scene table equals the reference harness's, all 20 scenes
+  run, and ``TexturedMaterials`` builds and renders.
 * Frames: each scene through the runner on the CPU (K1's plain version,
   the runner's scored frame, with windows fit to each view so that nothing
   drops), scored against its golden at ≥ 0.93; Blank and BallPit also hold
@@ -39,7 +39,7 @@ from impact_tpu.runtime import compile_scene as jcompile
 from impact_tpu_torch.apps import snapshot_tester as st
 from impact_tpu_torch.models import SCENES
 from impact_tpu_torch.physics.state import KIND_DYNAMIC
-from impact_tpu_torch.runtime import compile_scene
+from impact_tpu_torch.runtime import HeadlessRuntime, compile_scene
 from impact_tpu_torch.utils.image import load_png, rgb_hybrid_compare
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -187,18 +187,22 @@ def test_scene_table_matches_the_reference_harness():
     for name, (kwargs, _) in st.FEATURE_SCENES.items():
         assert kwargs == ref.FEATURE_SCENES[name][0], name
     assert st.MIN_SCORE_TO_PASS == ref.MIN_SCORE_TO_PASS
-    assert [n for n, _ in st.PORTED_SCENES] == [n for n, _ in st.ALL_SCENES
-                                                if n != "TexturedMaterials"]
-    assert len(st.PORTED_SCENES) == 19
+    assert st.PORTED_SCENES == st.ALL_SCENES and st.NOT_PORTED == ()
+    assert len(st.PORTED_SCENES) == 20
 
 
 def test_textured_materials_raise_until_the_next_slice():
-    with pytest.raises(NotImplementedError, match="next slice"):
-        st.build_runtime("TexturedMaterials", "cpu")
+    """TexturedMaterials raised until the textured shade path was ported;
+    the same calls now build it and render it (here at 64x48)."""
+    rt = st.build_runtime("TexturedMaterials", "cpu")
+    assert rt.render_config.textured and rt.textures is not None
     cfg = st.snapshot_config()
     cfg.tpu.textured_voxels = True
-    with pytest.raises(NotImplementedError, match="textures"):
-        compile_scene(SCENES["RenderingTest"](), cfg, device="cpu")
+    cfg.tpu.render_width, cfg.tpu.render_height = 64, 48
+    rt = HeadlessRuntime(compile_scene(SCENES["RenderingTest"](), cfg, device="cpu"), cfg)
+    img = rt.render()
+    assert img.shape == (48, 64, 3) and rt.textures.albedo.n_layers == 3
+    assert bool((rt.last_gbuffer.material >= 0).any())
 
 
 def test_load_png_equals_pil_on_every_golden():
