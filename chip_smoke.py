@@ -69,7 +69,20 @@ then drives these paths through the port's entry points:
    slower in the medium, every body state finite; one DragDrop substep
    with floor contacts through the scan kernels, held equal to their plain
    loop; and a textured box mesh entity (colour, normal and parallax maps)
-   through K1, held to the plain tile raster's frame at 0.95.
+   through K1, held to the plain tile raster's frame at 0.95;
+12. the reference's public API (``api_phase``): the quick start of
+   README.md:41-57 with ``impact_tpu_torch`` (an ``EngineConfig`` equal to
+   the one its RON text gives, ``voxel_box_tumbler(n_boxes=4)``,
+   ``compile_scene`` with no device, 100 steps, a render, a checkpoint),
+   the resume (save, 10 steps, load, 10 steps, within the scan tests'
+   bar), the commands (pause, resume, set_n_iterations,
+   set_bloom_enabled, reset_world, an unknown one), ``run(20,
+   render_every=5)``, a ``profile`` trace that names K1 and the scan
+   kernels, and the Voxel Range game at its defaults
+   (``impact_tpu_torch.apps.impact_game.play``, 400 frames), which must be
+   won; every K1 launch of the phase is held against K1's plain version,
+   the game's busiest substep through the scan kernels against their plain
+   loop, and every grid the game labelled against the plain labelling.
 
 Kernel launch counts are zeroed just before each path and read just after
 it. Every phase prints one flushed line with its seconds; any failure exits
@@ -96,7 +109,8 @@ empty frame is shorter than the wrapper's host work) and the wrapper's.
 ``--chunked-only`` runs only the four chunked phases (and the labels entry
 of the record), so two trees can be timed in turns in one call.
 ``--snapshots-only`` runs only the scan solver, snapshot and scene physics
-phases; ``--scene-physics-only`` only the scene physics phase.
+phases; ``--scene-physics-only`` only the scene physics phase; ``--api-only``
+only the API phase.
 """
 
 from __future__ import annotations
@@ -176,6 +190,17 @@ CONSERVED_RTOL = 1e-5
 # snapshot configuration's 128)
 ROT_CPU_STEPS, ROT_CPU_CONTACTS = 20, 8
 DRAG_DROP_SCAN_STEPS = (118, 20)
+# the API phase: the reference's quick start (README.md:41-57) steps the
+# tumbler QUICK_START_STEPS frames; the resume steps RESUME_STEPS after a
+# save and after its load; run(RUN_FRAMES, render_every=RUN_EVERY); the
+# Voxel Range game at its defaults, rendering every GAME_RENDER_EVERY-th frame
+QUICK_START_STEPS, RESUME_STEPS = 100, 10
+RUN_FRAMES, RUN_EVERY = 20, 5
+GAME_RENDER_EVERY = 100
+QUICK_START_RON = "(tpu: (max_voxel_objects: 8, max_bodies: 24))"
+API_KERNELS = {"k1_raster_attributes": "k1_attr_kernel", "k1_raster_depth": "k1_depth_kernel",
+               "scan_velocity_iterations": "scan_velocity_kernel",
+               "scan_position_correction": "scan_correction_kernel"}
 
 
 def log(msg: str) -> None:
@@ -981,6 +1006,9 @@ def main(argv=None) -> int:
                     help="run only the scan solver, snapshot tester and scene physics phases")
     ap.add_argument("--scene-physics-only", action="store_true",
                     help="run only the scene physics phase and the textured-entity check")
+    ap.add_argument("--api-only", action="store_true",
+                    help="run only the API phase (quick start, resume, commands, run, "
+                         "profile, the Voxel Range game)")
     args = ap.parse_args(argv)
     k1_only, ccl_only = args.k1_only, args.ccl_only
     t_all = time.perf_counter()
@@ -1058,6 +1086,10 @@ def main(argv=None) -> int:
         kernels = []
         scene_physics_phase(dev, record, kernels)
         return finish(t_all, record, kernels, kind, count)
+    if args.api_only:
+        kernels = []
+        api_phase(dev, record, kernels)
+        return finish(t_all, record, kernels, kind, count)
 
     with Phase("K2 vs plain version, G=32: random fills, serpentine, empty, full"):
         rng = np.random.default_rng(0)
@@ -1116,8 +1148,7 @@ def main(argv=None) -> int:
 
     with Phase("scene build (bench tumbler: 62 boxes of 26^3 voxels, 64 slots, 32^3 i8)"):
         cfg = bench_config(WIDTH, HEIGHT)
-        scene_spec = bench_scene()
-        build = compile_scene(scene_spec, cfg, device=dev)
+        build = compile_scene(bench_scene(), cfg, device=dev)
         torch.cuda.synchronize()
         n_tris = int(build.meshes.tri_active.sum())
         log(f"scene: {build.info['n_voxel_objects']} voxel objects, {n_tris} active "
@@ -1258,7 +1289,7 @@ def main(argv=None) -> int:
         c = bench_config(480, 270)
         small, drops = {}, {}
         for where in ("cuda", "cpu"):
-            r = HeadlessRuntime(compile_scene(scene_spec, c, device=where), c)
+            r = HeadlessRuntime(compile_scene(bench_scene(), c, device=where), c)
             small[where] = r.render().cpu().numpy()
             drops[where] = r.dropped_raster_candidates()
             log(f"480x270 on {where}: " + ", ".join(f"{k} {v:.2f} ms" for k, v in r.stage_ms.items())
@@ -1435,6 +1466,7 @@ def main(argv=None) -> int:
     scan_phase(dev, record, kernels)
     snapshot_phase(dev, record, kernels)
     scene_physics_phase(dev, record, kernels)
+    api_phase(dev, record, kernels)
     return finish(t_all, record, kernels, kind, count)
 
 
@@ -1774,29 +1806,42 @@ def snapshot_phase(dev, record, kernels):
                 "scan_position_correction"]
 
 
+def textured_box_textures():
+    """The textured box's three 32² textures by name."""
+    from impact_tpu_torch.render.textures import checkerboard, noise_normal_map, value_noise
+
+    return dict(checker=checkerboard(32, tiles=8),
+                normal=noise_normal_map(32, cells=6, seed=2, strength=4.0),
+                height=value_noise(32, cells=4, seed=9))
+
+
 def textured_box_scene():
-    """tests/test_textured_materials.py's scene as port data: a box mesh
+    """tests/test_textured_materials.py's scene as a port world: a box mesh
     entity with a checkerboard colour, a noise normal map and a parallax
-    height map (32² textures), lit by ambient and a directional light."""
+    height map (32² textures, registered with ``register_texture``), lit by
+    ambient and a directional light."""
     import math
 
-    from impact_tpu_torch.render.textures import checkerboard, noise_normal_map, value_noise
-    from impact_tpu_torch.scene import spec as ts
+    from impact_tpu_torch.ecs import World
+    from impact_tpu_torch.ecs import components as C
+    from impact_tpu_torch.runtime.setup import register_texture
 
-    s = ts.Scene(textures=dict(checker=checkerboard(32, tiles=8),
-                               normal=noise_normal_map(32, cells=6, seed=2, strength=4.0),
-                               height=value_noise(32, cells=4, seed=9)))
-    s.camera = ts.CameraSpec(position=(0.0, 0.0, 0.0), orientation=(0.0, 1.0, 0.0, 0.0),
-                             vertical_fov=math.radians(50), near=0.01, far=100.0)
-    s.ambient_illuminance = (3e3, 3e3, 3e3)
-    s.mesh_entities.append(ts.MeshEntity(ts.MeshSpec(
-        shape="box", scale=1.4, material=ts.Material(
-            color=(0.6, 0.6, 0.6), color_texture="checker", normal_map="normal",
-            parallax_map=("height", 0.08))), position=(0.0, 0.0, 2.6)))
-    s.uni_lights.append(ts.UniLight(direction=(0.4, -0.4, 0.8),
-                                    perpendicular_illuminance=(3e3, 3e3, 3e3),
-                                    angular_source_extent=0.0, shadowable=False))
-    return s
+    ids = {k: register_texture(f"textured-box-{k}", v) for k, v in textured_box_textures().items()}
+    w = World()
+    w.create_entity(C.ReferenceFrame(position=(0.0, 0.0, 0.0), orientation=(0.0, 1.0, 0.0, 0.0)),
+                    C.PerspectiveCamera(vertical_field_of_view=math.radians(50),
+                                        near_distance=0.01, far_distance=100.0))
+    w.create_entity(C.AmbientEmission(illuminance=(3e3, 3e3, 3e3)))
+    w.create_entity(C.BoxMesh(), C.ModelTransform(scale=1.4),
+                    C.ReferenceFrame(position=(0.0, 0.0, 2.6)),
+                    C.UniformColor(color=(0.6, 0.6, 0.6)),
+                    C.TexturedColor(texture_id=ids["checker"]),
+                    C.NormalMap(texture_id=ids["normal"]),
+                    C.ParallaxMap(height_map_texture_id=ids["height"], displacement_scale=0.08))
+    w.create_entity(C.UnidirectionalEmission(perpendicular_illuminance=(3e3, 3e3, 3e3),
+                                             direction=(0.4, -0.4, 0.8),
+                                             angular_source_extent=0.0))
+    return w
 
 
 def textured_box_config(cfg):
@@ -1968,6 +2013,333 @@ def scene_physics_phase(dev, record, kernels):
         if k["name"] == "scan_solver":
             k["scene_physics_launches"] = (launches["scan_velocity_iterations"]
                                            + launches["scan_position_correction"])
+
+
+def sim_states_equal(a, b) -> bool:
+    """Every tensor of two SimStates equal, and the generators' states."""
+    import torch
+
+    for x, y in zip(a, b):
+        if isinstance(x, torch.Generator):
+            if not torch.equal(x.get_state(), y.get_state()):
+                return False
+        elif hasattr(x, "_fields"):
+            if not sim_states_equal(x, y):
+                return False
+        elif isinstance(x, torch.Tensor):
+            if not torch.equal(x, y):
+                return False
+        elif x != y:
+            return False
+    return True
+
+
+def api_phase(dev, record, kernels):
+    """The reference's public API on the card, with every K1 launch held
+    against K1's plain version: the quick start (README.md:41-57 with
+    ``impact_tpu_torch``: an EngineConfig equal to the one RON gives,
+    ``voxel_box_tumbler(n_boxes=4)``, ``compile_scene`` with no device,
+    100 steps, a render, a checkpoint); the resume (save, 10 steps, load,
+    10 steps: the states within SCAN_RTOL and SCAN_ATOL_OF_MAGNITUDE, the
+    scan's warm start summing with atomics in no fixed order); the commands
+    (pause, resume, set_n_iterations, set_bloom_enabled, reset_world, an
+    unknown one); ``run(20, render_every=5)``; a ``profile`` trace naming K1
+    and the scan kernels; and the Voxel Range game at its defaults
+    (``impact_tpu_torch.apps.impact_game.play``), won, with one substep's
+    scan kernels held equal to their plain loop and every grid its split
+    checks labelled held equal to the plain labelling."""
+    import tempfile
+
+    import torch
+
+    from impact_tpu_torch.apps import impact_game
+    from impact_tpu_torch.models import voxel_box_tumbler
+    from impact_tpu_torch.ops import ccl_pallas as k2
+    from impact_tpu_torch.physics import scan_solver, solver
+    from impact_tpu_torch.render import raster_pallas as rp
+    from impact_tpu_torch.runtime import HeadlessRuntime, compile_scene
+    from impact_tpu_torch.utils.config import EngineConfig
+    from impact_tpu_torch.voxel import interaction
+
+    rows = {}
+    held = dict(depth=0, attributes=0, max_abs_err=0.0)
+    launches = dict.fromkeys(("k1_raster_attributes", "k1_raster_depth",
+                              "scan_velocity_iterations", "scan_position_correction",
+                              "k2_labels", "k2_ccl", "k2_ccl_wide"), 0)
+    counters = (rp.LAUNCHES, scan_solver.LAUNCHES, k2.LAUNCHES)
+
+    def reset():
+        for c in counters:
+            c.reset()
+
+    def add():
+        for c in counters:
+            for k, v in c.items():
+                launches[k] += v
+
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_api_")
+    run_depth, run_attr = rp.raster_depth, rp.raster_attributes
+    rp.raster_depth, rp.raster_attributes = held_k1(held)
+    try:
+        with Phase(f"API: the reference's quick start (voxel_box_tumbler(n_boxes=4), "
+                   f"{QUICK_START_STEPS} steps, a render, a checkpoint) through "
+                   f"impact_tpu_torch"):
+            cfg = EngineConfig()
+            cfg.tpu.max_voxel_objects = 8
+            cfg.tpu.max_bodies = 24
+            if EngineConfig.from_ron_str(QUICK_START_RON) != cfg:
+                raise AssertionError(f"EngineConfig.from_ron_str({QUICK_START_RON!r}) differs "
+                                     "from the quick start's config")
+            world = voxel_box_tumbler(n_boxes=4)
+            reset()
+            rt = HeadlessRuntime(compile_scene(world, cfg), cfg)
+            rt.step(QUICK_START_STEPS)
+            quick_ms = rt.step_ms / QUICK_START_STEPS
+            img = rt.render()
+            ckpt = rt.save_checkpoint(os.path.join(tmp.name, "sim.npz"))
+            torch.cuda.synchronize()
+            add()
+            pos = rt.sim.phys.bodies.position
+            log(f"quick start: state on {pos.device}, {QUICK_START_STEPS} steps at "
+                f"{quick_ms:.2f} ms each, frame {tuple(img.shape)} in "
+                f"{sum(rt.stage_ms.values()):.1f} ms, checkpoint {os.path.getsize(ckpt)} B, "
+                f"launches {launches}")
+            if pos.device != dev or img.device != dev:
+                raise AssertionError(f"compile_scene with no device put the state on "
+                                     f"{pos.device}, not on {dev}")
+            if not body_state_finite(rt.sim):
+                raise AssertionError("quick start: non-finite body state")
+            if tuple(img.shape) != (192, 256, 3) or img.float().std().item() < 1.0:
+                raise AssertionError(f"quick start: frame {tuple(img.shape)} is flat")
+            if launches["k1_raster_attributes"] <= 0:
+                raise AssertionError("the quick start's frame did not go through K1")
+            rows["quick_start"] = dict(step_ms=quick_ms, frame_ms=sum(rt.stage_ms.values()),
+                                       checkpoint_bytes=os.path.getsize(ckpt))
+
+        with Phase(f"API: resume (save, {RESUME_STEPS} steps, load, {RESUME_STEPS} steps)"):
+            reset()
+            rt.step(RESUME_STEPS)
+            first = rt.sim
+            rt.load_checkpoint(ckpt)
+            rt.step(RESUME_STEPS)
+            add()
+            diffs = {}
+            for f in ("position", "orientation", "velocity", "angular_velocity", "momentum",
+                      "angular_momentum"):
+                got, want = getattr(rt.sim.phys.bodies, f), getattr(first.phys.bodies, f)
+                atol = SCAN_ATOL_OF_MAGNITUDE * max(float(want.abs().max()), 1.0)
+                diffs[f] = float((got - want).abs().max())
+                if not torch.allclose(got, want, rtol=SCAN_RTOL, atol=atol):
+                    raise AssertionError(f"resume: {f} differs by {diffs[f]:.3g} (rtol "
+                                         f"{SCAN_RTOL}, atol {atol:.3g})")
+            log(f"resume: largest difference per field {diffs} (rtol {SCAN_RTOL}, atol "
+                f"{SCAN_ATOL_OF_MAGNITUDE} of each field's magnitude); bitwise equal: "
+                f"{sim_states_equal(rt.sim.phys.bodies, first.phys.bodies)}")
+            rows["resume"] = dict(max_abs_diff=diffs)
+
+        with Phase("API: commands (pause, resume, set_n_iterations, set_bloom_enabled, "
+                   "reset_world, an unknown one)"):
+            reset()
+            before = rt.sim
+            rt.enqueue_command("game_loop", "pause")
+            rt.step(5)
+            if not (rt.paused and sim_states_equal(rt.sim, before)):
+                raise AssertionError("pause: step changed the state")
+            rt.enqueue_command("game_loop", "resume")
+            rt.step(1)
+            if torch.equal(rt.sim.phys.bodies.position, before.phys.bodies.position):
+                raise AssertionError("resume: step did not advance the state")
+            old_step = rt._step
+            rt.enqueue_command("physics", "set_n_iterations", 4)
+            rt.step(1)
+            if rt._step is old_step or rt.config.physics.constraint_solver.n_iterations != 4:
+                raise AssertionError("set_n_iterations did not rebuild the step")
+            rt.enqueue_command("rendering", "set_bloom_enabled", False)
+            rt.apply_commands()
+            if rt.render_config.bloom_enabled:
+                raise AssertionError("set_bloom_enabled did not rebuild the render config")
+            rt.render()
+            rt.enqueue_command("system", "reset_world")
+            rt.apply_commands()
+            if not sim_states_equal(rt.sim.phys, rt._initial_sim.phys):
+                raise AssertionError("reset_world did not give back the compiled state")
+            rt.enqueue_command("rendering", "no_such_command", 1)
+            try:
+                rt.apply_commands()
+            except ValueError as e:
+                log(f"commands: the unknown command raised ValueError({e})")
+            else:
+                raise AssertionError("an unknown command did not raise")
+            torch.cuda.synchronize()
+            add()
+
+        with Phase(f"API: run({RUN_FRAMES}, render_every={RUN_EVERY})"):
+            reset()
+            frames = rt.run(RUN_FRAMES, render_every=RUN_EVERY)
+            torch.cuda.synchronize()
+            add()
+            fps = rt.metrics.fps
+            log(f"run: {len(frames)} frames, smoothed frame {1e3 / fps if fps else 0:.2f} ms "
+                f"({fps:.1f} fps), timer {rt.metrics.last_task_execution_times}")
+            if len(frames) != RUN_FRAMES // RUN_EVERY or not fps > 0:
+                raise AssertionError(f"run returned {len(frames)} frames at {fps} fps")
+            rows["run"] = dict(frames=len(frames), fps=fps)
+
+        with Phase("API: profile of one step and one render (torch.profiler, CUDA activity)"):
+            # torch.profiler on the card now and then loses every record of a
+            # kernel (kernel_ms): profile again, up to three times. K1's
+            # launches are held against its plain version after the trace,
+            # so that the trace holds the frame's own work
+            reset()
+            recorded = []
+
+            def rec_depth(b):
+                out = run_depth(b)
+                recorded.append((b, 0, out))
+                return out
+
+            def rec_attr(b, n_attr):
+                out = run_attr(b, n_attr)
+                recorded.append((b, n_attr, out))
+                return out
+
+            hold_depth, hold_attr = rp.raster_depth, rp.raster_attributes
+            rp.raster_depth, rp.raster_attributes = rec_depth, rec_attr
+            for attempt in range(1, 4):
+                trace_dir = os.path.join(tmp.name, f"trace{attempt}")
+                t0 = time.perf_counter()
+                with rt.profile(trace_dir) as prof:
+                    rt.step(1)
+                    rt.render()
+                traced_s = time.perf_counter() - t0
+                names = {e.key for e in prof.key_averages()}
+                with open(os.path.join(trace_dir, "trace.json")) as f:
+                    trace = f.read()
+                # device events carry the kernels' signatures: match by name
+                missing = [k for k in API_KERNELS.values()
+                           if not any(k in n for n in names) or k not in trace]
+                log(f"profile {attempt}: {len(names)} event names, trace {len(trace)} B "
+                    f"(traced and written in {traced_s:.2f} s); the K1 and scan kernels "
+                    f"{'all named' if not missing else f'missing {missing}'}")
+                if not missing:
+                    break
+            rp.raster_depth, rp.raster_attributes = hold_depth, hold_attr
+            for b, n_attr, out in recorded:
+                plain = (rp.raster_attributes_plain(b, n_attr) if n_attr
+                         else rp.raster_depth_plain(b))
+                err = compare_k1(out, plain, n_attr, f"K1 profiled view {b.height}x{b.width}")
+                held["attributes" if n_attr else "depth"] += 1
+                held["max_abs_err"] = max(held["max_abs_err"], err)
+            add()
+            if missing:
+                raise AssertionError(f"the profile trace does not name {missing}")
+            rows["profile"] = dict(attempts=attempt, trace_bytes=len(trace))
+
+        with Phase("API: the Voxel Range game at its defaults (impact_game.play: 3 targets, "
+                   "3 shots, 400 frames, 16^3 grids, 24 object slots) on the card"):
+            reset()
+            grids, best = [], [None, -1]
+            run_labels, run_scan = interaction.connected_component_labels_batched, \
+                solver.scan_iterations
+
+            def rec_labels(occ):
+                grids.append(occ.clone())
+                return run_labels(occ)
+
+            def rec_scan(*args):
+                n = int(args[6].active.sum())
+                if n > best[1]:
+                    best[:] = [args, n]
+                return run_scan(*args)
+
+            step_ms, run_step = [], HeadlessRuntime.step
+
+            def rec_step(self, n=1):
+                out = run_step(self, n)
+                step_ms.append(self.step_ms)
+                return out
+
+            interaction.connected_component_labels_batched = rec_labels
+            solver.scan_iterations = rec_scan
+            HeadlessRuntime.step = rec_step
+            try:
+                t0 = time.perf_counter()
+                result = impact_game.play(render_dir=os.path.join(tmp.name, "game"),
+                                          render_every=GAME_RENDER_EVERY)
+                torch.cuda.synchronize()
+                game_s = time.perf_counter() - t0
+            finally:
+                interaction.connected_component_labels_batched = run_labels
+                solver.scan_iterations = run_scan
+                HeadlessRuntime.step = run_step
+            steps = sorted(step_ms)
+            step_stats = dict(median=steps[len(steps) // 2], p90=steps[int(len(steps) * 0.9)],
+                              max=steps[-1], mean=sum(steps) / len(steps),
+                              first_100_mean=sum(step_ms[:100]) / 100,
+                              last_100_mean=sum(step_ms[-100:]) / 100)
+            game_launches = {k: v for c in counters for k, v in c.items()}
+            add()
+            frame_ms = game_s / result["frames"] * 1e3
+            log(f"game: {result}; {game_s:.2f} s for {result['frames']} frames, "
+                f"{frame_ms:.2f} ms a frame (a step and the score's host read, and a "
+                f"render every {GAME_RENDER_EVERY}); step ms "
+                f"{ {k: round(v, 2) for k, v in step_stats.items()} }; launches {game_launches}; "
+                f"{len(grids)} labelling calls on {sum(x.shape[0] for x in grids)} grids; "
+                f"the busiest substep held {best[1]} active contact slots")
+            rows["game"] = dict(result=result, seconds=game_s, frame_ms=frame_ms,
+                                step_ms=step_stats,
+                                launches=game_launches, labelled_grids=sum(x.shape[0]
+                                                                           for x in grids))
+            if not result["won"]:
+                raise AssertionError(f"the game was not won: {result}")
+            for name in ("k1_raster_attributes", "k1_raster_depth", "scan_velocity_iterations",
+                         "scan_position_correction", "k2_labels"):
+                if game_launches[name] <= 0:
+                    raise AssertionError(f"{name} was not launched in the game")
+    finally:
+        rp.raster_depth, rp.raster_attributes = run_depth, run_attr
+
+    with Phase("API: the game's busiest substep through the scan kernels against their plain "
+               "loop, and every grid the game labelled against the plain labelling"):
+        scan_err, plain_ms, _ = hold_scan(best[0], "game")
+        batches = [x for x in grids if x.shape[0] > 0]
+        if not batches:
+            raise AssertionError("the game's split checks labelled no grid")
+        # each grid is labelled on its own, so one batch of all of them holds
+        # every grid the game labelled in one kernel call and one plain call
+        occ = torch.cat(batches)
+        got, ref = k2.connected_component_labels_batched(occ), labels_plain(occ)
+        if not torch.equal(got, ref):
+            raise AssertionError(f"labels of the game's grids: {int((got != ref).sum())} "
+                                 f"differ from the plain version")
+        labels_err = int((got.long() - ref.long()).abs().max())
+        log(f"game: scan kernels equal to the plain loop on {best[1]} active slots (plain loop "
+            f"{plain_ms:.1f} ms); labels equal to the plain labelling on the {occ.shape[0]} "
+            f"grids of its {len(batches)} labelling calls")
+        rows["game"].update(scan_held=dict(active=best[1], max_abs_err=scan_err),
+                            labels_held=dict(grids=occ.shape[0], max_abs_err=labels_err))
+    tmp.cleanup()
+    held_total = held["depth"] + held["attributes"]
+    k1_total = launches["k1_raster_depth"] + launches["k1_raster_attributes"]
+    log(f"API phase launches {launches}; K1 launches held against K1's plain version {held}")
+    if (held["depth"], held["attributes"]) != (launches["k1_raster_depth"],
+                                               launches["k1_raster_attributes"]):
+        raise AssertionError(f"K1 launches {launches} but {held} held ({held_total} of "
+                             f"{k1_total})")
+    record["api"] = dict(rows, launches=launches, k1_held=held)
+    api_launches = {"k1_raster_attributes": launches["k1_raster_attributes"],
+                    "k1_raster_depth": launches["k1_raster_depth"],
+                    "k2_labels": launches["k2_labels"],
+                    "scan_solver": launches["scan_velocity_iterations"]
+                    + launches["scan_position_correction"]}
+    errs = {"k1_raster_attributes": held["max_abs_err"], "k1_raster_depth": held["max_abs_err"],
+            "k2_labels": float(labels_err), "scan_solver": scan_err}
+    for name, n in api_launches.items():
+        entry = next((k for k in kernels if k["name"] == name), None)
+        if entry is None:  # --api-only: the phase's own record
+            entry = dict(name=name, route="cuda", max_abs_err=errs[name])
+            kernels.append(entry)
+        entry["api_launches"] = n
 
 
 def finish(t_all, record, kernels, kind, count) -> int:

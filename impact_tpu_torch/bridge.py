@@ -1,5 +1,6 @@
 """Carry state between the JAX reference and the port as numpy arrays: the
-render inputs, and the whole engine state (``SimState``, ``EngineParams``).
+authored ECS world, the render inputs, and the whole engine state
+(``SimState``, ``EngineParams``).
 
 The tests feed both packages the same inputs through here. Like the port's
 other entry points, the functions put tensors on ``cuda`` unless the caller
@@ -13,6 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .ecs import World, component_registry
 from .physics.collision import CollidablePools
 from .physics.driven_motion import MotionDriverPools
 from .physics.forces import ForcePools
@@ -49,6 +51,32 @@ def _tuple(cls, obj, device, fields=None, cast=None):
             v = v.to(cast[f])
         vals[f] = v
     return cls(**vals)
+
+
+def world_from_reference(ref) -> World:
+    """A reference ``World`` copied into the port's, entity by entity (each
+    in the same slot, so in the same order, with the same id) and
+    component by component (each field from the reference's column)."""
+    registry = component_registry()
+    w = World(capacity=ref.capacity)
+    alive = np.nonzero(ref.alive)[0]
+    holes = []  # free slots below the last entity stay free
+    spare_id = max([int(e) for e in ref.entity_ids] + [ref._next_counter_id]) + 1
+    for idx in range(int(alive[-1]) + 1 if alive.size else 0):
+        if not ref.alive[idx]:
+            holes.append(w.create_entity(entity_id=spare_id + idx))
+            continue
+        comps = []
+        for name, cols in ref._columns.items():
+            if cols["__mask__"][idx]:
+                cls = registry[name].cls
+                comps.append(cls(**{f.name: np.array(cols[f.name][idx])
+                                    for f in registry[name].fields}))
+        w.create_entity(*comps, entity_id=int(ref.entity_ids[idx]))
+    for eid in holes:
+        w.remove_entity(eid)
+    w._next_counter_id = ref._next_counter_id
+    return w
 
 
 def render_scene_from_reference(rs, device="cuda") -> RenderScene:

@@ -1,4 +1,5 @@
-"""The reference bench's two configurations.
+"""The reference bench's configurations, with its scenes as ECS worlds
+edited the way ``bench.py`` edits them (``World.set_field``).
 
 * ``bench_config``/``bench_scene`` (``bench.py:139-195``): the voxel-box
   tumbler with 62 boxes of 26³ voxels in 64 object slots of 32³ i8 grids,
@@ -35,7 +36,7 @@
 
 from __future__ import annotations
 
-from ..scene.spec import AbsorbingSphere
+from ..ecs import components as C
 from ..utils.config import EngineConfig
 from .scenes import asteroid, fracturing, voxel_box_tumbler
 
@@ -76,11 +77,22 @@ def bench_config(width: int = WIDTH, height: int = HEIGHT,
 
 
 def bench_scene():
-    return voxel_box_tumbler(N_BOXES, SEED, box_extent=BOX_EXTENT)
+    """``bench.py:182-191``: the tumbler's boxes grown to 26 voxels a side."""
+    world = voxel_box_tumbler(N_BOXES, SEED)
+    for eid in world.entities_with(C.VoxelBox):
+        for f in ("extent_x", "extent_y", "extent_z"):
+            world.set_field(eid, C.VoxelBox, f, BOX_EXTENT)
+    return world
 
 
 def bench_step_scene():
-    return voxel_box_tumbler(N_BOXES, SEED, box_extent=BOX_EXTENT, spacing=STEP_SPACING)
+    """The bench scene with box i at height 6 + 11.5·i."""
+    world = bench_scene()
+    for i, eid in enumerate(world.entities_with(C.VoxelBox)):
+        pos = world.get_component(eid, C.ReferenceFrame).position
+        pos[1] = 6.0 + STEP_SPACING * i
+        world.set_field(eid, C.ReferenceFrame, "position", pos)
+    return world
 
 
 def bench_fracture_config(n_fragments: int = FRACTURE_FRAGMENTS) -> EngineConfig:
@@ -95,7 +107,13 @@ def bench_fracture_config(n_fragments: int = FRACTURE_FRAGMENTS) -> EngineConfig
 
 
 def bench_fracture_scene():
-    return fracturing(impulse_threshold=FRACTURE_THRESHOLD, fracture_radius=FRACTURE_RADIUS)
+    """``bench.py:483-491``: the fracturing scene with the target's fracture
+    radius and impulse threshold set."""
+    world = fracturing()
+    for eid in world.entities_with(C.FracturingProperties):
+        world.set_field(eid, C.FracturingProperties, "fracture_radius", FRACTURE_RADIUS)
+        world.set_field(eid, C.FracturingProperties, "impulse_threshold", FRACTURE_THRESHOLD)
+    return world
 
 
 CHUNKED_SUBMESH_SLOTS, CHUNKED_REMESH_BUDGET = 512, 16
@@ -121,11 +139,15 @@ def bench_chunked_config(grid_size: int) -> EngineConfig:
 
 
 def _chunked(radius_voxels: float):
-    s = asteroid()
-    s.voxel_objects[0].size = (radius_voxels,)
-    s.absorbing_spheres.append(AbsorbingSphere(position=(4.0, 4.0, 0.0), offset=(0.0, 0.0, 0.0),
-                                               radius=3.0, rate=2.0))
-    return s
+    """``bench.py:592-604``: the asteroid's radius set, and the carving
+    absorber."""
+    world = asteroid()
+    for eid in world.entities_with(C.VoxelSphere):
+        world.set_field(eid, C.VoxelSphere, "radius", radius_voxels)
+    world.create_entity(
+        C.ReferenceFrame(position=(4.0, 4.0, 0.0)),
+        C.VoxelAbsorbingSphere(offset=(0.0, 0.0, 0.0), radius=3.0, rate=2.0))
+    return world
 
 
 def bench_chunked_scene(grid_size: int):

@@ -1,15 +1,18 @@
 """Profile engine steps of the bench configurations on one NVIDIA GPU.
 
     python -m impact_tpu_torch.profile_step
-        [--what tumbler|fracture|chunked64|chunked128] [--steps 5]
+        [--what tumbler|fracture|chunked64|chunked128|game] [--steps 5]
         [--trace trace.json] [--top 20]
 
 ``tumbler`` steps the bench tumbler (``models/bench.py:bench_step_scene``,
 fracturing off); ``fracture`` takes steady steps of the fracture bench
 before its event; ``chunked64`` and ``chunked128`` step the filled chunked
 bench scene (``bench_chunked_fill_scene``: the asteroid filling its 64³ or
-128³ grid under the bench's carving absorber, fracturing off). Two warm-up
-steps, then --steps steps timed one by one
+128³ grid under the bench's carving absorber, fracturing off); ``game``
+steps the Voxel Range game's world (``apps/impact_game.py``) past its
+fracture events (100 warm-up steps: the targets shatter on landing and
+their fragments fill the 24 object slots). Two warm-up steps (100 for
+``game``), then --steps steps timed one by one
 (wall ms after ``torch.cuda.synchronize``), then the same number under
 ``torch.profiler``. Prints the card (nvidia-smi name, power.limit), the
 median step, the host syncs per step, the device busy share and the CUDA
@@ -30,7 +33,7 @@ import time
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--what", choices=("tumbler", "fracture", "chunked64", "chunked128"),
+    ap.add_argument("--what", choices=("tumbler", "fracture", "chunked64", "chunked128", "game"),
                     default="tumbler")
     ap.add_argument("--steps", type=int, default=5, help="steps timed, then profiled")
     ap.add_argument("--trace", default=None, help="write a Chrome trace of the profiled steps")
@@ -58,11 +61,16 @@ def main(argv=None) -> int:
         cfg = bench.bench_chunked_config(g)
         rt = HeadlessRuntime(compile_scene(bench.bench_chunked_fill_scene(g), cfg), cfg,
                              enable_fracturing=False)
+    elif args.what == "game":
+        from .apps import impact_game
+
+        cfg = impact_game.range_config()
+        rt = HeadlessRuntime(compile_scene(impact_game.build_range_world(), cfg), cfg)
     else:
         cfg = bench.bench_config()
         rt = HeadlessRuntime(compile_scene(bench.bench_step_scene(), cfg), cfg,
                              enable_fracturing=False)
-    rt.step(2)
+    rt.step(100 if args.what == "game" else 2)
     times, syncs = [], rt.host_syncs
     for _ in range(args.steps):
         rt.step(1)

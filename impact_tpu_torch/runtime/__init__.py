@@ -1,4 +1,11 @@
-from .headless import HeadlessRuntime
-from .setup import SceneBuild, compile_scene, render_config_from_engine_config
+"""Engine runtime (port of ``impact_tpu/runtime``; ref: engine/src — Engine,
+Runtime, headless run loop)."""
 
-__all__ = ["HeadlessRuntime", "SceneBuild", "compile_scene", "render_config_from_engine_config"]
+from . import checkpoint, command
+from .engine import EngineParams, SimState, make_engine_step
+from .headless import HeadlessRuntime
+from .setup import SceneBuild, compile_scene, register_texture, render_config_from_engine_config
+
+__all__ = ["SimState", "EngineParams", "make_engine_step", "HeadlessRuntime", "SceneBuild",
+           "compile_scene", "register_texture", "render_config_from_engine_config",
+           "checkpoint", "command"]

@@ -237,10 +237,13 @@ def remesh_objects(sub: VoxelObjectPool, merge_levels: int, vert_cap: int, tri_c
 
 
 def make_engine_step(params: EngineParams, config, mesh_vert_cap: int, mesh_tri_cap: int,
+                     enable_voxel_contacts: bool = True, enable_absorption: bool = True,
                      enable_splitting: bool = True, enable_fracturing: bool = True,
                      fracture_uniforms=None):
     """The engine step ``step(sim) -> SimState`` for the scene constants
-    ``params``, with the features fixed. Up to ``remesh_budget`` dirty objects are synced and re-meshed
+    ``params``, with the features fixed (ref: runtime/engine.py:214-222:
+    without voxel contacts the physics step gets no probe contacts, without
+    absorption the absorbers carve nothing). Up to ``remesh_budget`` dirty objects are synced and re-meshed
     per step (as the reference: max_fracture_fragments × max_fracture_events
     with fracturing, else 4; the rest stay dirty). ``fracture_uniforms(
     generator, n_seeds)`` draws an event's uniforms (default
@@ -262,7 +265,8 @@ def make_engine_step(params: EngineParams, config, mesh_vert_cap: int, mesh_tri_
     draw = fracture_uniforms or draw_fracture_uniforms
     # scenes without absorbers skip the pass, without distance rules the
     # rules (the pools are scene constants)
-    absorb = bool(params.absorbers.sph_mask.any() or params.absorbers.cap_mask.any())
+    absorb = enable_absorption and bool(params.absorbers.sph_mask.any()
+                                        or params.absorbers.cap_mask.any())
     rules = params.dist_rules is not None and bool(params.dist_rules.mask.any())
 
     def host(t):
@@ -383,7 +387,8 @@ def make_engine_step(params: EngineParams, config, mesh_vert_cap: int, mesh_tri_
             phys, pool = apply_distance_rules(phys, pool, params.dist_rules,
                                               params.casts_shadows_base)
         phys = physics_step(phys, params.phys_params, dt, n_substeps, solver_cfg, max_contacts,
-                            tc.solver_mode, extra_contacts(pool, sim.probes))
+                            tc.solver_mode,
+                            extra_contacts(pool, sim.probes) if enable_voxel_contacts else None)
         absorb_changed = absorb_chunks = None
         if absorb:
             pool, absorb_changed, absorb_chunks = absorption(phys, pool)

@@ -1,18 +1,28 @@
 """Headless runtime: steps and renders a compiled scene without a window.
 
 Port of ``impact_tpu/runtime/headless.py`` (ref: engine/src/runtime/
-headless.rs). ``step(n)`` advances the engine step n times; ``render()``
-runs the four render stages — scene assembly + geometry pass, shadow pass,
-deferred shading (with the scene's texture set when textured), postprocess
-— in float32 on the current state;
-``step_and_render()`` does one of each. Wall milliseconds are recorded in
-``stage_ms`` (render stages) and ``step_ms`` (the last ``step`` call),
-measured between ``torch.cuda.synchronize()`` calls when the scene lives on
-the card.
+headless.rs, engine/src/engine/game_loop.rs:17-72). ``step(n)`` advances
+the engine step n times, after applying the queued commands, and not at
+all while ``paused``; ``render()`` runs the four render stages — scene
+assembly + geometry pass, shadow pass, deferred shading (with the scene's
+texture set when textured), postprocess — in float32 on the current state;
+``step_and_render()`` does one of each, ``run(n_frames, render_every)`` the
+game loop. Wall milliseconds are recorded in ``stage_ms`` (render stages),
+``step_ms`` (the last ``step`` call), ``timer`` (a TaskTimer by label) and
+``metrics`` (smoothed frame durations of ``run``), measured between
+``torch.cuda.synchronize()`` calls when the scene lives on the card.
+
+The port makes one engine step per ``step`` call: the reference's
+``tpu.steps_per_dispatch`` batching is a JAX dispatch device and the field
+is only carried. Commands (``enqueue_command``), checkpoints, ``profile``
+(a torch.profiler Chrome trace), a custom voxel-type ``registry`` (dense
+path) and the feature flags follow the reference runtime's surface.
 """
 
 from __future__ import annotations
 
+import contextlib
+import os
 import time
 
 import torch
@@ -26,10 +36,13 @@ from ..render.pipeline import (
     shadow_pass,
 )
 from ..scene.assembly import build_render_scene
+from ..scene.materials import VoxelTypeRegistry, material_corner_table, registry_to
 from ..utils.config import EngineConfig
+from ..utils.timing import EngineMetrics, TaskTimer
 from ..voxel.chunk_mesh import ChunkMeshPool
 from ..voxel.collision import GRID_BROAD_PHASE_MIN_OBJECTS, bounding_radii, broad_phase_pairs
 from ..voxel.interaction import _chunk_absorber_hit, deferred_absorption_count
+from ..voxel.mesh import bake_mesh_materials
 from .engine import make_engine_step
 from .setup import SceneBuild, render_config_from_engine_config
 
@@ -37,24 +50,57 @@ from .setup import SceneBuild, render_config_from_engine_config
 class HeadlessRuntime:
     """Owns the simulation state, the engine step and the render."""
 
-    def __init__(self, build: SceneBuild, config: EngineConfig, enable_fracturing: bool = True,
-                 enable_splitting: bool = True, fracture_uniforms=None):
+    def __init__(self, build: SceneBuild, config: EngineConfig,
+                 registry: VoxelTypeRegistry | None = None, enable_fracturing: bool = True,
+                 enable_absorption: bool = True, enable_splitting: bool = True,
+                 fracture_uniforms=None):
         self.config = config
         self.params = build.params
         self.info = build.info
         self.sim = build.sim
-        self._initial_sim = build.sim
-        self._initial_rng = build.sim.rng.get_state()
+        if registry is not None:
+            # a custom registry: rebake the scene's material table and meshes
+            # (compile_scene baked with the registry it was given)
+            if isinstance(self.sim.meshes, ChunkMeshPool):
+                raise NotImplementedError(
+                    "a registry rebake of a chunked scene needs the chunk-submesh pool's "
+                    "top-2 type blend (ROADMAP.md Queue 1.6)")
+            table = material_corner_table(registry_to(registry, self.device))
+            self.params = self.params._replace(material_table=table)
+            self.sim = self.sim._replace(meshes=bake_mesh_materials(self.sim.meshes, table))
+        self._initial_sim = self.sim
+        self._initial_rng = self.sim.rng.get_state()
+        self._features = dict(enable_absorption=enable_absorption,
+                              enable_splitting=enable_splitting,
+                              enable_fracturing=enable_fracturing)
+        self._fracture_uniforms = fracture_uniforms
+        self.metrics = EngineMetrics()
+        self.timer = TaskTimer()
+        self.paused = False
+        self.command_queue = None  # created by the first enqueue_command
+        self._step = None
+        self._earlier_host_syncs = 0  # host reads of the steps that rebuilds replaced
+        self.invalidate_step()
         self.invalidate_render()
-        self._step = make_engine_step(
-            self.params, config, self.info["mesh_vert_cap"], self.info["mesh_tri_cap"],
-            enable_splitting=enable_splitting, enable_fracturing=enable_fracturing,
-            fracture_uniforms=fracture_uniforms)
         self.stage_ms: dict = {}
         self.step_ms = 0.0
         self.last_gbuffer = None
         self.last_hdr = None
         self.last_drops = (0, 0)  # (geometry, shadow) raster drops of the last render
+
+    @property
+    def device(self) -> torch.device:
+        return self.sim.phys.bodies.position.device
+
+    def invalidate_step(self):
+        """(Re)build the engine step from the config and the feature flags;
+        the physics commands call it. ``host_syncs`` keeps counting across a
+        rebuild."""
+        if self._step is not None:
+            self._earlier_host_syncs += self._step.host_syncs
+        self._step = make_engine_step(
+            self.params, self.config, self.info["mesh_vert_cap"], self.info["mesh_tri_cap"],
+            fracture_uniforms=self._fracture_uniforms, **self._features)
 
     def invalidate_render(self):
         """Derive the render configuration and the texture set from the
@@ -84,22 +130,25 @@ class HeadlessRuntime:
 
     @property
     def host_syncs(self) -> int:
-        """Device reads the engine step has made for its branches so far."""
-        return self._step.host_syncs
+        """Device reads the engine steps have made for their branches so far."""
+        return self._earlier_host_syncs + self._step.host_syncs
 
     def _sync(self):
-        pos = self.sim.phys.bodies.position
-        if pos.is_cuda:
-            torch.cuda.synchronize(pos.device)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     def step(self, n: int = 1):
-        """Advance the simulation ``n`` steps (no rendering)."""
+        """Apply the queued commands, then advance the simulation ``n``
+        steps (no rendering); a no-op while paused."""
+        self.apply_commands()
+        if self.paused:
+            return self.sim
         self._sync()
         t0 = time.perf_counter()
-        with fp32_render():  # the jacobi one-hot products in full float32
+        with self.timer.time("step", block_on=self.device), fp32_render():
+            # fp32_render: the jacobi one-hot products in full float32
             for _ in range(n):
                 self.sim = self._step(self.sim)
-        self._sync()
         self.step_ms = (time.perf_counter() - t0) * 1e3
         return self.sim
 
@@ -108,11 +157,83 @@ class HeadlessRuntime:
         self.step(1)
         return self.render()
 
+    def run(self, n_frames: int, render_every: int = 0, screenshot_path=None):
+        """The game loop: step each frame, render every ``render_every``-th
+        frame (from frame 0) and, with ``screenshot_path``, save it there as
+        ``frame_NNNNN.png``; returns the rendered frames and records each
+        frame's duration in ``metrics`` (ref: game_loop max_iterations)."""
+        images = []
+        for i in range(n_frames):
+            t0 = time.perf_counter()
+            self.step()
+            if render_every and i % render_every == 0:
+                img = self.render()
+                images.append(img)
+                if screenshot_path:
+                    from ..utils.image import save_png
+
+                    save_png(os.path.join(screenshot_path, f"frame_{i:05d}.png"),
+                             img.cpu().numpy())
+            self.metrics.record_frame(time.perf_counter() - t0)
+        self.metrics.last_task_execution_times = self.timer.drain()
+        return images
+
+    # --- commands, checkpoints, reset, profile ------------------------------------
+    def enqueue_command(self, category: str, action: str, value=None):
+        """Queue a command for the next ``step`` (``runtime/command.py``)."""
+        from .command import Command, CommandQueue
+
+        if self.command_queue is None:
+            self.command_queue = CommandQueue()
+        self.command_queue.enqueue(Command(category, action, value))
+
+    def apply_commands(self):
+        """Drain the queued commands (runs at each ``step``)."""
+        if self.command_queue is not None:
+            from .command import execute_commands
+
+            execute_commands(self, self.command_queue)
+
     def reset_world(self):
         """Restore the initial scene state and the fracture generator
         (ref: SystemAdminCommand::ResetWorld)."""
         self.sim = self._initial_sim
         self.sim.rng.set_state(self._initial_rng)
+
+    def save_checkpoint(self, path, metadata=None):
+        from .checkpoint import save_checkpoint
+
+        return save_checkpoint(path, self.sim, metadata)
+
+    def load_checkpoint(self, path):
+        """Resume from a checkpoint of this scene (the port's, or one that
+        impact_tpu wrote of the same scene); returns its metadata."""
+        from .checkpoint import load_checkpoint
+
+        self.sim, meta = load_checkpoint(path, self.sim, device=self.device)
+        return meta
+
+    @contextlib.contextmanager
+    def profile(self, log_dir):
+        """A torch.profiler trace of everything run inside the context, with
+        CUDA activity when the scene is on the card, written to
+        ``log_dir/trace.json`` (Chrome trace format; open it in
+        ui.perfetto.dev). Yields the profiler (``key_averages()``)::
+
+            with rt.profile("traces"):
+                rt.step(10); rt.render()
+        """
+        from torch.profiler import ProfilerActivity
+        from torch.profiler import profile as torch_profile
+
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        os.makedirs(log_dir, exist_ok=True)
+        with torch_profile(activities=activities) as prof:
+            yield prof
+            self._sync()
+        prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
     def scene(self):
         """The compacted corner-major RenderScene of the current state."""
@@ -130,7 +251,7 @@ class HeadlessRuntime:
         p, rc = self.params, self.render_config
         state = self.sim.render
         times = {}
-        with fp32_render():
+        with self.timer.time("render"), fp32_render():
             self._sync()
             t0 = time.perf_counter()
             scene = self.scene()
@@ -185,6 +306,8 @@ class HeadlessRuntime:
         beyond the gate cap."""
         s, tc = self.sim, self.config.tpu
         b = s.phys.bodies
+        if not self._features["enable_absorption"]:
+            return 0  # a disabled pass defers nothing
         if tc.chunked_remesh:
             hit = _chunk_absorber_hit(s.voxels, self.params.absorbers, b.position, b.orientation)
             return max(int(hit.sum()) - tc.absorption_chunk_budget, 0)

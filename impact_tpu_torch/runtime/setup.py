@@ -1,33 +1,37 @@
-"""Scene compilation: a plain-data scene → the simulation state and the
-scene constants.
+"""Scene compilation: an ECS world → the simulation state and the scene
+constants (port of ``impact_tpu/runtime/setup.py``; ref: engine/src/
+setup.rs:18-69, the entity-setup pipeline).
 
-Port of ``impact_tpu/runtime/setup.py:compile_scene`` for the component kinds
-of the built-in scenes — camera, ambient light, omni and unidirectional
-lights (plain or shadowable), y-up ground planes (static planar
-collidables), voxel boxes, spheres and capsules (dynamic, or static ones
-that start kinematic) with motion, contact response, gravity, fracture
-properties, a multifractal noise modifier and noise-mixed voxel types,
-absorbing spheres and capsules on kinematic bodies, rigid bodies (dynamic
-by substance, with analytic mass and inertia, or by explicit inertia, else
-kinematic; sphere, capsule and plane collidables, phantoms included;
-constant acceleration, local forces, dynamic gravity, detailed drag with
-its drag-load map, alignment torques; the circular, harmonic, rotation and
-orbital drivers; a mesh), box, sphere and capsule mesh entities with
-uniform or textured materials (lowered into texture-array layers),
-spherical joints and distance rules — plus
+``compile_scene(world, config)`` takes a :class:`~impact_tpu_torch.ecs.World`
+as the reference's does. ``scene.spec.lower_world`` first reads the world in
+the reference's passes and order into the lowered records of
+``scene/spec.py`` (stripping the setup components it consumed), and the
+compile turns those into device state: camera, ambient light, omni and
+unidirectional lights (plain or shadowable), voxel boxes, spheres and
+capsules (dynamic, or static ones that start kinematic) with motion,
+contact response, gravity, fracture properties, a multifractal noise
+modifier and noise-mixed voxel types, regular bodies (dynamic by substance,
+with analytic mass and inertia, or by explicit inertia, else kinematic;
+sphere, capsule and plane collidables, phantoms included; constant
+acceleration, local forces, dynamic gravity, detailed drag with its
+drag-load map, alignment torques; the circular, harmonic, rotation and
+orbital drivers; absorbing spheres and capsules), box, sphere and capsule
+mesh entities with uniform or textured materials (lowered into
+texture-array layers, textures resolved by their FNV-1a ids through
+:func:`register_texture`), spherical joints and distance rules — plus
 ``_build_static_geometry`` and ``render_config_from_engine_config``. A
 scene may be empty (no voxel object, no triangle). Slot layout and order
 follow the reference: voxel object i binds body ``max_bodies -
-max_voxel_objects + i``; ground planes, then absorbers, then rigid
-bodies take the regular bodies 0, 1, ...; mesh entities take
-mesh-instance slots in the same order; forces
-are applied once before the voxel bodies' mass sync (so the first step's
-accumulated gravity uses the default unit mass, as the reference's does);
-each object's body origin is moved to its centre of mass; identical shapes
-are voxelized once. Scene floats are rounded to float32 first, as the
-reference's ECS columns store them. On chunked grids the surfaces are
-meshed into the shared chunk-submesh pool in budgeted passes, and a pool
-too small for the scene's surface chunks raises, as the reference's does.
+max_voxel_objects + i``; the regular bodies take bodies 0, 1, ... in
+entity order, and so do their collidables, forces, drivers and absorbers
+within each pool; mesh entities take mesh-instance slots in entity order;
+forces are applied once before the voxel bodies' mass sync (so the first
+step's accumulated gravity uses the default unit mass, as the reference's
+does); each object's body origin is moved to its centre of mass; identical
+shapes are voxelized once. Floats come from the world's float32 columns, as
+the reference's do. On chunked grids the surfaces are meshed into the
+shared chunk-submesh pool in budgeted passes, and a pool too small for the
+scene's surface chunks raises, as the reference's does.
 """
 
 from __future__ import annotations
@@ -61,7 +65,12 @@ from ..scene.assembly import (
     empty_static_geometry,
     ground_plane_geometry,
 )
-from ..scene.materials import VoxelTypeRegistry, default_registry, material_corner_table
+from ..scene.materials import (
+    VoxelTypeRegistry,
+    default_registry,
+    material_corner_table,
+    registry_to,
+)
 from ..scene.spec import (
     CameraSpec,
     CircularTrajectorySpec,
@@ -69,8 +78,9 @@ from ..scene.spec import (
     HarmonicOscillationSpec,
     MeshSpec,
     OrbitalTrajectorySpec,
-    PlaneCollidableSpec,
+    lower_world,
 )
+from ..utils.hashing import hash_str_to_u64
 from ..utils.config import EngineConfig
 from ..voxel import sdf as sdflib
 from ..voxel.chunk_mesh import (
@@ -122,9 +132,26 @@ class SceneBuild:
         return self.params.camera
 
 
-def _build_static_geometry(ground_planes, device) -> StaticGeometry:
-    """Render quads for the y-up planar collidables, baked corner-major."""
-    parts = [ground_plane_geometry(y=y, device=device) for y in ground_planes]
+# Texture sources referenced by the Textured*/NormalMap/ParallaxMap setup
+# components, keyed by the FNV-1a hash of their name (ref: impact_texture
+# TextureID = hash of the texture name)
+TEXTURE_SOURCES: dict[int, object] = {}
+
+
+def register_texture(name: str, source) -> int:
+    """Register a texture for the textured-material setup components;
+    returns its FNV-1a id. ``source``: an image file path (PNG) or a float
+    array [H,W] or [H,W,C] in [0,1]."""
+    h = int(hash_str_to_u64(str(name)))
+    TEXTURE_SOURCES[h] = source
+    return h
+
+
+def _build_static_geometry(ground_planes, device, user_geometry=None) -> StaticGeometry:
+    """The caller's static geometry, then render quads for the y-up planar
+    collidables, baked corner-major."""
+    parts = [] if user_geometry is None else [user_geometry]
+    parts += [ground_plane_geometry(y=y, device=device) for y in ground_planes]
     if not parts:
         return empty_static_geometry(device)
     return bake_static_geometry_corners(concat_static_geometry(parts))
@@ -179,16 +206,16 @@ def _collidable_pools(spheres, planes, capsules, n_bodies: int, dev) -> Collidab
     )
 
 
-def _resolve_texture(textures: dict, name, resolution: int, srgb: bool):
-    """A scene texture by name → float [S,S,C]: PNG paths are decoded (sRGB
-    to linear when ``srgb``) and Lanczos-resized, arrays resized
+def _resolve_texture(textures: dict, tid, resolution: int, srgb: bool):
+    """A texture by id → float [S,S,C]: PNG paths are decoded (sRGB to
+    linear when ``srgb``) and Lanczos-resized, arrays resized
     nearest-neighbour, as the reference resolves a registered texture id.
-    A name the scene lacks raises KeyError."""
+    An id that was never registered raises KeyError."""
     from ..render.textures import _resize_nearest, load_image_layer
 
-    if name not in textures:
-        raise KeyError(f"texture {name!r} is not in the scene's textures")
-    src = textures[name]
+    if tid not in textures:
+        raise KeyError(f"texture id {tid:#x} not registered (register_texture)")
+    src = textures[tid]
     if isinstance(src, (str, bytes)):
         return load_image_layer(src, resolution=resolution, srgb=srgb)
     arr = np.asarray(src, np.float32)
@@ -289,10 +316,8 @@ def _f32(x) -> float:
 
 
 def _fill_driver(drivers: dict, d, bi: int, slot, vec):
-    """Write motion driver ``d`` (a scene.spec *Spec, or None) of body
-    ``bi`` into the next slot of its pool (ref: runtime/setup.py:777-827)."""
-    if d is None:
-        return
+    """Write motion driver ``d`` (a scene.spec *Spec) of body ``bi`` into the
+    next slot of its pool (ref: runtime/setup.py:777-827)."""
     if isinstance(d, CircularTrajectorySpec):
         key, vals = "circ", dict(center=vec(d.center), radius=_f32(d.radius),
                                  speed=_f32(d.angular_speed), axis=vec(d.axis),
@@ -316,14 +341,13 @@ def _fill_driver(drivers: dict, d, bi: int, slot, vec):
     drivers[f"{key}_mask"][j] = True
 
 
-def _entity_bodies(scene, plane_bodies, rigid_bodies, n_regular: int):
+def _entity_bodies(n_regular: int):
     """(list name, index) → body slot, for joints and distance rules."""
-    lists = {"ground_plane": plane_bodies, "rigid_body": rigid_bodies,
-             "voxel_object": [n_regular + i for i in range(len(scene.voxel_objects))]}
+    first = {"rigid_body": 0, "voxel_object": n_regular}
 
     def body_of(ref):
         kind_, i = ref
-        return lists[kind_][i]
+        return first[kind_] + i
 
     return body_of
 
@@ -391,24 +415,27 @@ def _object_grids(ob, g: int, i8: bool, dev):
     return grid, vt, ve, org
 
 
-def _absorber_pools(scene, first_body: int, dev):
-    """Absorber pools (8 of each kind, as the reference's) with each
-    absorber on the regular body after the previous one."""
-    sph, cap = scene.absorbing_spheres, scene.absorbing_capsules
+def _absorber_pools(bodies, dev):
+    """Absorber pools (8 of each kind, as the reference's) in regular-body
+    order; ``bodies`` lists the regular bodies."""
+    sph = [(bi, rb.absorbing_sphere) for bi, rb in enumerate(bodies)
+           if rb.absorbing_sphere is not None]
+    cap = [(bi, rb.absorbing_capsule) for bi, rb in enumerate(bodies)
+           if rb.absorbing_capsule is not None]
     pools = empty_absorber_pools(max(8, len(sph), len(cap)), device=dev)
     f = {k: v.clone() for k, v in pools._asdict().items()}
 
     def vec(x):
         return torch.tensor([_f32(e) for e in x], dtype=torch.float32, device=dev)
 
-    for j, a in enumerate(sph):
-        f["sph_body"][j] = first_body + j
+    for j, (bi, a) in enumerate(sph):
+        f["sph_body"][j] = bi
         f["sph_offset"][j] = vec(a.offset)
         f["sph_radius"][j] = _f32(a.radius)
         f["sph_rate"][j] = _f32(a.rate)
         f["sph_mask"][j] = True
-    for j, a in enumerate(cap):
-        f["cap_body"][j] = first_body + len(sph) + j
+    for j, (bi, a) in enumerate(cap):
+        f["cap_body"][j] = bi
         f["cap_start"][j] = vec(a.segment_start)
         f["cap_end"][j] = vec(a.segment_end)
         f["cap_radius"][j] = _f32(a.radius)
@@ -438,16 +465,22 @@ def _chunk_meshes(pool, tc, material_table, dev):
     return meshes
 
 
-def compile_scene(scene, config: EngineConfig, registry: VoxelTypeRegistry | None = None,
-                  device="cuda", rng_seed: int = 0) -> SceneBuild:
-    """Lower a :class:`~impact_tpu_torch.scene.spec.Scene` into device
-    state. The fracture generator is a ``torch.Generator`` on the device,
-    seeded with ``rng_seed``."""
+def compile_scene(world, config: EngineConfig, registry: VoxelTypeRegistry | None = None,
+                  sdf_generators: dict | None = None, static_geometry: StaticGeometry | None = None,
+                  rng_seed: int = 0, device="cuda") -> SceneBuild:
+    """Lower the ECS ``world`` into device state (the setup pipeline),
+    stripping the setup components it consumed from the world, as the
+    reference does. ``static_geometry``: render geometry drawn before the
+    ground quads. The fracture generator is a ``torch.Generator`` on the
+    device, seeded with ``rng_seed``. ``sdf_generators`` (with
+    GeneratedVoxelObject) raises NotImplementedError until the SDF graph
+    nodes are ported."""
     dev = torch.device(device)
-    registry = registry or default_registry(dev)
     tc = config.tpu
     if tc.chunked_remesh is None:
         tc.chunked_remesh = tc.voxel_grid_size >= 64  # resolved in place, as the reference does
+    scene = lower_world(world, TEXTURE_SOURCES, sdf_generators)
+    registry = registry_to(registry or default_registry(), dev)
     o_max = tc.max_voxel_objects
     g = tc.voxel_grid_size
     n_regular = tc.max_bodies - o_max
@@ -456,8 +489,7 @@ def compile_scene(scene, config: EngineConfig, registry: VoxelTypeRegistry | Non
         raise ValueError("max_bodies must exceed max_voxel_objects")
     if len(objects) > o_max:
         raise ValueError("voxel object pool exhausted")
-    n_absorbers = len(scene.absorbing_spheres) + len(scene.absorbing_capsules)
-    if len(scene.ground_planes) + n_absorbers + len(scene.rigid_bodies) > n_regular:
+    if len(scene.rigid_bodies) > n_regular:
         raise ValueError("regular body pool exhausted")
     i8 = tc.sdf_encoding == "i8"
 
@@ -527,16 +559,8 @@ def compile_scene(scene, config: EngineConfig, registry: VoxelTypeRegistry | Non
                            origin=origin, sdf=sdf, vtype=vtype, mesh_dirty=alive.clone(),
                            split_pending=torch.zeros_like(alive), casts_shadows=casts)
 
-    # --- pass 2: ground planes, then absorbers (kinematic), then the rigid
-    #     bodies take regular bodies 0, 1, ... ---------------------------------------
-    plane_bodies = list(range(len(scene.ground_planes)))
-    n_planes = len(plane_bodies)
-    for bi in range(n_planes + n_absorbers):
-        kind[bi] = KIND_KINEMATIC
-    for j, a in enumerate(scene.absorbing_spheres + scene.absorbing_capsules):
-        position[n_planes + j] = vec([_f32(e) for e in a.position])
-    absorbers = _absorber_pools(scene, n_planes, dev)
-    rigid_bodies = [n_planes + n_absorbers + j for j in range(len(scene.rigid_bodies))]
+    # --- pass 2: the regular bodies take bodies 0, 1, ... in entity order ---------
+    absorbers = _absorber_pools(scene.rigid_bodies, dev)
     mass, inv_mass = b.mass.clone(), b.inv_mass.clone()
     inertia_body, inv_inertia_body = b.inertia_body.clone(), b.inv_inertia_body.clone()
 
@@ -552,13 +576,7 @@ def compile_scene(scene, config: EngineConfig, registry: VoxelTypeRegistry | Non
         accel_mask[n_accel] = True
         n_accel += 1
 
-    sph_coll = []
-    pln_coll = [(bi, PlaneCollidableSpec(displacement=p.y, response=(
-        p.restitution, p.static_friction, p.dynamic_friction)))
-        for p, bi in zip(scene.ground_planes, plane_bodies)]
-    cap_coll = []
-    ground_ys = [p.y for p in scene.ground_planes]
-    mesh_records = []
+    sph_coll, pln_coll, cap_coll, ground_ys = [], [], [], []
     drivers = {k: v.clone() for k, v in empty_motion_driver_pools(device=dev)._asdict().items()}
     fp = {k: v.clone() for k, v in forces._asdict().items()
           if not k.startswith(("const_accel", "medium"))}
@@ -574,7 +592,7 @@ def compile_scene(scene, config: EngineConfig, registry: VoxelTypeRegistry | Non
         counts[pool_name] += 1
         return j
 
-    for rb, bi in zip(scene.rigid_bodies, rigid_bodies):
+    for bi, rb in enumerate(scene.rigid_bodies):
         kind[bi] = KIND_DYNAMIC if rb.dynamic else KIND_KINEMATIC
         position[bi] = vec([_f32(e) for e in rb.position])
         orientation[bi] = vec([_f32(e) for e in rb.orientation])
@@ -654,10 +672,10 @@ def compile_scene(scene, config: EngineConfig, registry: VoxelTypeRegistry | Non
             fp["align_strength"][j] = _f32(at.strength)
             fp["align_damping"][j] = _f32(at.damping)
             fp["align_mask"][j] = True
-        _fill_driver(drivers, rb.driver, bi, slot, vec)
-        if rb.mesh is not None:
-            mesh_records.append((rb.mesh, bi, rb.position, rb.orientation))
-    mesh_records += [(me.mesh, -1, me.position, me.orientation) for me in scene.mesh_entities]
+        for d in rb.drivers:
+            _fill_driver(drivers, d, bi, slot, vec)
+    mesh_records = [(me.mesh, -1 if me.body is None else me.body, me.position, me.orientation)
+                    for me in scene.mesh_entities]
     if drag_tables:
         fp["drag_map_table"] = torch.from_numpy(np.stack(drag_tables)).to(dev)
     bodies = b._replace(kind=kind, position=position, orientation=orientation,
@@ -670,7 +688,7 @@ def compile_scene(scene, config: EngineConfig, registry: VoxelTypeRegistry | Non
         medium_velocity=vec(config.physics.medium.velocity),
     )
     phys = phys._replace(bodies=apply_forces_and_torques(bodies, forces))
-    body_of = _entity_bodies(scene, plane_bodies, rigid_bodies, n_regular)
+    body_of = _entity_bodies(n_regular)
     joints = _joint_pools(scene.joints, body_of, dev)
     dist_rules = _distance_rule_pools(scene.distance_rules, body_of, dev)
     mesh_instances, entity_layers = _mesh_instances(mesh_records, scene.textures, tc, dev)
@@ -723,7 +741,7 @@ def compile_scene(scene, config: EngineConfig, registry: VoxelTypeRegistry | Non
         lights=lights, absorbers=absorbers, type_density=registry.mass_density, voxel_response=voxel_response,
         fracturable=fracturable, fracture_threshold=fracture_threshold,
         fracture_radius=fracture_radius, camera=camera,
-        static_geometry=_build_static_geometry(ground_ys, dev),
+        static_geometry=_build_static_geometry(ground_ys, dev, static_geometry),
         material_table=material_table, mesh_instances=mesh_instances,
         dist_rules=dist_rules, casts_shadows_base=casts.clone(),
     )
@@ -764,26 +782,40 @@ def compile_scene(scene, config: EngineConfig, registry: VoxelTypeRegistry | Non
         render=init_render_state(render_config_from_engine_config(config), dev),
         prev_position=bodies.position, prev_orientation=bodies.orientation, rng=generator,
     )
-    info = dict(mesh_vert_cap=vert_cap, mesh_tri_cap=tri_cap,
+    info = dict(voxel_objects=[dict(entity=ob.entity, slot=i, body=n_regular + i)
+                               for i, ob in enumerate(objects)],
+                mesh_vert_cap=vert_cap, mesh_tri_cap=tri_cap,
                 n_voxel_objects=len(objects), n_unique_shapes=len(uniq),
-                n_regular_bodies=n_planes + n_absorbers + len(rigid_bodies),
+                n_regular_bodies=len(scene.rigid_bodies),
                 entity_texture_layers=entity_layers)
     return SceneBuild(sim=sim, params=params, info=info)
 
 
+# the reference's raster backends → the port's: its Pallas kernel is K1
+RASTER_BACKENDS = {"auto": "kernel", "pallas": "kernel", "xla": "raster"}
+
+
 def render_config_from_engine_config(config: EngineConfig) -> RenderConfig:
+    """The render configuration of an engine config. Tone mapping and the
+    sensor sensitivity take the RON forms (a ``ron.Variant``, and RON's
+    ``None`` for the None tone mapping, ref: runtime/setup.py:1291-1304) and
+    the plain ones (a string; a dict of ``ev_compensation`` or ``iso``)
+    alike; the reference's raster backends name the port's."""
     r = config.rendering
     cc = r.capturing_camera
     cam = cc.settings
-    ev, iso = 0.0, None
-    if isinstance(cam.sensitivity, dict):
-        ev = cam.sensitivity.get("ev_compensation", 0.0)
-        iso = cam.sensitivity.get("iso")
+    sens = cam.sensitivity
+    fields = sens if isinstance(sens, dict) else getattr(sens, "fields", None) or {}
+    ev = fields.get("ev_compensation", 0.0)
+    # Manual { iso } (ref: capturing.rs SensorSensitivity) fixes the exposure
+    iso = fields.get("iso") if getattr(sens, "name", "Manual") == "Manual" or "iso" in fields \
+        else None
     tone = cc.dynamic_range_compression.tone_mapping_method
+    tone = "None" if tone is None else getattr(tone, "name", tone)
     big = config.tpu.render_height >= 720
     return RenderConfig(
         textured=config.tpu.textured_voxels,
-        raster_backend=config.tpu.raster_backend,
+        raster_backend=RASTER_BACKENDS.get(config.tpu.raster_backend, config.tpu.raster_backend),
         view_culling=config.tpu.view_culling,
         exposure_iso=iso,
         relative_aperture=cam.relative_aperture,
@@ -808,7 +840,7 @@ def render_config_from_engine_config(config: EngineConfig) -> RenderConfig:
         luminance_lower=cc.average_luminance_computation.luminance_bounds.lower,
         luminance_upper=cc.average_luminance_computation.luminance_bounds.upper,
         exposure_current_frame_weight=cc.average_luminance_computation.current_frame_weight,
-        tone_mapping="None" if tone is None else tone,
+        tone_mapping=str(tone),
         shadows_enabled=r.shadow_mapping.enabled,
         csm_cascades=config.tpu.csm_cascades,
         soft_shadows=config.tpu.soft_shadows,

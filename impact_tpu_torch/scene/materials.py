@@ -8,6 +8,8 @@ from typing import NamedTuple, Sequence
 
 import torch
 
+from ..utils import ron
+
 
 class VoxelTypeRegistry(NamedTuple):
     n_types: int
@@ -37,6 +39,27 @@ def make_voxel_type_registry(specs: Sequence[dict], device=None) -> VoxelTypeReg
         emissive_luminance=col("emissive_luminance", 0.0),
         names=tuple(s.get("name", f"type{i}") for i, s in enumerate(specs)),
     )
+
+
+def registry_from_ron_file(path, device=None) -> VoxelTypeRegistry:
+    """Load the reference's voxel-types RON format (ref: voxel_types.rs
+    VoxelTypeSpecification list): a list of specs, or a struct holding one
+    under ``voxel_types``."""
+    data = ron.load(path)
+    if isinstance(data, dict) and "voxel_types" in data:
+        data = data["voxel_types"]
+    specs = []
+    for entry in data:
+        if isinstance(entry, ron.Variant):
+            entry = entry.fields or {}
+        specs.append(dict(entry))
+    return make_voxel_type_registry(specs, device=device)
+
+
+def registry_to(registry: VoxelTypeRegistry, device) -> VoxelTypeRegistry:
+    """The registry with its tensors on ``device``."""
+    return registry._replace(**{k: v.to(device) for k, v in registry._asdict().items()
+                                if isinstance(v, torch.Tensor)})
 
 
 def default_registry(device=None) -> VoxelTypeRegistry:

@@ -1,23 +1,51 @@
-"""A scene as plain data: the records that ``runtime.setup.compile_scene``
-lowers into device state.
+"""The lowered form of an ECS world: the records that
+``runtime.setup.compile_scene`` turns into device state, and
+:func:`lower_world`, which reads a :class:`~impact_tpu_torch.ecs.World`
+into them.
 
-The reference builds an ECS world; the port has no ECS, so a scene is a
-:class:`Scene` record holding exactly what the compile reads, with voxel
-objects in the reference's entity order (which fixes their object and body
-slots). Regular bodies go to ground planes, then absorbing spheres, then
-absorbing capsules, then the rigid bodies in list order: a scene lists its
-entities in that order to get the reference's body slots. Mesh entities
-take mesh-instance slots in the same order (rigid bodies with a mesh, then
-the static mesh entities). Joints and distance rules name their entities
-by (list, index), e.g. ``("rigid_body", 0)``. Textures live in the scene
-(``Scene.textures``, by name): a material that names one the scene lacks
-raises ``KeyError`` at compile, as an unregistered texture id does in the
-reference.
+``lower_world`` walks the world in the reference compile's passes and
+order (``impact_tpu/runtime/setup.py:310-1055``): voxel objects in entity
+order (which fixes their object and body slots), then the mesh-model
+entities, then every entity that needs a regular body, in entity order
+(which fixes the regular body slots, and the collidable, force, driver and
+absorber slots within each family), then joints, distance rules, lights and
+the camera. As in the reference, it strips each lowered entity's setup
+components from the world, so a world is compiled once. Joints and distance
+rules name their entities as (list, index), ``("rigid_body", j)`` or
+``("voxel_object", i)``; a mesh entity names its rigid body by index.
+Textures are referenced by their FNV-1a ids, and ``Scene.textures`` holds
+the registered source of each id the materials use: an id that was never
+registered is missing there, and the compile raises ``KeyError`` for it, as
+the reference does.
+
+A component that the reference lowers but the port does not support yet
+raises ``NotImplementedError`` naming its ROADMAP.md item; nothing is
+dropped in silence.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+
+import numpy as np
+
+from ..ecs import components as C
+
+# component → the ROADMAP.md item that ports it
+NOT_PORTED = {
+    "VoxelSphereUnion": "ROADMAP.md Queue 1.4 (the SDF graph nodes)",
+    "GeneratedVoxelObject": "ROADMAP.md Queue 1.4 (the SDF graph nodes and sdf_generators)",
+    "HemisphereMesh": "ROADMAP.md Queue 1.3 (the other mesh primitives)",
+    "CylinderMesh": "ROADMAP.md Queue 1.3 (the other mesh primitives)",
+    "ConeMesh": "ROADMAP.md Queue 1.3 (the other mesh primitives)",
+    "RectangleMesh": "ROADMAP.md Queue 1.3 (the other mesh primitives)",
+    "TriangleMeshFile": "ROADMAP.md Queue 1.3 (the OBJ/PLY loaders)",
+    "OrthographicCamera": "ROADMAP.md Queue 1.5 (the orthographic camera)",
+}
+
+
+def not_ported(name: str):
+    return NotImplementedError(f"{name} is not ported yet: {NOT_PORTED[name]}")
 
 
 @dataclass
@@ -43,16 +71,6 @@ class UniLight:
     perpendicular_illuminance: tuple
     angular_source_extent: float
     shadowable: bool
-
-
-@dataclass
-class GroundPlane:
-    """A static y-up planar collidable (ref scene helper ``_ground``)."""
-
-    y: float = 0.0
-    restitution: float = 0.3
-    static_friction: float = 0.7
-    dynamic_friction: float = 0.5
 
 
 @dataclass
@@ -82,11 +100,8 @@ class GradientNoiseTypesSpec:
 
 @dataclass
 class AbsorbingSphere:
-    """A voxel-absorbing sphere on a kinematic body of its own at
-    ``position`` (ref component VoxelAbsorbingSphere; offset in the body's
-    frame)."""
+    """ref component VoxelAbsorbingSphere (offset in the body's frame)."""
 
-    position: tuple
     offset: tuple = (0.0, 0.0, 0.0)
     radius: float = 1.0
     rate: float = 1.0
@@ -94,11 +109,8 @@ class AbsorbingSphere:
 
 @dataclass
 class AbsorbingCapsule:
-    """A voxel-absorbing capsule on a kinematic body of its own at
-    ``position`` (ref component VoxelAbsorbingCapsule; segment in the
-    body's frame)."""
+    """ref component VoxelAbsorbingCapsule (segment in the body's frame)."""
 
-    position: tuple
     segment_start: tuple = (0.0, -0.5, 0.0)
     segment_end: tuple = (0.0, 0.5, 0.0)
     radius: float = 1.0
@@ -131,27 +143,28 @@ class VoxelObjectSpec:
     casts_shadows: bool = True
     noise: NoiseSpec | None = None
     voxel_types: GradientNoiseTypesSpec | None = None
+    entity: int | None = None  # the world's entity id
 
 
 @dataclass
 class Material:
     """A mesh entity's material (ref: impact_material setup/physical.rs:
     Uniform*/Textured*/NormalMap/ParallaxMap): each property uniform, or
-    textured by the name of a scene texture; the textured scalar
-    properties take (name, scale factor), the parallax map (name,
-    displacement scale in world units)."""
+    textured by a texture id; the textured scalar properties take (id,
+    scale factor), the parallax map (id, displacement scale in world
+    units)."""
 
     color: tuple = (1.0, 1.0, 1.0)
     specular: float = 0.0
     roughness: float = 1.0
     metalness: float = 0.0
     emissive: float = 0.0
-    color_texture: str | None = None
+    color_texture: int | None = None
     specular_texture: tuple | None = None
     roughness_texture: tuple | None = None
     metalness_texture: tuple | None = None
     emissive_texture: tuple | None = None
-    normal_map: str | None = None
+    normal_map: int | None = None
     parallax_map: tuple | None = None
 
     @property
@@ -159,6 +172,15 @@ class Material:
         return any(v is not None for v in (
             self.color_texture, self.specular_texture, self.roughness_texture,
             self.metalness_texture, self.emissive_texture, self.normal_map, self.parallax_map))
+
+    def texture_ids(self):
+        for v in (self.color_texture, self.normal_map):
+            if v is not None:
+                yield v
+        for v in (self.specular_texture, self.roughness_texture, self.metalness_texture,
+                  self.emissive_texture, self.parallax_map):
+            if v is not None:
+                yield v[0]
 
 
 @dataclass
@@ -183,11 +205,13 @@ class MeshSpec:
 
 @dataclass
 class MeshEntity:
-    """A mesh model at a static pose (no rigid body)."""
+    """A mesh model, posed by rigid body ``body`` (an index into
+    ``Scene.rigid_bodies``) or, without one, at its static frame."""
 
     mesh: MeshSpec
     position: tuple = (0.0, 0.0, 0.0)
     orientation: tuple = (0.0, 0.0, 0.0, 1.0)
+    body: int | None = None
 
 
 @dataclass
@@ -278,14 +302,15 @@ class AlignmentTorqueSpec:
 
 @dataclass
 class RigidBody:
-    """A rigid-body entity on a regular body slot. It is dynamic
-    when it has ``mass_density`` (ref DynamicRigidBodySubstance: mass and
-    inertia from its sphere or capsule collidable, else mass = density and
-    inertia = density·I) or ``inertia``, else kinematic (ref
-    KinematicRigidBodyMarker and the trajectory components). It may carry
-    collidables, forces (constant acceleration, a local force at a body
-    point, dynamic gravity, detailed drag, an alignment torque), one motion
-    driver and a mesh."""
+    """An entity on a regular body slot. It is dynamic when it has
+    ``mass_density`` (ref DynamicRigidBodySubstance: mass and inertia from
+    its sphere or capsule collidable, else mass = density and inertia =
+    density·I) or ``inertia``, else kinematic (ref KinematicRigidBodyMarker,
+    the trajectory components, or an entity that only carries collidables,
+    absorbers or an alignment torque). It may carry collidables, forces
+    (constant acceleration, a local force at a body point, dynamic gravity,
+    detailed drag, an alignment torque), motion drivers (in the reference's
+    circular, harmonic, rotation, orbital order) and voxel absorbers."""
 
     position: tuple = (0.0, 0.0, 0.0)
     orientation: tuple = (0.0, 0.0, 0.0, 1.0)
@@ -301,8 +326,9 @@ class RigidBody:
     dynamic_gravity: bool = False
     drag_coefficient: float | None = None
     alignment_torque: AlignmentTorqueSpec | None = None
-    driver: object | None = None  # one of the *Spec drivers above
-    mesh: MeshSpec | None = None
+    drivers: list = field(default_factory=list)  # *Spec drivers above
+    absorbing_sphere: AbsorbingSphere | None = None
+    absorbing_capsule: AbsorbingCapsule | None = None
 
     @property
     def dynamic(self) -> bool:
@@ -336,15 +362,288 @@ class DistanceRule:
 class Scene:
     camera: CameraSpec | None = None
     ambient_illuminance: tuple = (0.0, 0.0, 0.0)
-    omni_lights: list = field(default_factory=list)
+    omni_lights: list = field(default_factory=list)  # plain ones first
     uni_lights: list = field(default_factory=list)
-    ground_planes: list = field(default_factory=list)  # GroundPlane
-    voxel_objects: list = field(default_factory=list)  # VoxelObjectSpec
-    absorbing_spheres: list = field(default_factory=list)  # AbsorbingSphere
-    absorbing_capsules: list = field(default_factory=list)  # AbsorbingCapsule
-    rigid_bodies: list = field(default_factory=list)  # RigidBody
-    mesh_entities: list = field(default_factory=list)  # MeshEntity
+    voxel_objects: list = field(default_factory=list)  # VoxelObjectSpec, entity order
+    rigid_bodies: list = field(default_factory=list)  # RigidBody, entity order
+    mesh_entities: list = field(default_factory=list)  # MeshEntity, entity order
     joints: list = field(default_factory=list)  # SphericalJointSpec
     distance_rules: list = field(default_factory=list)  # DistanceRule
-    # name → float array [H,W] or [H,W,C] in [0,1], or a PNG path
+    # texture id → float array [H,W] or [H,W,C] in [0,1], or an image path
     textures: dict = field(default_factory=dict)
+
+
+# --- lowering ---------------------------------------------------------------------
+
+
+def _t(x) -> tuple:
+    return tuple(np.asarray(x).tolist())
+
+
+def _response(c) -> tuple:
+    return (c.restitution, c.static_friction, c.dynamic_friction)
+
+
+_VOXEL_SHAPES = (C.VoxelSphere, C.VoxelBox, C.VoxelCapsule, C.VoxelSphereUnion,
+                 C.GeneratedVoxelObject)
+_MESHES = (C.BoxMesh, C.SphereMesh, C.HemisphereMesh, C.CylinderMesh, C.ConeMesh,
+           C.CapsuleMesh, C.RectangleMesh, C.TriangleMeshFile)
+_KINEMATIC = (C.KinematicRigidBodyMarker, C.CircularTrajectory,
+              C.ConstantAccelerationTrajectory, C.ConstantRotation, C.HarmonicOscillation,
+              C.OrbitalTrajectory)
+_BODY_PARTS = (C.SphericalCollidable, C.PlanarCollidable, C.CapsularCollidable,
+               C.VoxelAbsorbingSphere, C.VoxelAbsorbingCapsule,
+               C.FixedDirectionAlignmentTorque)
+_DRIVERS = ((C.CircularTrajectory, CircularTrajectorySpec, dict(
+    center="center", radius="radius", angular_speed="angular_speed", axis="axis",
+    phase="phase")),
+            (C.HarmonicOscillation, HarmonicOscillationSpec, dict(
+                center="center", direction="direction", amplitude="amplitude",
+                period="period", phase="phase")),
+            (C.ConstantRotation, ConstantRotationSpec, dict(
+                initial_orientation="initial_orientation",
+                angular_velocity="angular_velocity")),
+            (C.OrbitalTrajectory, OrbitalTrajectorySpec, dict(
+                focal_position="focal_position", semi_major_axis="semi_major_axis",
+                eccentricity="eccentricity", orbital_period="orbital_period",
+                orientation="orientation", phase="phase")))
+
+
+def _spec_value(v):
+    return _t(v) if isinstance(v, np.ndarray) else v
+
+
+def lower_world(world, texture_sources: dict, sdf_generators: dict | None = None) -> Scene:
+    """Read ``world`` into a :class:`Scene` in the reference compile's order,
+    stripping each lowered entity's setup components. ``texture_sources``:
+    texture id → source (``runtime.setup.TEXTURE_SOURCES``)."""
+    if sdf_generators:
+        raise not_ported("GeneratedVoxelObject")
+    s = Scene()
+
+    def get(eid, comp):
+        return world.get_component(eid, comp) if world.has_component(eid, comp) else None
+
+    def frame_of(eid):
+        rf = get(eid, C.ReferenceFrame)
+        if rf is None:
+            return (0.0, 0.0, 0.0), (0.0, 0.0, 0.0, 1.0)
+        return _t(rf.position), _t(rf.orientation)
+
+    def motion_of(eid):
+        mo = get(eid, C.Motion)
+        if mo is None:
+            return (0.0, 0.0, 0.0), (0.0, 0.0, 0.0)
+        return _t(mo.linear_velocity), _t(mo.angular_velocity)
+
+    entity_ref: dict[int, tuple] = {}  # entity id → ("voxel_object" | "rigid_body", index)
+
+    # pass 1: voxel objects
+    for eid in world.entities_with():
+        shape = next((get(eid, ck) for ck in _VOXEL_SHAPES if world.has_component(eid, ck)),
+                     None)
+        if shape is None:
+            continue
+        name = type(shape).__name__
+        if name in NOT_PORTED:
+            raise not_ported(name)
+        if isinstance(shape, C.VoxelSphere):
+            kind, size = "sphere", (shape.radius,)
+        elif isinstance(shape, C.VoxelBox):
+            kind, size = "box", (shape.extent_x, shape.extent_y, shape.extent_z)
+        else:
+            kind, size = "capsule", (shape.radius, shape.segment_length)
+        pos, ori = frame_of(eid)
+        vel, ang = motion_of(eid)
+        vt, gn = get(eid, C.SameVoxelType), get(eid, C.GradientNoiseVoxelTypes)
+        nm, vc = get(eid, C.MultifractalNoiseSDFModification), get(eid, C.VoxelCollidable)
+        fp, ca = get(eid, C.FracturingProperties), get(eid, C.ConstantAcceleration)
+        flags = get(eid, C.SceneEntityFlags)
+        s.voxel_objects.append(VoxelObjectSpec(
+            position=pos, orientation=ori, voxel_extent=shape.voxel_extent, shape=kind,
+            size=size, linear_velocity=vel, angular_velocity=ang,
+            voxel_type=int(vt.voxel_type) if vt is not None else 0,
+            voxel_types=None if vt is not None or gn is None else GradientNoiseTypesSpec(
+                n_voxel_types=gn.n_voxel_types, voxel_types=_t(gn.voxel_types),
+                noise_frequency=gn.noise_frequency,
+                voxel_type_frequency=gn.voxel_type_frequency, seed=gn.seed),
+            noise=None if nm is None else NoiseSpec(
+                octaves=nm.octaves, frequency=nm.frequency, lacunarity=nm.lacunarity,
+                persistence=nm.persistence, amplitude=nm.amplitude, seed=nm.seed),
+            response=None if vc is None else _response(vc),
+            dynamic=world.has_component(eid, C.DynamicVoxels),
+            acceleration=None if ca is None else _t(ca.acceleration),
+            fracture=None if fp is None else (fp.impulse_threshold, fp.fracture_radius),
+            casts_shadows=flags is None or not (int(flags.flags) & 2), entity=eid))
+        entity_ref[eid] = ("voxel_object", len(s.voxel_objects) - 1)
+        world.strip_setup_components(eid)
+
+    # pass 1.9: mesh-model entities, read before pass 2 strips them
+    meshes = []
+    for eid in world.entities_with():
+        mc = next((get(eid, c) for c in _MESHES if world.has_component(eid, c)), None)
+        if mc is None:
+            continue
+        name = type(mc).__name__
+        if name in NOT_PORTED:
+            raise not_ported(name)
+        if isinstance(mc, C.BoxMesh):
+            spec = MeshSpec(shape="box", extents=(mc.extent_x, mc.extent_y, mc.extent_z))
+        elif isinstance(mc, C.SphereMesh):
+            spec = MeshSpec(shape="sphere", n_rings=mc.n_rings)
+        else:
+            spec = MeshSpec(shape="capsule", segment_length=mc.segment_length,
+                            diameter=mc.diameter,
+                            n_circumference_vertices=mc.n_circumference_vertices)
+        mt = get(eid, C.ModelTransform)
+        if mt is not None:
+            spec.scale, spec.offset = mt.scale, _t(mt.offset)
+        m = spec.material
+        for comp, attr, fld in ((C.UniformColor, "color", "color"),
+                                (C.UniformSpecularReflectance, "specular", "reflectance"),
+                                (C.UniformRoughness, "roughness", "roughness"),
+                                (C.UniformMetalness, "metalness", "metalness"),
+                                (C.UniformEmissiveLuminance, "emissive", "luminance")):
+            c = get(eid, comp)
+            if c is not None:
+                setattr(m, attr, _spec_value(getattr(c, fld)))
+        c = get(eid, C.TexturedColor)
+        if c is not None:
+            m.color_texture = int(c.texture_id)
+        for comp, attr in ((C.TexturedSpecularReflectance, "specular_texture"),
+                           (C.TexturedRoughness, "roughness_texture"),
+                           (C.TexturedMetalness, "metalness_texture"),
+                           (C.TexturedEmissiveLuminance, "emissive_texture")):
+            c = get(eid, comp)
+            if c is not None:
+                setattr(m, attr, (int(c.texture_id), c.scale_factor))
+        c = get(eid, C.NormalMap)
+        if c is not None:
+            m.normal_map = int(c.texture_id)
+        c = get(eid, C.ParallaxMap)
+        if c is not None:
+            m.parallax_map = (int(c.height_map_texture_id), c.displacement_scale)
+        flags = get(eid, C.SceneEntityFlags)
+        spec.casts_shadows = flags is None or not (int(flags.flags) & 2)
+        pos, ori = frame_of(eid)
+        meshes.append((eid, MeshEntity(spec, position=pos, orientation=ori)))
+
+    # pass 2: regular bodies with their collidables, forces, drivers, absorbers
+    for eid in world.entities_with():
+        if eid in entity_ref:
+            continue
+        is_dynamic = (world.has_component(eid, C.DynamicRigidBodySubstance)
+                      or world.has_component(eid, C.DynamicRigidBodyInertialProperties))
+        if not (is_dynamic or any(world.has_component(eid, c) for c in _KINEMATIC + _BODY_PARTS)):
+            continue
+        pos, ori = frame_of(eid)
+        vel, ang = motion_of(eid)
+        rb = RigidBody(position=pos, orientation=ori, linear_velocity=vel, angular_velocity=ang)
+        ip = get(eid, C.DynamicRigidBodyInertialProperties)
+        sub = get(eid, C.DynamicRigidBodySubstance)
+        if ip is not None:
+            rb.inertia = Inertia(mass=ip.mass, center_of_mass=_t(ip.center_of_mass),
+                                 inertia_tensor=_t(ip.inertia_tensor))
+        elif sub is not None:
+            rb.mass_density = sub.mass_density
+        c = get(eid, C.SphericalCollidable)
+        if c is not None:
+            rb.sphere = SphereCollidableSpec(radius=c.radius, kind=c.kind, center=_t(c.center),
+                                             response=_response(c))
+        c = get(eid, C.PlanarCollidable)
+        if c is not None:
+            rb.plane = PlaneCollidableSpec(normal=_t(c.normal), displacement=c.displacement,
+                                           kind=c.kind, response=_response(c))
+        c = get(eid, C.CapsularCollidable)
+        if c is not None:
+            rb.capsule = CapsuleCollidableSpec(segment_start=_t(c.segment_start),
+                                               segment_end=_t(c.segment_end), radius=c.radius,
+                                               kind=c.kind, response=_response(c))
+        c = get(eid, C.ConstantAcceleration)
+        if c is not None:
+            rb.acceleration = _t(c.acceleration)
+        c = get(eid, C.LocalForce)
+        if c is not None:
+            rb.local_force = (_t(c.force), _t(c.point))
+        rb.dynamic_gravity = world.has_component(eid, C.DynamicGravity)
+        c = get(eid, C.DetailedDrag)
+        if c is not None:
+            rb.drag_coefficient = c.drag_coefficient
+        for comp, spec_cls, fields in _DRIVERS:
+            c = get(eid, comp)
+            if c is not None:
+                rb.drivers.append(spec_cls(**{k: _spec_value(getattr(c, v))
+                                              for k, v in fields.items()}))
+        c = get(eid, C.FixedDirectionAlignmentTorque)
+        if c is not None:
+            rb.alignment_torque = AlignmentTorqueSpec(axis=_t(c.axis), direction=_t(c.direction),
+                                                      strength=c.strength, damping=c.damping)
+        c = get(eid, C.VoxelAbsorbingSphere)
+        if c is not None:
+            rb.absorbing_sphere = AbsorbingSphere(offset=_t(c.offset), radius=c.radius,
+                                                  rate=c.rate)
+        c = get(eid, C.VoxelAbsorbingCapsule)
+        if c is not None:
+            rb.absorbing_capsule = AbsorbingCapsule(segment_start=_t(c.segment_start),
+                                                    segment_end=_t(c.segment_end),
+                                                    radius=c.radius, rate=c.rate)
+        s.rigid_bodies.append(rb)
+        entity_ref[eid] = ("rigid_body", len(s.rigid_bodies) - 1)
+        world.strip_setup_components(eid)
+
+    # pass 2.5: joints; 2.6: distance rules (both need the bodies resolved)
+    for eid in world.entities_with(C.SphericalJoint):
+        sj = world.get_component(eid, C.SphericalJoint)
+        ea, eb = int(sj.entity_a), int(sj.entity_b)
+        if ea in entity_ref and eb in entity_ref:
+            s.joints.append(SphericalJointSpec(entity_ref[ea], entity_ref[eb],
+                                               anchor_a=_t(sj.anchor_a), anchor_b=_t(sj.anchor_b)))
+        world.strip_setup_components(eid)
+    for eid in world.entities_with(C.DistanceTriggeredRules):
+        dr = world.get_component(eid, C.DistanceTriggeredRules)
+        anchor = int(dr.anchor_id)
+        if eid in entity_ref and anchor in entity_ref:
+            s.distance_rules.append(DistanceRule(
+                entity_ref[eid], entity_ref[anchor],
+                no_shadowing_dist_squared=dr.no_shadowing_dist_squared,
+                removal_dist_squared=dr.removal_dist_squared))
+
+    # pass 2.7: mesh entities take their bodies
+    for eid, me in meshes:
+        ref = entity_ref.get(eid)
+        me.body = ref[1] if ref is not None and ref[0] == "rigid_body" else None
+        s.mesh_entities.append(me)
+        for tid in me.mesh.material.texture_ids():
+            if tid in texture_sources:
+                s.textures[tid] = texture_sources[tid]
+
+    # pass 3: lights and the camera
+    ambient = np.zeros(3, np.float32)
+    for eid in world.entities_with(C.AmbientEmission):
+        ambient += np.asarray(world.get_component(eid, C.AmbientEmission).illuminance)
+    s.ambient_illuminance = _t(ambient)
+    for comp, shadowable in ((C.OmnidirectionalEmission, False),
+                             (C.ShadowableOmnidirectionalEmission, True)):
+        for eid in world.entities_with(comp):
+            e = world.get_component(eid, comp)
+            s.omni_lights.append(OmniLight(position=frame_of(eid)[0],
+                                           luminous_intensity=_t(e.luminous_intensity),
+                                           source_extent=e.source_extent, shadowable=shadowable))
+    for comp, shadowable in ((C.UnidirectionalEmission, False),
+                             (C.ShadowableUnidirectionalEmission, True)):
+        for eid in world.entities_with(comp):
+            e = world.get_component(eid, comp)
+            s.uni_lights.append(UniLight(direction=_t(e.direction),
+                                         perpendicular_illuminance=_t(e.perpendicular_illuminance),
+                                         angular_source_extent=e.angular_source_extent,
+                                         shadowable=shadowable))
+    for eid in world.entities_with(C.PerspectiveCamera):
+        pc = world.get_component(eid, C.PerspectiveCamera)
+        pos, ori = frame_of(eid)
+        s.camera = CameraSpec(position=pos, orientation=ori,
+                              vertical_fov=pc.vertical_field_of_view, near=pc.near_distance,
+                              far=pc.far_distance)
+        world.strip_setup_components(eid)
+    if world.entities_with(C.OrthographicCamera):
+        raise not_ported("OrthographicCamera")
+    return s

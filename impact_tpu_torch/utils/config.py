@@ -1,12 +1,20 @@
 """Engine configuration: the port's copy of the ``impact_tpu/utils/config.py``
-fields the render and the engine step read, with the same names and
-defaults (ref: engine.rs:86-99 sub-configs; ``tpu`` holds the static
-capacities)."""
+fields the render, the engine step and the runtime read, with the same
+names and defaults (ref: engine.rs:86-99 sub-configs; ``tpu`` holds the
+static capacities). ``EngineConfig.from_ron_file`` and ``from_ron_str`` read
+the reference's RON config files with serde-default semantics, as the
+reference package does (ref: engine/src/engine.rs:573-592): missing keys
+take their defaults and unknown keys, whole sections the port never reads
+(controller, input, user interface, ...) included, are ignored.
+"""
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
 from typing import Any
+
+from . import ron
 
 
 @dataclass
@@ -41,7 +49,9 @@ class ExposureBounds:
 class CameraSettings:
     relative_aperture: float = 4.0
     shutter_duration: float = 0.005
-    # None = auto exposure; {"ev_compensation": x} or {"iso": x} (Manual)
+    # None = auto at 0 EV; RON gives ``Auto(ev_compensation: x)`` or
+    # ``Manual(iso: x)`` as a ron.Variant, and {"ev_compensation": x} or
+    # {"iso": x} are the same settings as plain dicts
     sensitivity: Any = None
     exposure_bounds: ExposureBounds = field(default_factory=ExposureBounds)
 
@@ -67,7 +77,9 @@ class BloomConfig:
 
 @dataclass
 class DynamicRangeCompressionConfig:
-    tone_mapping_method: str = "ACES"
+    # "None" | "ACES" | "KhronosPBRNeutral"; RON gives a ron.Variant, and its
+    # ``None`` (Python None) is the None method
+    tone_mapping_method: Any = "ACES"
 
 
 @dataclass
@@ -208,6 +220,9 @@ class TpuConfig:
     max_mesh_entities: int = 16
     max_mesh_entity_verts: int = 1024  # vertex capacity per mesh entity
     max_mesh_entity_tris: int = 2048
+    # the reference's lax.scan step batching; the port steps once per call
+    # and only carries the field
+    steps_per_dispatch: int = 8
 
 
 @dataclass
@@ -216,3 +231,40 @@ class EngineConfig:
     physics: PhysicsConfig = field(default_factory=PhysicsConfig)
     voxel: VoxelConfig = field(default_factory=VoxelConfig)
     tpu: TpuConfig = field(default_factory=TpuConfig)
+
+    @staticmethod
+    def from_ron_file(path) -> "EngineConfig":
+        return EngineConfig.from_obj(ron.load(path))
+
+    @staticmethod
+    def from_ron_str(text: str) -> "EngineConfig":
+        return EngineConfig.from_obj(ron.loads(text))
+
+    @staticmethod
+    def from_obj(obj: Any) -> "EngineConfig":
+        return _build(EngineConfig, obj)
+
+
+def _build(cls, obj):
+    """Construct dataclass ``cls`` from parsed RON, serde-default style:
+    missing keys take defaults, unknown keys are ignored, a struct variant
+    builds from its fields and any other variant is kept as it is."""
+    if obj is None:
+        return cls()
+    if isinstance(obj, ron.Variant):
+        if obj.fields is None:
+            return obj
+        obj = obj.fields
+    if not isinstance(obj, dict):
+        return obj
+    kwargs = {}
+    for f in dataclasses.fields(cls):
+        if f.name not in obj:
+            continue
+        v = obj[f.name]
+        ftype = globals().get(f.type) if isinstance(f.type, str) else f.type
+        if dataclasses.is_dataclass(ftype) and isinstance(v, (dict, ron.Variant)):
+            kwargs[f.name] = _build(ftype, v)
+        else:
+            kwargs[f.name] = v
+    return cls(**kwargs)

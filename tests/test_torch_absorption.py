@@ -118,8 +118,8 @@ def test_chunk_gated_absorption(case, rotation):
 
 
 def test_scene_absorbers_compile_onto_kinematic_bodies():
+    from impact_tpu_torch.ecs import components as TC
     from impact_tpu_torch.models import voxel_box_tumbler
-    from impact_tpu_torch.scene.spec import AbsorbingCapsule, AbsorbingSphere
     from impact_tpu_torch.physics.state import KIND_KINEMATIC
     from impact_tpu_torch.runtime import HeadlessRuntime, compile_scene
     from impact_tpu_torch.utils.config import EngineConfig
@@ -128,12 +128,13 @@ def test_scene_absorbers_compile_onto_kinematic_bodies():
     t = cfg.tpu
     t.max_voxel_objects, t.max_bodies, t.max_contacts = 2, 8, 64
     t.solver_mode, t.sdf_encoding = "jacobi", "i8"
-    scene = voxel_box_tumbler(n_boxes=1, seed=0)
-    box = scene.voxel_objects[0].position
-    scene.absorbing_spheres.append(AbsorbingSphere(position=box, radius=0.8))
-    scene.absorbing_capsules.append(AbsorbingCapsule(position=(40.0, 0.0, 0.0), radius=0.5,
-                                                     segment_end=(0.0, 2.0, 0.0)))
-    build = compile_scene(scene, cfg, device="cpu")
+    world = voxel_box_tumbler(n_boxes=1, seed=0)
+    box = tuple(world.get_component(world.entities_with(TC.VoxelBox)[0],
+                                    TC.ReferenceFrame).position.tolist())
+    world.create_entity(TC.ReferenceFrame(position=box), TC.VoxelAbsorbingSphere(radius=0.8))
+    world.create_entity(TC.ReferenceFrame(position=(40.0, 0.0, 0.0)),
+                        TC.VoxelAbsorbingCapsule(radius=0.5, segment_end=(0.0, 2.0, 0.0)))
+    build = compile_scene(world, cfg, device="cpu")
     a, b = build.params.absorbers, build.sim.phys.bodies
     assert (a.sph_mask.tolist()[:2], a.cap_mask.tolist()[:2]) == ([True, False], [True, False])
     assert (int(a.sph_body[0]), int(a.cap_body[0])) == (1, 2)  # the ground plane takes body 0

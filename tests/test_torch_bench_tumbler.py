@@ -18,6 +18,7 @@ from impact_tpu.models import voxel_box_tumbler as jtumbler
 from impact_tpu.runtime import HeadlessRuntime as JRuntime
 from impact_tpu.runtime import compile_scene as jcompile
 from impact_tpu.utils.config import EngineConfig as JConfig
+from impact_tpu_torch.ecs import components as TC
 from impact_tpu_torch.models import bench
 from impact_tpu_torch.models import voxel_box_tumbler as ttumbler
 from impact_tpu_torch.runtime import HeadlessRuntime as TRuntime
@@ -47,6 +48,20 @@ def _finite(bodies, to_np):
                for f in ("position", "momentum", "angular_momentum"))
 
 
+def _port_world(spacing):
+    """The port's tumbler at N_BOXES boxes, edited as ``models/bench.py``'s
+    ``bench_scene`` (26-voxel boxes) and ``bench_step_scene`` (box i at
+    height 6 + spacing·i) edit the bench's 62."""
+    world = ttumbler(n_boxes=N_BOXES, seed=bench.SEED)
+    for i, eid in enumerate(world.entities_with(TC.VoxelBox)):
+        for f in ("extent_x", "extent_y", "extent_z"):
+            world.set_field(eid, TC.VoxelBox, f, bench.BOX_EXTENT)
+        pos = world.get_component(eid, TC.ReferenceFrame).position
+        pos[1] = 6.0 + spacing * i
+        world.set_field(eid, TC.ReferenceFrame, "position", pos)
+    return world
+
+
 @pytest.fixture(scope="module")
 def reference():
     """The reference's build of the bench placement and one runtime (one
@@ -63,9 +78,9 @@ def reference():
 @pytest.mark.parametrize("spacing", [5.0, bench.STEP_SPACING], ids=["bench", "spaced"])
 def test_bench_tumbler_placement_in_both_packages(reference, spacing):
     build, jrt = reference
-    spec = ttumbler(N_BOXES, bench.SEED, box_extent=bench.BOX_EXTENT, spacing=spacing)
+    world = _port_world(spacing)
     tc = _port_config()
-    trt = TRuntime(tcompile(spec, tc, device="cpu"), tc, enable_fracturing=False)
+    trt = TRuntime(tcompile(world, tc, device="cpu"), tc, enable_fracturing=False)
     # the reference's build with box i raised by (spacing − 5)·i: the boxes
     # are centred in their grids, so their COM sits at the frame origin
     sim = build.sim

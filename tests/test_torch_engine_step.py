@@ -27,7 +27,7 @@ from impact_tpu.runtime import HeadlessRuntime as JRuntime
 from impact_tpu.runtime import compile_scene as jcompile
 from impact_tpu.utils.config import EngineConfig as JConfig
 from impact_tpu_torch import bridge
-from impact_tpu_torch.models import fracturing as tfracturing
+from impact_tpu_torch.models.bench import bench_fracture_scene
 from impact_tpu_torch.models import voxel_box_tumbler as ttumbler
 from impact_tpu_torch.runtime import HeadlessRuntime as TRuntime
 from impact_tpu_torch.runtime import compile_scene as tcompile
@@ -136,7 +136,7 @@ def test_fracture_scene_steps_through_event_and_splits():
     tc = _configure(TConfig(), N_FRAG + 4, N_FRAG + 8)
     tc.tpu.max_contacts = 1024
     tc.tpu.max_fracture_fragments, tc.tpu.max_fracture_events = N_FRAG, 1
-    tbuild = tcompile(tfracturing(impulse_threshold=5.0, fracture_radius=2.5), tc, device="cpu")
+    tbuild = tcompile(bench_fracture_scene(), tc, device="cpu")
     np.testing.assert_array_equal(tbuild.sim.voxels.sdf.numpy(), np.asarray(jbuild.sim.voxels.sdf))
     uniforms = jax_event_uniforms(jbuild.sim.rng, N_FRAG)
     jrt = JRuntime(jbuild, jc)

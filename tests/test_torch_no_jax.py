@@ -54,7 +54,8 @@ def test_no_reference_or_jax_import(path):
 
 ENTRY_MODULES = ("impact_tpu_torch.runtime.setup", "impact_tpu_torch.bridge",
                  "impact_tpu_torch.apps.snapshot_tester", "impact_tpu_torch.render.textures",
-                 "impact_tpu_torch.render.pipeline")
+                 "impact_tpu_torch.render.pipeline", "impact_tpu_torch.apps.impact_game",
+                 "impact_tpu_torch.runtime.checkpoint")
 
 
 @pytest.mark.parametrize("module", ENTRY_MODULES)
@@ -70,4 +71,16 @@ def test_entry_points_default_to_the_card(module):
            and "device" in inspect.signature(f).parameters]
     assert fns, module
     for f in fns:
+        assert inspect.signature(f).parameters["device"].default == "cuda", f.__name__
+
+
+def test_api_entry_points_default_to_the_card():
+    """compile_scene, the game's play and the checkpoint loader by name."""
+    import inspect
+
+    from impact_tpu_torch.apps.impact_game import play
+    from impact_tpu_torch.runtime import compile_scene
+    from impact_tpu_torch.runtime.checkpoint import load_checkpoint
+
+    for f in (compile_scene, play, load_checkpoint):
         assert inspect.signature(f).parameters["device"].default == "cuda", f.__name__

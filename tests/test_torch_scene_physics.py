@@ -36,10 +36,12 @@ from impact_tpu.runtime import compile_scene as jcompile
 from impact_tpu.utils.config import EngineConfig as JConfig
 from impact_tpu_torch import bridge
 from impact_tpu_torch.models import SCENES
-from impact_tpu_torch.scene import spec as ts
+from impact_tpu_torch.ecs import World as TWorld
+from impact_tpu_torch.ecs import components as TC
 from impact_tpu_torch.physics.state import KIND_DYNAMIC, KIND_KINEMATIC
 from impact_tpu_torch.runtime import HeadlessRuntime, compile_scene
 from impact_tpu_torch.utils.config import EngineConfig
+from impact_tpu_torch.utils.hashing import hash_str_to_u64
 
 ATOL = 1e-6
 FIELDS = ("position", "orientation", "momentum", "angular_momentum", "velocity",
@@ -68,7 +70,7 @@ def configure(cfg, medium=0.0, n_objects=1, n_bodies=8, grid=8):
 
 def joint_pair():
     """A kinematic anchor and a dynamic ball on a SphericalJoint, swinging
-    under gravity with a sideways push: (reference world, port scene)."""
+    under gravity with a sideways push: (reference world, port world)."""
     w = World()
     a = w.create_entity(C.ReferenceFrame(position=(0.0, 5.0, 0.0)), C.KinematicRigidBodyMarker())
     b = w.create_entity(
@@ -77,21 +79,13 @@ def joint_pair():
         C.ConstantAcceleration(acceleration=(0.0, -9.81, 0.0)))
     w.create_entity(C.SphericalJoint(entity_a=a, entity_b=b, anchor_a=(0.0, 0.0, 0.0),
                                      anchor_b=(-1.2, 0.0, -0.3)))
-    s = ts.Scene()
-    s.rigid_bodies += [
-        ts.RigidBody(position=(0.0, 5.0, 0.0)),
-        ts.RigidBody(position=(1.2, 5.0, 0.3), linear_velocity=(0.0, 0.0, 1.0),
-                     sphere=ts.SphereCollidableSpec(radius=0.3, kind=2), mass_density=800.0,
-                     acceleration=(0.0, -9.81, 0.0))]
-    s.joints.append(ts.SphericalJointSpec(("rigid_body", 0), ("rigid_body", 1),
-                                          anchor_b=(-1.2, 0.0, -0.3)))
-    return w, s
+    return w, bridge.world_from_reference(w)
 
 
 def distance_rule_scene():
     """tests/test_runtime_features.py:202-245: a voxel box drifting away
     from a kinematic anchor at 2 m/s, its shadows off beyond 6 m, removed
-    beyond 10 m: (reference world, port scene)."""
+    beyond 10 m: (reference world, port world)."""
     w = World()
     anchor = w.create_entity(C.ReferenceFrame(position=(0.0, 0.0, 0.0)),
                              C.KinematicRigidBodyMarker())
@@ -101,15 +95,7 @@ def distance_rule_scene():
         C.SameVoxelType(voxel_type=0), C.DynamicVoxels(),
         C.DistanceTriggeredRules(anchor_id=anchor, no_shadowing_dist_squared=36.0,
                                  removal_dist_squared=100.0))
-    s = ts.Scene()
-    s.rigid_bodies.append(ts.RigidBody())
-    s.voxel_objects.append(ts.VoxelObjectSpec(
-        position=(4.0, 0.0, 0.0), voxel_extent=0.25, shape="box", size=(6.0, 6.0, 6.0),
-        linear_velocity=(2.0, 0.0, 0.0), response=None, acceleration=None))
-    s.distance_rules.append(ts.DistanceRule(("voxel_object", 0), ("rigid_body", 0),
-                                            no_shadowing_dist_squared=36.0,
-                                            removal_dist_squared=100.0))
-    return w, s
+    return w, bridge.world_from_reference(w)
 
 
 def rule_config(cfg):
@@ -123,7 +109,7 @@ def rule_config(cfg):
     return cfg
 
 
-# name → (reference world, port scene, configure kwargs)
+# name → (reference world, port world, configure kwargs)
 CASES = {
     "HarmonicOscillation": lambda: (JSCENES["HarmonicOscillation"](),
                                     SCENES["HarmonicOscillation"](), {}),
@@ -226,11 +212,10 @@ def test_scene_physics_pools_are_filled():
 
 
 def test_missing_scene_texture_raises():
-    s = ts.Scene()
-    s.mesh_entities.append(ts.MeshEntity(ts.MeshSpec(material=ts.Material(
-        color_texture="not-there"))))
+    w = TWorld()
+    w.create_entity(TC.BoxMesh(), TC.TexturedColor(texture_id=hash_str_to_u64("not-there")))
     with pytest.raises(KeyError):
-        compile_scene(s, configure(EngineConfig()), device="cpu")
+        compile_scene(w, configure(EngineConfig()), device="cpu")
 
 
 def test_distance_rules_compile_and_act_as_the_reference_test():

@@ -56,7 +56,7 @@ def reference_harness():
 
 
 def _scene_args(name):
-    """(reference world, port scene, harness config mutator) of a scene
+    """(reference world, port world, harness config mutator) of a scene
     name, or of ("RenderingTest", kwargs)."""
     if isinstance(name, tuple):
         kwargs = dict(name[1])

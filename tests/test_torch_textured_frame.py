@@ -19,7 +19,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import torch
-from chip_smoke import textured_box_config, textured_box_scene
+import pytest
+from chip_smoke import textured_box_config, textured_box_scene, textured_box_textures
 from test_torch_chunked_engine import few_torch_threads  # noqa: F401  (an autouse fixture)
 from test_torch_snapshot_scenes import reference_harness
 
@@ -35,11 +36,22 @@ from impact_tpu.runtime.setup import register_texture
 from impact_tpu.runtime.setup import render_config_from_engine_config as jrender_config
 from impact_tpu.utils.config import EngineConfig as JConfig
 from impact_tpu_torch.apps import snapshot_tester as st
+from impact_tpu_torch.ecs import components as TC
+from impact_tpu_torch.runtime import setup as tsetup
 from impact_tpu_torch.runtime import HeadlessRuntime, compile_scene
 from impact_tpu_torch.utils.config import EngineConfig
 from impact_tpu_torch.utils.image import rgb_hybrid_compare
 
 PARITY_BAR = 0.95
+
+
+@pytest.fixture(autouse=True)
+def port_textures():
+    """The port's texture registry as it was before each test."""
+    saved = dict(tsetup.TEXTURE_SOURCES)
+    yield
+    tsetup.TEXTURE_SOURCES.clear()
+    tsetup.TEXTURE_SOURCES.update(saved)
 
 
 def J(t):
@@ -83,7 +95,7 @@ def test_textured_materials_frame_matches_golden_and_reference_render():
 
 def reference_box_world():
     """The same box, lit alike, as the reference's entities."""
-    tex = textured_box_scene().textures
+    tex = textured_box_textures()
     ids = {k: register_texture(f"torch-port-box-{k}", v) for k, v in tex.items()}
     w = World()
     w.create_entity(C.ReferenceFrame(position=(0.0, 0.0, 0.0), orientation=(0.0, 1.0, 0.0, 0.0)),
@@ -122,7 +134,7 @@ def test_textured_box_entity_matches_reference_render():
     assert parity >= PARITY_BAR, parity
     # the parallax map moves the sampled texture
     flat = textured_box_scene()
-    flat.mesh_entities[0].mesh.material.parallax_map = None
+    flat.remove_component(flat.entities_with(TC.ParallaxMap)[0], TC.ParallaxMap)
     rt2 = HeadlessRuntime(compile_scene(flat, cfg, device="cpu"), cfg, enable_fracturing=False)
     assert np.abs(rt2.render().numpy().astype(int) - img.astype(int)).max() > 8
     assert torch.equal(rt.params.mesh_instances.material, torch.tensor([0], dtype=torch.int32))
