@@ -82,7 +82,22 @@ then drives these paths through the port's entry points:
    (``impact_tpu_torch.apps.impact_game.play``, 400 frames), which must be
    won; every K1 launch of the phase is held against K1's plain version,
    the game's busiest substep through the scan kernels against their plain
-   loop, and every grid the game labelled against the plain labelling.
+   loop, and every grid the game labelled against the plain labelling;
+13. the procedural SDF generation path (``generation_phase``): the
+   generation world of ``impact_tpu_torch/models/generation.py`` (a sphere
+   union, the voxel generator's example graph and a meta graph lowered at
+   seed 7 as generated voxel objects, the rectangle, hemisphere, cylinder
+   and cone meshes, an OBJ and a PLY file) compiled with its
+   ``sdf_generators`` at the default pools (64 slots of 32³, 1024 bodies,
+   4096 contact slots, ``scan``, 256x192), 200 steps with a K1 frame every
+   50th; the meta cluster fractures into at least 2 fragments; the last
+   state's K1 frame, and one frame of the world under an
+   OrthographicCamera, each at least 0.95 against the plain tile raster's;
+   and the voxel generator app (``example``, ``stats`` equal to the CPU's,
+   ``preview``, ``vary`` 2), each preview (K1) at least 0.95 against the
+   plain tile raster's; every K1 launch of the phase, its busiest substep's
+   scan kernels and every grid it labelled held against their plain
+   versions.
 
 Kernel launch counts are zeroed just before each path and read just after
 it. Every phase prints one flushed line with its seconds; any failure exits
@@ -110,7 +125,7 @@ empty frame is shorter than the wrapper's host work) and the wrapper's.
 of the record), so two trees can be timed in turns in one call.
 ``--snapshots-only`` runs only the scan solver, snapshot and scene physics
 phases; ``--scene-physics-only`` only the scene physics phase; ``--api-only``
-only the API phase.
+only the API phase; ``--generation-only`` only the generation phase.
 """
 
 from __future__ import annotations
@@ -198,6 +213,13 @@ QUICK_START_STEPS, RESUME_STEPS = 100, 10
 RUN_FRAMES, RUN_EVERY = 20, 5
 GAME_RENDER_EVERY = 100
 QUICK_START_RON = "(tpu: (max_voxel_objects: 8, max_bodies: 24))"
+# the generation phase: the generation world's steps and its K1 frame every
+# GENERATION_RENDER_EVERY-th; the voxel generator's vary count; the largest
+# |SDF| at which a voxel's sign may differ between the card's stats grid and
+# the CPU's (a float32 ulp of the evaluation)
+GENERATION_STEPS, GENERATION_RENDER_EVERY = 200, 50
+VARY_N = 2
+SIGN_FLIP_ATOL = 1e-5
 API_KERNELS = {"k1_raster_attributes": "k1_attr_kernel", "k1_raster_depth": "k1_depth_kernel",
                "scan_velocity_iterations": "scan_velocity_kernel",
                "scan_position_correction": "scan_correction_kernel"}
@@ -1009,6 +1031,9 @@ def main(argv=None) -> int:
     ap.add_argument("--api-only", action="store_true",
                     help="run only the API phase (quick start, resume, commands, run, "
                          "profile, the Voxel Range game)")
+    ap.add_argument("--generation-only", action="store_true",
+                    help="run only the generation phase (the generation world, its "
+                         "orthographic frame, the voxel generator app)")
     args = ap.parse_args(argv)
     k1_only, ccl_only = args.k1_only, args.ccl_only
     t_all = time.perf_counter()
@@ -1089,6 +1114,10 @@ def main(argv=None) -> int:
     if args.api_only:
         kernels = []
         api_phase(dev, record, kernels)
+        return finish(t_all, record, kernels, kind, count)
+    if args.generation_only:
+        kernels = []
+        generation_phase(dev, record, kernels)
         return finish(t_all, record, kernels, kind, count)
 
     with Phase("K2 vs plain version, G=32: random fills, serpentine, empty, full"):
@@ -1467,6 +1496,7 @@ def main(argv=None) -> int:
     snapshot_phase(dev, record, kernels)
     scene_physics_phase(dev, record, kernels)
     api_phase(dev, record, kernels)
+    generation_phase(dev, record, kernels)
     return finish(t_all, record, kernels, kind, count)
 
 
@@ -2340,6 +2370,268 @@ def api_phase(dev, record, kernels):
             entry = dict(name=name, route="cuda", max_abs_err=errs[name])
             kernels.append(entry)
         entry["api_launches"] = n
+
+
+def sign_flips(got, ref):
+    """Voxels whose SDF sign differs between two grids → list of (index,
+    card value, CPU value)."""
+    import torch
+
+    g, r = got.cpu(), ref.cpu()
+    idx = torch.nonzero((g < 0) != (r < 0))
+    return [(tuple(i.tolist()), float(g[tuple(i)]), float(r[tuple(i)])) for i in idx]
+
+
+def generation_phase(dev, record, kernels):
+    """The procedural SDF path on the card (``models/generation.py``), with
+    every K1 launch held against K1's plain version: the generation world
+    compiled through ``compile_scene(world, EngineConfig(),
+    sdf_generators=...)`` at the default pools (64 slots of 32³, 1024
+    bodies, 4096 contact slots, the ``scan`` solver, 256x192 with the
+    default shadow maps), stepped GENERATION_STEPS frames with a frame every
+    GENERATION_RENDER_EVERY-th; the meta cluster must fracture into at
+    least 2 fragments, the bodies stay finite, the last state's K1 frame
+    scores at least PARITY_BAR against the plain tile raster's, the busiest
+    substep's scan kernels equal their plain loop and every grid the split
+    checks labelled equals the plain labelling. Then the world with an
+    OrthographicCamera, one K1 frame scored against the plain tile raster;
+    and the voxel generator (``apps/voxel_generator.py``): ``example``,
+    ``stats`` (the card's counts equal the CPU's, a sign flip within
+    SIGN_FLIP_ATOL of the surface excepted and printed), ``preview`` and
+    ``vary`` with N = VARY_N on the meta graph, each preview frame (K1)
+    scored against the plain tile raster's."""
+    import json as _json
+    import tempfile
+
+    import torch
+
+    from impact_tpu_torch.apps import voxel_generator as vg
+    from impact_tpu_torch.apps.snapshot_tester import render_again
+    from impact_tpu_torch.models.generation import cluster_meta_graph, generation_world
+    from impact_tpu_torch.ops import ccl_pallas as k2
+    from impact_tpu_torch.physics import scan_solver, solver
+    from impact_tpu_torch.render import raster_pallas as rp
+    from impact_tpu_torch.runtime import HeadlessRuntime, compile_scene
+    from impact_tpu_torch.utils.config import EngineConfig
+    from impact_tpu_torch.utils.image import load_png, rgb_hybrid_compare
+    from impact_tpu_torch.voxel import interaction
+
+    rows = {}
+    held = dict(depth=0, attributes=0, max_abs_err=0.0)
+    names = ("k1_raster_attributes", "k1_raster_depth", "scan_velocity_iterations",
+             "scan_position_correction", "k2_labels", "k2_ccl", "k2_ccl_wide")
+    launches = dict.fromkeys(names, 0)
+    counters = (rp.LAUNCHES, scan_solver.LAUNCHES, k2.LAUNCHES)
+
+    def reset():
+        for c in counters:
+            c.reset()
+
+    def add():
+        for c in counters:
+            for k, v in c.items():
+                launches[k] += v
+
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_generation_")
+    t_phase = time.perf_counter()
+    run_depth, run_attr = rp.raster_depth, rp.raster_attributes
+    rp.raster_depth, rp.raster_attributes = held_k1(held)
+    try:
+        with Phase(f"generation: the generation world (a sphere union, the voxel generator's "
+                   f"example graph, a meta graph lowered at seed 7 that fractures, the rectangle, "
+                   f"hemisphere, cylinder and cone meshes, an OBJ and a PLY) at the default "
+                   f"pools, {GENERATION_STEPS} steps, a K1 frame every "
+                   f"{GENERATION_RENDER_EVERY}th"):
+            cfg = EngineConfig()
+            world, gens = generation_world(os.path.join(tmp.name, "meshes"))
+            reset()
+            t0 = time.perf_counter()
+            rt = HeadlessRuntime(compile_scene(world, cfg, sdf_generators=gens), cfg)
+            torch.cuda.synchronize()
+            compile_s = time.perf_counter() - t0
+            alive0 = int(rt.sim.voxels.alive.sum())
+            grids, best = [], [None, -1]
+            run_labels, run_scan = interaction.connected_component_labels_batched, \
+                solver.scan_iterations
+
+            def rec_labels(occ):
+                grids.append(occ.clone())
+                return run_labels(occ)
+
+            def rec_scan(*args):
+                n = int(args[6].active.sum())
+                if n > best[1]:
+                    best[:] = [args, n]
+                return run_scan(*args)
+
+            interaction.connected_component_labels_batched = rec_labels
+            solver.scan_iterations = rec_scan
+            step_ms, frame_ms, drops, fragments, fracture_step = [], [], [], 0, None
+            syncs0 = rt.host_syncs
+            try:
+                for i in range(1, GENERATION_STEPS + 1):
+                    rt.step(1)
+                    step_ms.append(rt.step_ms)
+                    spawned = int(rt.sim.voxels.alive.sum()) - alive0
+                    if spawned > 0 and fracture_step is None:
+                        fracture_step = i
+                    fragments = max(fragments, spawned)
+                    if i % GENERATION_RENDER_EVERY == 0:
+                        rt.render()
+                        torch.cuda.synchronize()
+                        frame_ms.append(sum(rt.stage_ms.values()))
+                        drops.append(tuple(int(d) for d in rt.last_drops))
+            finally:
+                interaction.connected_component_labels_batched = run_labels
+                solver.scan_iterations = run_scan
+            syncs = (rt.host_syncs - syncs0) / GENERATION_STEPS
+            mesh_drops = (int(rt.sim.meshes.n_dropped_verts.sum()),
+                          int(rt.sim.meshes.n_dropped_tris.sum()))
+            k1_frame = render_again(rt, "kernel")
+            plain_frame = render_again(rt, "raster")
+            parity = rgb_hybrid_compare(k1_frame, plain_frame)
+            torch.cuda.synchronize()
+            add()
+            median = sorted(step_ms)[len(step_ms) // 2]
+            first50, last50 = sum(step_ms[:50]) / 50, sum(step_ms[-50:]) / 50
+            log(f"generation: compile {compile_s:.2f} s ({alive0} voxel objects, "
+                f"{rt.info['n_unique_shapes']} distinct shapes, "
+                f"{rt.params.mesh_instances.alive.shape[0]} mesh entities); step ms median "
+                f"{median:.2f}, first 50 {first50:.2f}, last 50 {last50:.2f}; frame ms "
+                f"{[round(f, 2) for f in frame_ms]}; fracture at step {fracture_step}, "
+                f"{fragments} fragments; {syncs:.2f} host syncs per step; raster drops "
+                f"(geometry, shadows) per frame {drops}; mesh drops (vertices, triangles) "
+                f"{mesh_drops}; the last state's K1 frame vs the plain tile raster's "
+                f"{parity:.4f} (bar {PARITY_BAR}); busiest substep {best[1]} active slots; "
+                f"{len(grids)} labelling calls on {sum(x.shape[0] for x in grids)} grids")
+            rows["world"] = dict(compile_s=compile_s, step_ms_median=median,
+                                 step_ms_first50=first50, step_ms_last50=last50,
+                                 frame_ms=frame_ms, fracture_step=fracture_step,
+                                 fragments=fragments, host_syncs=syncs, raster_drops=drops,
+                                 mesh_drops=mesh_drops, vs_tile_raster=parity)
+            if not body_state_finite(rt.sim):
+                raise AssertionError("generation: non-finite body state")
+            if fragments < 2:
+                raise AssertionError(f"generation: the cluster made {fragments} fragments")
+            if parity < PARITY_BAR:
+                raise AssertionError(f"generation: the K1 frame scores {parity:.4f} against "
+                                     f"the plain tile raster's")
+            if k1_frame.std() < 1.0:
+                raise AssertionError("generation: the frame is flat")
+
+        with Phase("generation: the busiest substep through the scan kernels against their "
+                   "plain loop, and every grid the split checks labelled against the plain "
+                   "labelling"):
+            scan_err, plain_ms, _ = hold_scan(best[0], "generation")
+            batches = [x for x in grids if x.shape[0] > 0]
+            if not batches:
+                raise AssertionError("generation: the split checks labelled no grid")
+            occ = torch.cat(batches)
+            got, ref = k2.connected_component_labels_batched(occ), labels_plain(occ)
+            if not torch.equal(got, ref):
+                raise AssertionError(f"generation: labels of {int((got != ref).sum())} voxels "
+                                     f"differ from the plain labelling")
+            labels_err = int((got.long() - ref.long()).abs().max())
+            log(f"generation: scan kernels equal to the plain loop on {best[1]} active slots "
+                f"(plain loop {plain_ms:.1f} ms); labels equal to the plain labelling on the "
+                f"{occ.shape[0]} grids of {len(batches)} labelling calls")
+            rows["world"].update(scan_held=dict(active=best[1], max_abs_err=scan_err,
+                                                plain_ms=plain_ms),
+                                 labels_held=dict(grids=occ.shape[0]))
+
+        with Phase("generation: the world with an OrthographicCamera, one K1 frame against the "
+                   "plain tile raster"):
+            reset()
+            ocfg = EngineConfig()
+            oworld, ogens = generation_world(os.path.join(tmp.name, "ortho"), orthographic=True)
+            ort = HeadlessRuntime(compile_scene(oworld, ocfg, sdf_generators=ogens), ocfg)
+            if not (ocfg.tpu.orthographic_camera and ort.render_config.orthographic):
+                raise AssertionError("the OrthographicCamera did not set the orthographic "
+                                     "projection")
+            ortho = ort.render().cpu().numpy()
+            ortho_plain = render_again(ort, "raster")
+            torch.cuda.synchronize()
+            add()
+            ortho_score = rgb_hybrid_compare(ortho, ortho_plain)
+            log(f"ortho: K1 frame vs the plain tile raster's {ortho_score:.4f} (bar "
+                f"{PARITY_BAR}), drops {tuple(int(d) for d in ort.last_drops)}, frame "
+                f"{sum(ort.stage_ms.values()):.2f} ms")
+            rows["ortho"] = dict(vs_tile_raster=ortho_score)
+            if ortho_score < PARITY_BAR or ortho.std() < 1.0:
+                raise AssertionError(f"ortho: the K1 frame scores {ortho_score:.4f}")
+
+        with Phase(f"generation: the voxel generator (example, stats on the card and on the "
+                   f"CPU, preview, vary {VARY_N}) with K1"):
+            reset()
+            t0 = time.perf_counter()
+            example = os.path.join(tmp.name, "example.json")
+            meta = os.path.join(tmp.name, "meta.json")
+            vg.main(["--device", "cuda", "example", example])
+            with open(meta, "w") as f:
+                _json.dump(cluster_meta_graph(), f)
+            stats_rows = {}
+            for path in (example, meta):
+                graph = vg.load_any_graph(path)
+                card, cpu = vg.stats(graph, dev), vg.stats(graph, "cpu")
+                flips = sign_flips(card["sdf"], cpu["sdf"])
+                far = [f for f in flips if abs(f[2]) >= SIGN_FLIP_ATOL]
+                log(f"stats {os.path.basename(path)}: card '{card['line']}', CPU "
+                    f"'{cpu['line']}'; sign flips {flips}")
+                if far or (card["line"] != cpu["line"] and not flips):
+                    raise AssertionError(f"stats: the card's counts differ from the CPU's "
+                                         f"({card['line']} vs {cpu['line']}; flips {far})")
+                stats_rows[os.path.basename(path)] = dict(line=card["line"],
+                                                          cpu_line=cpu["line"],
+                                                          sign_flips=len(flips))
+            previews = {}
+            png = os.path.join(tmp.name, "preview.png")
+            vg.main(["--device", "cuda", "preview", example, png])
+            previews["example"] = (load_png(png), vg.load_any_graph(example))
+            vary_dir = os.path.join(tmp.name, "vary")
+            vg.main(["--device", "cuda", "vary", meta, vary_dir, str(VARY_N)])
+            for seed in range(VARY_N):
+                previews[f"meta seed {seed}"] = (
+                    load_png(os.path.join(vary_dir, f"variant_{seed}.png")),
+                    vg.load_any_graph(meta, seed))
+            torch.cuda.synchronize()
+            app_s = time.perf_counter() - t0
+            scores = {}
+            for name, (img, graph) in previews.items():
+                plain = vg.preview_frame(graph, dev, raster_backend="raster").cpu().numpy()
+                scores[name] = rgb_hybrid_compare(img, plain)
+                if scores[name] < PARITY_BAR or img.std() < 1.0:
+                    raise AssertionError(f"preview {name}: K1 frame scores {scores[name]:.4f} "
+                                         f"against the plain tile raster's")
+            add()
+            log(f"voxel generator: {app_s:.2f} s for example, stats and the previews; preview "
+                f"frames (K1) vs the plain tile raster's {scores} (bar {PARITY_BAR})")
+            rows["voxel_generator"] = dict(seconds=app_s, stats=stats_rows, previews=scores)
+    finally:
+        rp.raster_depth, rp.raster_attributes = run_depth, run_attr
+        tmp.cleanup()
+    phase_s = time.perf_counter() - t_phase
+    log(f"generation phase: {phase_s:.2f} s; launches {launches}; K1 launches held against "
+        f"K1's plain version {held}")
+    if (held["depth"], held["attributes"]) != (launches["k1_raster_depth"],
+                                               launches["k1_raster_attributes"]):
+        raise AssertionError(f"generation: K1 launches {launches} but {held} held")
+    gen_launches = {"k1_raster_attributes": launches["k1_raster_attributes"],
+                    "k1_raster_depth": launches["k1_raster_depth"],
+                    "k2_labels": launches["k2_labels"],
+                    "scan_solver": launches["scan_velocity_iterations"]
+                    + launches["scan_position_correction"]}
+    for name, n in gen_launches.items():
+        if n <= 0:
+            raise AssertionError(f"generation: {name} was not launched")
+    record["generation"] = dict(rows, seconds=phase_s, launches=launches, k1_held=held)
+    errs = {"k1_raster_attributes": held["max_abs_err"], "k1_raster_depth": held["max_abs_err"],
+            "k2_labels": float(labels_err), "scan_solver": scan_err}
+    for name, n in gen_launches.items():
+        entry = next((k for k in kernels if k["name"] == name), None)
+        if entry is None:  # --generation-only: the phase's own record
+            entry = dict(name=name, route="cuda", max_abs_err=errs[name])
+            kernels.append(entry)
+        entry["generation_launches"] = n
 
 
 def finish(t_all, record, kernels, kind, count) -> int:

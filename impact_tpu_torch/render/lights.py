@@ -37,6 +37,24 @@ class LightPools(NamedTuple):
     uni_mask: torch.Tensor  # bool[D]
 
 
+def empty_light_pools(n_omni: int = 4, n_uni: int = 2, device=None) -> LightPools:
+    """Light pools with every slot masked off, unidirectional lights
+    pointing down."""
+    return LightPools(
+        ambient_luminance=torch.zeros(3, device=device),
+        omni_position=torch.zeros((n_omni, 3), device=device),
+        omni_intensity=torch.zeros((n_omni, 3), device=device),
+        omni_extent=torch.zeros(n_omni, device=device),
+        omni_shadowable=torch.zeros(n_omni, dtype=torch.bool, device=device),
+        omni_mask=torch.zeros(n_omni, dtype=torch.bool, device=device),
+        uni_direction=torch.tensor([[0.0, -1.0, 0.0]], device=device).repeat(n_uni, 1),
+        uni_illuminance=torch.zeros((n_uni, 3), device=device),
+        uni_extent=torch.zeros(n_uni, device=device),
+        uni_shadowable=torch.zeros(n_uni, dtype=torch.bool, device=device),
+        uni_mask=torch.zeros(n_uni, dtype=torch.bool, device=device),
+    )
+
+
 OMNI_SHADOW_FAR = 100.0
 
 CUBE_FACE_DIRS = np.array(

@@ -7,18 +7,24 @@ as the reference's does. ``scene.spec.lower_world`` first reads the world in
 the reference's passes and order into the lowered records of
 ``scene/spec.py`` (stripping the setup components it consumed), and the
 compile turns those into device state: camera, ambient light, omni and
-unidirectional lights (plain or shadowable), voxel boxes, spheres and
-capsules (dynamic, or static ones that start kinematic) with motion,
+unidirectional lights (plain or shadowable), voxel boxes, spheres,
+capsules, sphere unions and generated objects (an SDF graph from
+``sdf_generators``, atomic or lowered from a meta graph by
+``voxel.meta_sdf.lower``; dynamic, or static ones that start kinematic) with motion,
 contact response, gravity, fracture properties, a multifractal noise
 modifier and noise-mixed voxel types, regular bodies (dynamic by substance,
 with analytic mass and inertia, or by explicit inertia, else kinematic;
 sphere, capsule and plane collidables, phantoms included; constant
 acceleration, local forces, dynamic gravity, detailed drag with its
 drag-load map, alignment torques; the circular, harmonic, rotation and
-orbital drivers; absorbing spheres and capsules), box, sphere and capsule
-mesh entities with uniform or textured materials (lowered into
+orbital drivers; absorbing spheres and capsules), box, sphere,
+hemisphere, cylinder, cone, capsule and rectangle mesh entities and OBJ/PLY
+mesh files (registered by path with :func:`register_mesh_file`) with
+uniform or textured materials (lowered into
 texture-array layers, textures resolved by their FNV-1a ids through
-:func:`register_texture`), spherical joints and distance rules — plus
+:func:`register_texture`), spherical joints, distance rules and the
+perspective or orthographic camera (which sets
+``config.tpu.orthographic_camera``, as the reference's does) — plus
 ``_build_static_geometry`` and ``render_config_from_engine_config``. A
 scene may be empty (no voxel object, no triangle). Slot layout and order
 follow the reference: voxel object i binds body ``max_bodies -
@@ -130,6 +136,19 @@ class SceneBuild:
     @property
     def camera(self):
         return self.params.camera
+
+
+# OBJ/PLY files referenced by TriangleMeshFile components, keyed by the FNV-1a
+# hash of their path (ref: impact_mesh path-hash mesh ids, io/{obj,ply}.rs)
+MESH_FILE_PATHS: dict[int, str] = {}
+
+
+def register_mesh_file(path) -> int:
+    """Register an OBJ or PLY file for TriangleMeshFile setup; returns the
+    FNV-1a hash of its path, the component's ``path_hash``."""
+    h = int(hash_str_to_u64(str(path)))
+    MESH_FILE_PATHS[h] = str(path)
+    return h
 
 
 # Texture sources referenced by the Textured*/NormalMap/ParallaxMap setup
@@ -255,18 +274,32 @@ def _entity_layer(mat, textures: dict, size: int):
 
 
 def _mesh_geometry(spec: MeshSpec):
-    """The entity's local mesh (positions scaled and offset)."""
-    if spec.shape == "box":
+    """The entity's local mesh (positions scaled and offset), made as the
+    reference makes it (``impact_tpu/runtime/setup.py:491-535``)."""
+    shape, nc = spec.shape, int(spec.n_circumference_vertices)
+    if shape == "box":
         tri = meshlib.box_mesh(tuple(_f32(e) for e in spec.extents))
-    elif spec.shape == "sphere":
+    elif shape in ("sphere", "hemisphere"):
         n = int(spec.n_rings)
-        tri = meshlib.sphere_mesh(1.0, n, 2 * n + 2)
-    elif spec.shape == "capsule":
-        nc = int(spec.n_circumference_vertices)
+        make = meshlib.sphere_mesh if shape == "sphere" else meshlib.hemisphere_mesh
+        tri = make(1.0, n, 2 * n + 2)
+    elif shape in ("cylinder", "cone"):
+        make = meshlib.cylinder_mesh if shape == "cylinder" else meshlib.cone_mesh
+        length = _f32(spec.length)
+        tri = make(0.5 * _f32(spec.diameter), length, nc)
+        # the reference's convention: the base centred at the origin
+        tri = tri._replace(positions=tri.positions
+                           + np.array([0.0, 0.5 * length, 0.0], np.float32))
+    elif shape == "capsule":
         tri = meshlib.capsule_mesh(0.5 * _f32(spec.diameter), _f32(spec.segment_length),
                                    max(4, nc // 2), nc)
+    elif shape == "rectangle":
+        tri = meshlib.rectangle_mesh(*(_f32(e) for e in spec.extents))
+    elif shape == "file":
+        tri = (meshlib.load_ply(spec.path) if spec.path.endswith(".ply")
+               else meshlib.load_obj(spec.path))
     else:
-        raise ValueError(f"mesh shape {spec.shape!r} is not ported")
+        raise ValueError(f"unknown mesh shape {shape!r}")
     pos = tri.positions * np.float32(spec.scale) + np.asarray(spec.offset, np.float32)
     return pos, tri.normals, tri.indices
 
@@ -383,14 +416,7 @@ def _distance_rule_pools(rules, body_of, dev):
 def _object_grids(ob, g: int, i8: bool, dev):
     """SDF grid (i8 codes or f32), voxel types and origin of one object."""
     ve = _f32(ob.voxel_extent)
-    if ob.shape == "box":
-        graph = sdflib.box(tuple(_f32(e) * ve for e in ob.size))
-    elif ob.shape == "sphere":
-        graph = sdflib.sphere(_f32(ob.size[0]) * ve)
-    elif ob.shape == "capsule":
-        graph = sdflib.capsule(_f32(ob.size[0]) * ve, _f32(ob.size[1]) * ve)
-    else:
-        raise ValueError(f"voxel object shape {ob.shape!r} is not ported")
+    graph = ob.graph
     n = ob.noise
     if n is not None:
         graph = sdflib.noise_modifier(graph, int(n.octaves), _f32(n.frequency),
@@ -470,16 +496,19 @@ def compile_scene(world, config: EngineConfig, registry: VoxelTypeRegistry | Non
                   rng_seed: int = 0, device="cuda") -> SceneBuild:
     """Lower the ECS ``world`` into device state (the setup pipeline),
     stripping the setup components it consumed from the world, as the
-    reference does. ``static_geometry``: render geometry drawn before the
-    ground quads. The fracture generator is a ``torch.Generator`` on the
-    device, seeded with ``rng_seed``. ``sdf_generators`` (with
-    GeneratedVoxelObject) raises NotImplementedError until the SDF graph
-    nodes are ported."""
+    reference does. ``sdf_generators``: generator id → SDF graph (a
+    ``voxel/sdf.py`` dict), the graph of each GeneratedVoxelObject by its
+    ``generator_id`` (an unknown id raises KeyError). ``static_geometry``:
+    render geometry drawn before the ground quads. The fracture generator is
+    a ``torch.Generator`` on the device, seeded with ``rng_seed``. An
+    orthographic camera sets ``config.tpu.orthographic_camera``."""
     dev = torch.device(device)
     tc = config.tpu
     if tc.chunked_remesh is None:
         tc.chunked_remesh = tc.voxel_grid_size >= 64  # resolved in place, as the reference does
-    scene = lower_world(world, TEXTURE_SOURCES, sdf_generators)
+    scene = lower_world(world, TEXTURE_SOURCES, sdf_generators, MESH_FILE_PATHS)
+    if scene.camera is not None and scene.camera.orthographic:
+        tc.orthographic_camera = True  # in place, as the reference does
     registry = registry_to(registry or default_registry(), dev)
     o_max = tc.max_voxel_objects
     g = tc.voxel_grid_size
@@ -523,7 +552,7 @@ def compile_scene(world, config: EngineConfig, registry: VoxelTypeRegistry | Non
     uidx = []
     n_accel = 0
     for oi, ob in enumerate(objects):
-        sig = (ob.shape, tuple(ob.size), float(ob.voxel_extent), ob.voxel_type,
+        sig = (repr(ob.graph), float(ob.voxel_extent), ob.voxel_type,
                None if ob.noise is None else dataclasses.astuple(ob.noise),
                None if ob.voxel_types is None else dataclasses.astuple(ob.voxel_types))
         if sig not in cache:

@@ -262,3 +262,24 @@ def build_render_scene(pool: VoxelObjectPool, meshes: CompactMesh, body_position
 def _concat_scene(parts) -> RenderScene:
     return RenderScene(**{k: torch.cat([p[k].to(parts[0][k].dtype) for p in parts])
                           for k in parts[0]})
+
+
+def render_scene_from_indexed(vert_pos, vert_normal, vert_albedo, vert_f0, vert_roughness,
+                              vert_emissive, vert_material, tri_indices, tri_active,
+                              tri_shadow=None) -> RenderScene:
+    """A corner-major RenderScene from indexed geometry (one-off paths such
+    as the voxel generator's preview)."""
+    t = tri_indices.long()
+
+    def corners(a):
+        parts = [a[t[:, c]] for c in range(3)]
+        return torch.stack(parts, dim=-1) if a.ndim == 1 else torch.cat(parts, dim=-1)
+
+    pos = corners(vert_pos)
+    return RenderScene(
+        tri_pos=pos, tri_pos_prev=pos, tri_normal=corners(vert_normal),
+        tri_albedo=corners(vert_albedo), tri_f0=corners(vert_f0),
+        tri_roughness=corners(vert_roughness), tri_emissive=corners(vert_emissive),
+        tri_material=corners(vert_material), tri_active=tri_active,
+        tri_shadow=tri_active if tri_shadow is None else tri_shadow,
+    )

@@ -18,9 +18,13 @@ the registered source of each id the materials use: an id that was never
 registered is missing there, and the compile raises ``KeyError`` for it, as
 the reference does.
 
-A component that the reference lowers but the port does not support yet
-raises ``NotImplementedError`` naming its ROADMAP.md item; nothing is
-dropped in silence.
+Every setup component of the reference lowers: voxel spheres, boxes,
+capsules, sphere unions and generated objects (each as its SDF graph of
+``voxel/sdf.py``; a generated object's graph is ``sdf_generators[
+generator_id]``, and an unknown id raises ``KeyError``, as in the
+reference), the box, sphere, hemisphere, cylinder, cone, capsule and
+rectangle meshes and OBJ/PLY mesh files (an unregistered path lowers to no
+mesh, as in the reference), and the perspective and orthographic cameras.
 """
 
 from __future__ import annotations
@@ -30,22 +34,7 @@ from dataclasses import dataclass, field
 import numpy as np
 
 from ..ecs import components as C
-
-# component → the ROADMAP.md item that ports it
-NOT_PORTED = {
-    "VoxelSphereUnion": "ROADMAP.md Queue 1.4 (the SDF graph nodes)",
-    "GeneratedVoxelObject": "ROADMAP.md Queue 1.4 (the SDF graph nodes and sdf_generators)",
-    "HemisphereMesh": "ROADMAP.md Queue 1.3 (the other mesh primitives)",
-    "CylinderMesh": "ROADMAP.md Queue 1.3 (the other mesh primitives)",
-    "ConeMesh": "ROADMAP.md Queue 1.3 (the other mesh primitives)",
-    "RectangleMesh": "ROADMAP.md Queue 1.3 (the other mesh primitives)",
-    "TriangleMeshFile": "ROADMAP.md Queue 1.3 (the OBJ/PLY loaders)",
-    "OrthographicCamera": "ROADMAP.md Queue 1.5 (the orthographic camera)",
-}
-
-
-def not_ported(name: str):
-    return NotImplementedError(f"{name} is not ported yet: {NOT_PORTED[name]}")
+from ..voxel import sdf as sdflib
 
 
 @dataclass
@@ -55,6 +44,7 @@ class CameraSpec:
     vertical_fov: float
     near: float
     far: float
+    orthographic: bool = False  # half-height far·tan(fov/2), ref projection.rs:216-236
 
 
 @dataclass
@@ -119,19 +109,17 @@ class AbsorbingCapsule:
 
 @dataclass
 class VoxelObjectSpec:
-    """A voxel object: a box (``size`` = extents in voxels), a sphere
-    (``size`` = (radius,) in voxels) or a capsule along y (``size`` =
-    (radius, segment_length) in voxels), with its motion, contact response
-    (None: no voxel collidable, a zero response), gravity and fracture
-    properties, an optional noise modifier of its SDF and optional
-    noise-mixed voxel types (else ``voxel_type``). ``dynamic=False`` is the
-    reference's voxel object without DynamicVoxels: its body starts
-    kinematic."""
+    """A voxel object: its SDF graph (``voxel/sdf.py`` dicts, in world
+    units, before the noise modifier) voxelized at ``voxel_extent``, with
+    its motion, contact response (None: no voxel collidable, a zero
+    response), gravity and fracture properties, an optional noise modifier
+    of its SDF and optional noise-mixed voxel types (else ``voxel_type``).
+    ``dynamic=False`` is the reference's voxel object without DynamicVoxels:
+    its body starts kinematic."""
 
     position: tuple
     voxel_extent: float
-    shape: str = "box"  # "box" | "sphere" | "capsule"
-    size: tuple = (10.0, 10.0, 10.0)
+    graph: dict
     orientation: tuple = (0.0, 0.0, 0.0, 1.0)
     voxel_type: int = 0
     linear_velocity: tuple = (0.0, 0.0, 0.0)
@@ -185,18 +173,30 @@ class Material:
 
 @dataclass
 class MeshSpec:
-    """A mesh model (ref components BoxMesh, SphereMesh, CapsuleMesh and
-    ModelTransform): ``shape`` "box" (``extents``), "sphere" (the
-    reference's UV sphere of radius 1 and ``n_rings`` rings) or "capsule"
-    (``segment_length``, ``diameter``, ``n_circumference_vertices``),
+    """A mesh model (ref components BoxMesh, SphereMesh, HemisphereMesh,
+    CylinderMesh, ConeMesh, CapsuleMesh, RectangleMesh, TriangleMeshFile
+    and ModelTransform), by ``shape``:
+
+    * "box": ``extents``;
+    * "sphere" and "hemisphere": the reference's UV sphere (or its upper
+      half) of radius 1 and ``n_rings`` rings;
+    * "cylinder" and "cone": ``length``, ``diameter`` (the cone's base) and
+      ``n_circumference_vertices``, the base at the origin;
+    * "capsule": ``segment_length``, ``diameter`` and
+      ``n_circumference_vertices``;
+    * "rectangle": ``extents`` = (extent_x, extent_z) in the xz-plane;
+    * "file": the OBJ or PLY mesh at ``path`` (PLY by its suffix);
+
     scaled by ``scale`` and moved by ``offset`` in the entity's frame."""
 
     shape: str = "box"
     extents: tuple = (1.0, 1.0, 1.0)
     n_rings: int = 15
     segment_length: float = 1.0
+    length: float = 1.0
     diameter: float = 1.0
     n_circumference_vertices: int = 15
+    path: str | None = None
     scale: float = 1.0
     offset: tuple = (0.0, 0.0, 0.0)
     material: Material = field(default_factory=Material)
@@ -413,12 +413,58 @@ def _spec_value(v):
     return _t(v) if isinstance(v, np.ndarray) else v
 
 
-def lower_world(world, texture_sources: dict, sdf_generators: dict | None = None) -> Scene:
+def _voxel_graph(shape, sdf_generators: dict) -> dict:
+    """A voxel shape component's SDF graph in world units, in the
+    reference's float arithmetic (``impact_tpu/runtime/setup.py:351-367``)."""
+    extent = float(shape.voxel_extent)
+    if isinstance(shape, C.VoxelSphere):
+        return sdflib.sphere(shape.radius * extent)
+    if isinstance(shape, C.VoxelBox):
+        return sdflib.box((shape.extent_x * extent, shape.extent_y * extent,
+                           shape.extent_z * extent))
+    if isinstance(shape, C.VoxelCapsule):
+        return sdflib.capsule(shape.radius * extent, shape.segment_length * extent)
+    if isinstance(shape, C.VoxelSphereUnion):
+        off = np.asarray(shape.center_offsets) * extent  # float32, as the reference's
+        return sdflib.union(sdflib.translation(sdflib.sphere(shape.radius_1 * extent), -off / 2),
+                            sdflib.translation(sdflib.sphere(shape.radius_2 * extent), off / 2),
+                            smoothness=shape.smoothness * extent)
+    # GeneratedVoxelObject: the reference reads only generator_id
+    return sdf_generators[int(shape.generator_id)]
+
+
+def _mesh_spec(mc, mesh_files: dict) -> MeshSpec | None:
+    """The MeshSpec of a mesh component; None for a mesh file whose path
+    was never registered (the reference lowers no mesh for it)."""
+    if isinstance(mc, C.BoxMesh):
+        return MeshSpec(shape="box", extents=(mc.extent_x, mc.extent_y, mc.extent_z))
+    if isinstance(mc, (C.SphereMesh, C.HemisphereMesh)):
+        return MeshSpec(shape="sphere" if isinstance(mc, C.SphereMesh) else "hemisphere",
+                        n_rings=mc.n_rings)
+    if isinstance(mc, (C.CylinderMesh, C.ConeMesh)):
+        cyl = isinstance(mc, C.CylinderMesh)
+        return MeshSpec(shape="cylinder" if cyl else "cone", length=mc.length,
+                        diameter=mc.diameter if cyl else mc.max_diameter,
+                        n_circumference_vertices=mc.n_circumference_vertices)
+    if isinstance(mc, C.CapsuleMesh):
+        return MeshSpec(shape="capsule", segment_length=mc.segment_length, diameter=mc.diameter,
+                        n_circumference_vertices=mc.n_circumference_vertices)
+    if isinstance(mc, C.RectangleMesh):
+        return MeshSpec(shape="rectangle", extents=(mc.extent_x, mc.extent_z))
+    path = mesh_files.get(int(mc.path_hash))  # TriangleMeshFile
+    return None if path is None else MeshSpec(shape="file", path=str(path))
+
+
+def lower_world(world, texture_sources: dict, sdf_generators: dict | None = None,
+                mesh_files: dict | None = None) -> Scene:
     """Read ``world`` into a :class:`Scene` in the reference compile's order,
     stripping each lowered entity's setup components. ``texture_sources``:
-    texture id → source (``runtime.setup.TEXTURE_SOURCES``)."""
-    if sdf_generators:
-        raise not_ported("GeneratedVoxelObject")
+    texture id → source (``runtime.setup.TEXTURE_SOURCES``);
+    ``sdf_generators``: generator id → SDF graph, for GeneratedVoxelObject;
+    ``mesh_files``: path hash → OBJ/PLY path
+    (``runtime.setup.MESH_FILE_PATHS``), for TriangleMeshFile."""
+    sdf_generators = sdf_generators or {}
+    mesh_files = mesh_files or {}
     s = Scene()
 
     def get(eid, comp):
@@ -444,15 +490,7 @@ def lower_world(world, texture_sources: dict, sdf_generators: dict | None = None
                      None)
         if shape is None:
             continue
-        name = type(shape).__name__
-        if name in NOT_PORTED:
-            raise not_ported(name)
-        if isinstance(shape, C.VoxelSphere):
-            kind, size = "sphere", (shape.radius,)
-        elif isinstance(shape, C.VoxelBox):
-            kind, size = "box", (shape.extent_x, shape.extent_y, shape.extent_z)
-        else:
-            kind, size = "capsule", (shape.radius, shape.segment_length)
+        graph = _voxel_graph(shape, sdf_generators)
         pos, ori = frame_of(eid)
         vel, ang = motion_of(eid)
         vt, gn = get(eid, C.SameVoxelType), get(eid, C.GradientNoiseVoxelTypes)
@@ -460,8 +498,8 @@ def lower_world(world, texture_sources: dict, sdf_generators: dict | None = None
         fp, ca = get(eid, C.FracturingProperties), get(eid, C.ConstantAcceleration)
         flags = get(eid, C.SceneEntityFlags)
         s.voxel_objects.append(VoxelObjectSpec(
-            position=pos, orientation=ori, voxel_extent=shape.voxel_extent, shape=kind,
-            size=size, linear_velocity=vel, angular_velocity=ang,
+            position=pos, orientation=ori, voxel_extent=shape.voxel_extent, graph=graph,
+            linear_velocity=vel, angular_velocity=ang,
             voxel_type=int(vt.voxel_type) if vt is not None else 0,
             voxel_types=None if vt is not None or gn is None else GradientNoiseTypesSpec(
                 n_voxel_types=gn.n_voxel_types, voxel_types=_t(gn.voxel_types),
@@ -484,17 +522,9 @@ def lower_world(world, texture_sources: dict, sdf_generators: dict | None = None
         mc = next((get(eid, c) for c in _MESHES if world.has_component(eid, c)), None)
         if mc is None:
             continue
-        name = type(mc).__name__
-        if name in NOT_PORTED:
-            raise not_ported(name)
-        if isinstance(mc, C.BoxMesh):
-            spec = MeshSpec(shape="box", extents=(mc.extent_x, mc.extent_y, mc.extent_z))
-        elif isinstance(mc, C.SphereMesh):
-            spec = MeshSpec(shape="sphere", n_rings=mc.n_rings)
-        else:
-            spec = MeshSpec(shape="capsule", segment_length=mc.segment_length,
-                            diameter=mc.diameter,
-                            n_circumference_vertices=mc.n_circumference_vertices)
+        spec = _mesh_spec(mc, mesh_files)
+        if spec is None:
+            continue
         mt = get(eid, C.ModelTransform)
         if mt is not None:
             spec.scale, spec.offset = mt.scale, _t(mt.offset)
@@ -637,13 +667,15 @@ def lower_world(world, texture_sources: dict, sdf_generators: dict | None = None
                                          perpendicular_illuminance=_t(e.perpendicular_illuminance),
                                          angular_source_extent=e.angular_source_extent,
                                          shadowable=shadowable))
-    for eid in world.entities_with(C.PerspectiveCamera):
-        pc = world.get_component(eid, C.PerspectiveCamera)
-        pos, ori = frame_of(eid)
-        s.camera = CameraSpec(position=pos, orientation=ori,
-                              vertical_fov=pc.vertical_field_of_view, near=pc.near_distance,
-                              far=pc.far_distance)
-        world.strip_setup_components(eid)
-    if world.entities_with(C.OrthographicCamera):
-        raise not_ported("OrthographicCamera")
+    # the perspective cameras, then the orthographic ones: the last one read
+    # is the scene's, as in the reference
+    for comp in (C.PerspectiveCamera, C.OrthographicCamera):
+        for eid in world.entities_with(comp):
+            c = world.get_component(eid, comp)
+            pos, ori = frame_of(eid)
+            s.camera = CameraSpec(position=pos, orientation=ori,
+                                  vertical_fov=c.vertical_field_of_view, near=c.near_distance,
+                                  far=c.far_distance,
+                                  orthographic=comp is C.OrthographicCamera)
+            world.strip_setup_components(eid)
     return s

@@ -271,6 +271,11 @@ def _merge_quads(child, axis_u, axis_v, eps: float = 1e-3):
     }
 
 
+def mesh_counts(mesh: SurfaceNetsMesh):
+    """Active vertices and triangles of a mesh (per object when batched)."""
+    return mesh.vert_active.sum(dim=-1), mesh.tri_active.sum(dim=-1)
+
+
 class CompactMesh(NamedTuple):
     """Fixed-capacity mesh with active vertices/triangles packed to the
     front and a corner-major render layout ([:, 3c:3c+3] is corner c)."""

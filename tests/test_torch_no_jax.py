@@ -55,7 +55,8 @@ def test_no_reference_or_jax_import(path):
 ENTRY_MODULES = ("impact_tpu_torch.runtime.setup", "impact_tpu_torch.bridge",
                  "impact_tpu_torch.apps.snapshot_tester", "impact_tpu_torch.render.textures",
                  "impact_tpu_torch.render.pipeline", "impact_tpu_torch.apps.impact_game",
-                 "impact_tpu_torch.runtime.checkpoint")
+                 "impact_tpu_torch.runtime.checkpoint", "impact_tpu_torch.apps.voxel_generator",
+                 "impact_tpu_torch.scene.mesh")
 
 
 @pytest.mark.parametrize("module", ENTRY_MODULES)
@@ -84,3 +85,23 @@ def test_api_entry_points_default_to_the_card():
 
     for f in (compile_scene, play, load_checkpoint):
         assert inspect.signature(f).parameters["device"].default == "cuda", f.__name__
+
+
+def test_generation_entry_points_default_to_the_card():
+    """compile_scene with sdf_generators, and the voxel generator's CLI,
+    run on ``cuda`` unless told otherwise."""
+    import inspect
+
+    from impact_tpu_torch.apps import voxel_generator
+    from impact_tpu_torch.runtime import compile_scene
+
+    params = inspect.signature(compile_scene).parameters
+    assert "sdf_generators" in params and params["device"].default == "cuda"
+    seen = {}
+    run = voxel_generator.cmd_stats
+    voxel_generator.cmd_stats = lambda path, device: seen.update(path=path, device=device)
+    try:
+        assert voxel_generator.main(["stats", "graph.json"]) == 0
+    finally:
+        voxel_generator.cmd_stats = run
+    assert seen == {"path": "graph.json", "device": "cuda"}
