@@ -97,7 +97,22 @@ then drives these paths through the port's entry points:
    ``preview``, ``vary`` 2), each preview (K1) at least 0.95 against the
    plain tile raster's; every K1 launch of the phase, its busiest substep's
    scan kernels and every grid it labelled held against their plain
-   versions.
+   versions;
+14. the slice of gizmos, the scene graph and the parity scenes
+   (``parity_phase``): the reference tester's 13 scenes through
+   ``impact_tpu_torch.apps.parity_snapshots`` at 768x512 on
+   ``EngineConfig()`` (no drops, each K1 frame at least 0.95 against the
+   plain tile raster's, its score against the committed JAX render
+   printed; each frame rendered again from the same state for its time);
+   ShadowableOmnidirectionalLight with ``tpu.bf16_shading`` (not equal to
+   the float32 frame, its bfloat16 shade within 2⁻⁶ of the CPU's); all 21
+   gizmo kinds and ``colliders`` over the snapshot VoxelBoxTumbler through
+   ``render`` and ``step_and_render`` (the card's overlay against the
+   CPU's; hidden, the base frame); the filled 64³ chunked scene rebaked
+   with another voxel-type registry (against a CPU rebake), stepped and
+   rendered; the quick start's world with a three-deep Parent chain
+   flattened and compiled, and an EntityController driving a kinematic
+   body; every K1 and labels launch held against its plain version.
 
 Kernel launch counts are zeroed just before each path and read just after
 it. Every phase prints one flushed line with its seconds; any failure exits
@@ -125,7 +140,8 @@ empty frame is shorter than the wrapper's host work) and the wrapper's.
 of the record), so two trees can be timed in turns in one call.
 ``--snapshots-only`` runs only the scan solver, snapshot and scene physics
 phases; ``--scene-physics-only`` only the scene physics phase; ``--api-only``
-only the API phase; ``--generation-only`` only the generation phase.
+only the API phase; ``--generation-only`` only the generation phase;
+``--parity-only`` only the parity phase.
 """
 
 from __future__ import annotations
@@ -220,6 +236,19 @@ QUICK_START_RON = "(tpu: (max_voxel_objects: 8, max_bodies: 24))"
 GENERATION_STEPS, GENERATION_RENDER_EVERY = 200, 50
 VARY_N = 2
 SIGN_FLIP_ATOL = 1e-5
+# the parity phase: the gizmo scene's steps before its frames, the rebaked
+# chunked scene's steps (the filled 64³ asteroid splits on step 1), the
+# EntityController's steps, and the share of the pixels either overlay
+# writes on which the card's overlay may differ from the CPU's (a sample on
+# a pixel edge may round the other way)
+PARITY_GIZMO_STEPS, PARITY_CHUNKED_STEPS, CONTROLLER_STEPS = 5, 3, 10
+CONTROLLED_AT = (0.0, 12.0, 0.0)
+OVERLAY_SHARE = 1e-3
+# the card's bfloat16 shade against the CPU's on one G-buffer: at most this
+# share of the covered pixels beyond 2⁻⁶ of their magnitude + 1e-6 (the CPU
+# test's bar against impact_tpu; a float32 function that rounds the last bit
+# another way on the card can move a bfloat16 value by one step)
+BF16_SHARE = 1e-3
 API_KERNELS = {"k1_raster_attributes": "k1_attr_kernel", "k1_raster_depth": "k1_depth_kernel",
                "scan_velocity_iterations": "scan_velocity_kernel",
                "scan_position_correction": "scan_correction_kernel"}
@@ -1034,6 +1063,9 @@ def main(argv=None) -> int:
     ap.add_argument("--generation-only", action="store_true",
                     help="run only the generation phase (the generation world, its "
                          "orthographic frame, the voxel generator app)")
+    ap.add_argument("--parity-only", action="store_true",
+                    help="run only the parity phase (the reference tester's scenes, bf16 "
+                         "shading, gizmos, the chunked rebake, the scene graph)")
     args = ap.parse_args(argv)
     k1_only, ccl_only = args.k1_only, args.ccl_only
     t_all = time.perf_counter()
@@ -1118,6 +1150,10 @@ def main(argv=None) -> int:
     if args.generation_only:
         kernels = []
         generation_phase(dev, record, kernels)
+        return finish(t_all, record, kernels, kind, count)
+    if args.parity_only:
+        kernels = []
+        parity_phase(dev, record, kernels)
         return finish(t_all, record, kernels, kind, count)
 
     with Phase("K2 vs plain version, G=32: random fills, serpentine, empty, full"):
@@ -1497,6 +1533,7 @@ def main(argv=None) -> int:
     scene_physics_phase(dev, record, kernels)
     api_phase(dev, record, kernels)
     generation_phase(dev, record, kernels)
+    parity_phase(dev, record, kernels)
     return finish(t_all, record, kernels, kind, count)
 
 
@@ -2632,6 +2669,439 @@ def generation_phase(dev, record, kernels):
             entry = dict(name=name, route="cuda", max_abs_err=errs[name])
             kernels.append(entry)
         entry["generation_launches"] = n
+
+
+
+# --- the parity phase: the reference tester's scenes, bf16 shading, gizmos,
+# the chunked registry rebake, the scene graph and controllers ---------------------
+
+
+def parity_frame(name, dev, cfg=None):
+    """One of the reference tester's 13 scenes through the port's parity
+    harness (768x512, ``apps/parity_snapshots.py:build_runtime`` on ``cfg``,
+    default ``EngineConfig()``), rendered once → (row, K1 frame as numpy,
+    runtime). The row holds the frame's raster drops, its score against the
+    plain tile raster's frame of the same state (``render_again``), its
+    score against the committed JAX render of the scene, and its stage ms
+    (with whatever K1 wrappers are installed: the held ones add K1's plain
+    version to every view)."""
+    import torch
+
+    from impact_tpu_torch.apps import parity_snapshots as ps
+    from impact_tpu_torch.apps.snapshot_tester import render_again
+    from impact_tpu_torch.utils.config import EngineConfig
+    from impact_tpu_torch.utils.image import load_png, rgb_hybrid_compare
+
+    t0 = time.perf_counter()
+    rt = ps.build_runtime(name, cfg if cfg is not None else EngineConfig(), device=dev)
+    img = rt.render()
+    torch.cuda.synchronize()
+    img = img.cpu().numpy()
+    plain = render_again(rt, "raster")
+    jax_render = load_png(ps.JAX_RENDERS / f"{name}.png")[..., :3]
+    row = dict(drops=rt.dropped_raster_candidates(),
+               vs_tile_raster=rgb_hybrid_compare(img, plain),
+               vs_committed_jax_render=rgb_hybrid_compare(img, jax_render),
+               frame_ms_held=sum(rt.stage_ms.values()),
+               seconds=time.perf_counter() - t0)
+    return row, img, rt
+
+
+def timed_again(rt, img):
+    """The runtime's frame rendered again from the same state through a
+    fresh runtime, with K1's wrappers as they are (the caller installs the
+    unheld ones) → (frame ms, stage ms); fails unless the frame equals
+    ``img``, the held render's, so these launches repeat held ones."""
+    import numpy as np
+    import torch
+
+    from impact_tpu_torch.runtime import HeadlessRuntime
+    from impact_tpu_torch.runtime.setup import SceneBuild
+
+    sim = rt.sim._replace(render=rt._initial_sim.render)
+    again = HeadlessRuntime(SceneBuild(sim=sim, params=rt.params, info=rt.info), rt.config,
+                            enable_fracturing=False, enable_absorption=False,
+                            enable_splitting=False)
+    frame = again.render()
+    torch.cuda.synchronize()
+    if not np.array_equal(frame.cpu().numpy(), img):
+        raise AssertionError("the frame rendered again from the same state differs")
+    return sum(again.stage_ms.values()), {k: round(v, 3) for k, v in again.stage_ms.items()}
+
+
+def bf16_shade_card_vs_cpu(rt):
+    """The bfloat16 ``shade`` of the runtime's last G-buffer (no shadow maps,
+    occlusion 1) on the card against the same call on the CPU → (covered
+    pixels beyond 2⁻⁶ of the pixel's magnitude + 1e-6, covered pixels, the
+    largest error over the magnitude)."""
+    import torch
+
+    from impact_tpu_torch.render.lights import shade
+
+    gb, p = rt.last_gbuffer, rt.params
+    args = (gb.world_pos, gb.normal, gb.albedo, gb.f0, gb.roughness, gb.emissive,
+            torch.ones_like(gb.roughness), p.camera.position, gb.valid)
+    card = shade(p.lights, *args, bf16=True).cpu()
+    lights = type(p.lights)(*(x.cpu() for x in p.lights))
+    cpu = shade(lights, *(x.cpu() for x in args), bf16=True)
+    mag = cpu.abs().amax(dim=-1)
+    err = (card - cpu).abs().amax(dim=-1)
+    valid = gb.valid.cpu()
+    beyond = int(((err > 2.0 ** -6 * mag + 1e-6) & valid).sum())
+    worst = float((err / (mag + 1e-6))[valid].max())
+    return beyond, int(valid.sum()), worst
+
+
+def overlay_card_vs_cpu(rt, base, kinds):
+    """The gizmo lines of ``kinds`` at the runtime's state overlaid on the
+    card over the u8 frame ``base`` (a tensor on the card) against the
+    port's overlay on the CPU of the same frame, lines and view-projection
+    → (the card's frame, pixels that differ, pixels either one wrote)."""
+    from impact_tpu_torch.render.gizmos import GizmoLines, overlay_lines
+
+    lines, vp = rt.gizmo_lines(kinds)
+    card = overlay_lines(base, lines, vp).cpu().numpy()
+    cpu = overlay_lines(base.cpu(), GizmoLines(*(x.cpu() for x in lines)), vp.cpu()).numpy()
+    b = base.cpu().numpy()
+    written = int(((card != b) | (cpu != b)).any(axis=-1).sum())
+    differ = int((card != cpu).any(axis=-1).sum())
+    return card, differ, written
+
+
+def parity_world():
+    """The quick start's world (``voxel_box_tumbler(n_boxes=4)``) with a
+    kinematic phantom sphere for an EntityController and a three-deep
+    Parent chain of kinematic phantom spheres → (world, chain entities).
+    The controlled sphere starts at CONTROLLED_AT."""
+    from impact_tpu_torch.ecs import components as C
+    from impact_tpu_torch.models import voxel_box_tumbler
+
+    w = voxel_box_tumbler(n_boxes=4)
+    w.create_entity(C.ReferenceFrame(position=CONTROLLED_AT), C.KinematicRigidBodyMarker(),
+                    C.SphericalCollidable(kind=2, radius=0.5))
+    chain, parent = [], None
+    for i, (pos, q) in enumerate((((3.0, 9.0, -2.0), (0.0, 0.3826834, 0.0, 0.9238795)),
+                                  ((1.5, 0.0, 0.0), (0.0, 0.0, 0.258819, 0.9659258)),
+                                  ((0.0, 1.0, 0.5), (0.2588190, 0.0, 0.0, 0.9659258)))):
+        comps = [C.ReferenceFrame(position=pos, orientation=q), C.KinematicRigidBodyMarker(),
+                 C.SphericalCollidable(kind=2, radius=0.3)]
+        if parent is not None:
+            comps.append(C.Parent(entity_id=parent))
+        parent = w.create_entity(*comps)
+        chain.append(parent)
+    return w, chain
+
+
+def body_at(rt, position):
+    """The body slot whose position is ``position`` (within 1e-5)."""
+    import torch
+
+    p = torch.tensor(position, dtype=torch.float32, device=rt.device)
+    hit = torch.nonzero(torch.linalg.vector_norm(rt.sim.phys.bodies.position - p, dim=-1)
+                        < 1e-5).flatten()
+    if hit.numel() != 1:
+        raise AssertionError(f"{hit.numel()} bodies at {position}")
+    return int(hit[0])
+
+
+def parity_phase(dev, record, kernels):
+    """The slice's paths on the card, every K1 launch held against K1's
+    plain version and every grid the split checks label against the
+    two-level plain labelling: the reference tester's 13 scenes through
+    ``apps/parity_snapshots.py`` at 768x512 on ``EngineConfig()`` (no
+    drops, each K1 frame at least PARITY_BAR against the plain tile
+    raster's, the score against the committed JAX render printed);
+    ShadowableOmnidirectionalLight with ``tpu.bf16_shading`` (not equal to
+    the float32 frame, at least PARITY_BAR against the plain tile raster's
+    bf16 frame, and its bfloat16 shade within 2⁻⁶ of the CPU's on all but
+    BF16_SHARE of the pixels; its score against the float32 frame is
+    printed, not gated: the reference's own bfloat16 frame scores alike,
+    tests/bf16_frame_parity.py); the gizmos
+    of all 21 kinds and ``colliders`` on the snapshot configuration's
+    VoxelBoxTumbler after PARITY_GIZMO_STEPS steps, through ``render`` and
+    ``step_and_render`` (the overlaid frame differs from the base frame,
+    the card's overlay equals the CPU's on at least 1 − OVERLAY_SHARE of the
+    written pixels, hiding them gives the base frame back); the filled 64³
+    chunked scene rebaked with a registry of other colours (the baked
+    corners within 1e-6 of a CPU rebake of the same pool), stepped
+    PARITY_CHUNKED_STEPS steps and rendered (at least PARITY_BAR against the
+    plain tile raster); and the quick start's world with a three-deep
+    Parent chain flattened and compiled (the chain's bodies at the composed
+    world poses) and an EntityController driving a kinematic body through
+    CONTROLLER_STEPS steps (its velocity and orientation the controller's)."""
+    import numpy as np
+    import torch
+
+    from impact_tpu_torch.apps import parity_snapshots as ps
+    from impact_tpu_torch.apps import snapshot_tester as st
+    from impact_tpu_torch.apps.snapshot_tester import render_again
+    from impact_tpu_torch.models.bench import bench_chunked_config, bench_chunked_fill_scene
+    from impact_tpu_torch.models.parity_scenes import PARITY_SCENES
+    from impact_tpu_torch.ops import ccl_pallas as k2
+    from impact_tpu_torch.render import raster_pallas as rp
+    from impact_tpu_torch.render.gizmos import ALL_GIZMO_TYPES, GIZMO_COLLIDERS
+    from impact_tpu_torch.runtime import HeadlessRuntime, compile_scene
+    from impact_tpu_torch.scene.controller import EntityController
+    from impact_tpu_torch.scene.graph import flatten_to_world_frames, world_transforms
+    from impact_tpu_torch.scene.materials import make_voxel_type_registry, material_corner_table
+    from impact_tpu_torch.utils.config import EngineConfig
+    from impact_tpu_torch.utils.image import rgb_hybrid_compare
+    from impact_tpu_torch.voxel import interaction
+    from impact_tpu_torch.voxel.mesh import bake_mesh_materials
+
+    rows = {}
+    held = dict(depth=0, attributes=0, max_abs_err=0.0)
+    launches = dict.fromkeys(("k1_raster_attributes", "k1_raster_depth", "k2_labels", "k2_ccl",
+                              "k2_ccl_wide"), 0)
+    counters = (rp.LAUNCHES, k2.LAUNCHES)
+
+    def reset():
+        for c in counters:
+            c.reset()
+
+    def add():
+        for c in counters:
+            for k, v in c.items():
+                if k in launches:
+                    launches[k] += v
+
+    t_phase = time.perf_counter()
+    run_depth, run_attr = rp.raster_depth, rp.raster_attributes
+    rp.raster_depth, rp.raster_attributes = held_k1(held)
+    run_labels = interaction.connected_component_labels_batched
+    grids = []
+    try:
+        with Phase(f"parity: the reference tester's {len(PARITY_SCENES)} scenes at "
+                   f"{ps.WIDTH}x{ps.HEIGHT} through apps/parity_snapshots.py on EngineConfig(), "
+                   f"each K1 frame against the plain tile raster's at {PARITY_BAR}"):
+            scenes, failed, f32_omni = {}, [], None
+            for name in PARITY_SCENES:
+                reset()
+                row, img, rt = parity_frame(name, dev)
+                add()
+                # the frame's time without the holding, its launches not counted
+                rp.raster_depth, rp.raster_attributes = run_depth, run_attr
+                try:
+                    row["frame_ms"], row["stage_ms"] = timed_again(rt, img)
+                finally:
+                    rp.raster_depth, rp.raster_attributes = held_k1(held)
+                scenes[name] = row
+                if name == "ShadowableOmnidirectionalLight":
+                    f32_omni = img
+                ok = row["drops"] == 0 and row["vs_tile_raster"] >= PARITY_BAR and img.std() > 1.0
+                log(f"[{'PASS' if ok else 'FAIL'}] {name}: K1 frame vs the plain tile raster's "
+                    f"{row['vs_tile_raster']:.4f} (bar {PARITY_BAR}); vs the committed JAX "
+                    f"render {row['vs_committed_jax_render']:.4f} (not gated); drops "
+                    f"{row['drops']}; frame {row['frame_ms']:.2f} ms again from the same state "
+                    f"(stages {row['stage_ms']}; {row['frame_ms_held']:.2f} ms held); "
+                    f"{row['seconds']:.2f} s")
+                if not ok:
+                    failed.append(name)
+                del rt
+            rows["scenes"] = scenes
+            if failed:
+                raise AssertionError(f"parity scenes failed: {failed}")
+
+        with Phase("parity: ShadowableOmnidirectionalLight with tpu.bf16_shading against its "
+                   "float32 frame"):
+            cfg = EngineConfig()
+            cfg.tpu.bf16_shading = True
+            reset()
+            row, bf16, rt = parity_frame("ShadowableOmnidirectionalLight", dev, cfg)
+            add()
+            rp.raster_depth, rp.raster_attributes = run_depth, run_attr
+            try:
+                row["frame_ms"], row["stage_ms"] = timed_again(rt, bf16)
+            finally:
+                rp.raster_depth, rp.raster_attributes = held_k1(held)
+            score = rgb_hybrid_compare(bf16, f32_omni)
+            differ = int((bf16 != f32_omni).any(axis=-1).sum())
+            beyond, covered, worst = bf16_shade_card_vs_cpu(rt)
+            log(f"bf16 shading: render config bf16_shading={rt.render_config.bf16_shading}; "
+                f"the bf16 frame vs the float32 frame {score:.4f} (not gated: the reference's "
+                f"own bf16 frame scores alike against its float32 one, "
+                f"tests/bf16_frame_parity.py), {differ} pixels differ; vs the plain tile "
+                f"raster's bf16 frame {row['vs_tile_raster']:.4f} (bar {PARITY_BAR}); the card's "
+                f"bf16 shade vs the CPU's on the frame's G-buffer: {beyond} of {covered} covered "
+                f"pixels beyond 2^-6 of their magnitude + 1e-6 (at most {BF16_SHARE:g}), "
+                f"largest error {worst:.3g} of the magnitude; frame {row['frame_ms']:.2f} ms")
+            rows["bf16"] = dict(vs_float32=score, pixels_differ=differ, shade_beyond=beyond,
+                                shade_covered=covered, shade_worst=worst, **row)
+            if not rt.render_config.bf16_shading or differ == 0:
+                raise AssertionError("bf16 shading: the bf16 frame equals the float32 frame")
+            if row["vs_tile_raster"] < PARITY_BAR or beyond > BF16_SHARE * covered:
+                raise AssertionError(f"bf16 shading: {row['vs_tile_raster']:.4f} against the "
+                                     f"plain tile raster, {beyond} pixels beyond the bar")
+
+        with Phase(f"parity: the gizmos ({len(ALL_GIZMO_TYPES)} kinds and colliders) on "
+                   f"VoxelBoxTumbler after {PARITY_GIZMO_STEPS} steps, through render and "
+                   f"step_and_render, the card's overlay against the CPU's"):
+            reset()
+            rt = st.build_runtime("VoxelBoxTumbler", dev)
+            rt.step(PARITY_GIZMO_STEPS)
+            start = rt.sim
+            base = rt.render()
+            kinds = ALL_GIZMO_TYPES + (GIZMO_COLLIDERS,)
+            rt.enqueue_command("gizmo", "set_visible", kinds)
+            rt.apply_commands()
+            rt.sim = start
+            over = rt.render()
+            gizmo_ms = rt.stage_ms.get("gizmos", 0.0)
+            rt.sim = start
+            card, differ, written = overlay_card_vs_cpu(rt, base, kinds)
+            rt.sim = start
+            stepped_over = rt.step_and_render().cpu().numpy()
+            for kind in kinds:
+                rt.enqueue_command("gizmo", "hide", kind)
+            rt.apply_commands()
+            rt.sim = start
+            hidden = rt.render().cpu().numpy()
+            rt.sim = start
+            stepped = rt.step_and_render().cpu().numpy()
+            rt.enqueue_command("gizmo", "set_visible", kinds)
+            rt.enqueue_command("gizmo", "set_visible", ())
+            rt.apply_commands()
+            rt.sim = start
+            cleared = rt.render().cpu().numpy()
+            torch.cuda.synchronize()
+            add()
+            base, over = base.cpu().numpy(), over.cpu().numpy()
+            drawn = int((over != base).any(axis=-1).sum())
+            log(f"gizmos: {drawn} pixels drawn over the base frame ({gizmo_ms:.2f} ms for the "
+                f"overlay); step_and_render {int((stepped_over != stepped).any(axis=-1).sum())} "
+                f"pixels; the card's overlay vs the CPU's: {differ} of {written} written pixels "
+                f"differ (at most {OVERLAY_SHARE:g}); hide and set_visible () give the base "
+                f"frame back: {np.array_equal(hidden, base)}, {np.array_equal(cleared, base)}")
+            rows["gizmos"] = dict(drawn=drawn, overlay_ms=gizmo_ms, card_vs_cpu_differ=differ,
+                                  written=written)
+            if drawn == 0 or np.array_equal(stepped_over, stepped):
+                raise AssertionError("gizmos: the overlay drew nothing")
+            if not np.array_equal(card, over) or differ > OVERLAY_SHARE * written:
+                raise AssertionError(f"gizmos: the card's overlay differs from the CPU's on "
+                                     f"{differ} of {written} pixels")
+            if not (np.array_equal(hidden, base) and np.array_equal(cleared, base)):
+                raise AssertionError("gizmos: hiding them did not give the base frame back")
+            del rt
+
+        with Phase(f"parity: the filled 64^3 chunked scene rebaked with another registry, "
+                   f"{PARITY_CHUNKED_STEPS} steps, a K1 frame against the plain tile raster"):
+            cfg = bench_chunked_config(64)
+            reset()
+            build = compile_scene(bench_chunked_fill_scene(64), cfg, device=dev)
+            registry = make_voxel_type_registry([
+                {"name": "Basalt", "color": (0.9, 0.1, 0.2), "roughness": 0.3},
+                {"name": "Copper", "color": (0.2, 0.8, 0.4), "metalness": 1.0},
+                {"name": "Glass", "color": (0.1, 0.3, 0.9), "emissive_luminance": 2.0}])
+            pool_cpu = type(build.sim.meshes)(*(x.cpu() for x in build.sim.meshes))
+            rt = HeadlessRuntime(build, cfg, registry=registry, enable_fracturing=False)
+            cpu = bake_mesh_materials(pool_cpu, material_corner_table(registry))
+            bake_err = max(float((getattr(rt.sim.meshes, f).cpu() - getattr(cpu, f)).abs().max())
+                           for f in ("tri_albedo", "tri_f0", "tri_rough", "tri_emissive"))
+            recolored = not torch.equal(rt.sim.meshes.tri_albedo.cpu(), pool_cpu.tri_albedo)
+
+            def rec_labels(occ):
+                grids.append(occ.clone())
+                return run_labels(occ)
+
+            interaction.connected_component_labels_batched = rec_labels
+            try:
+                rt.step(PARITY_CHUNKED_STEPS)
+            finally:
+                interaction.connected_component_labels_batched = run_labels
+            img = rt.render().cpu().numpy()
+            torch.cuda.synchronize()
+            add()
+            plain = render_again(rt, "raster")
+            score = rgb_hybrid_compare(img, plain)
+            labels_err, n_grids = 0, 0
+            for occ in grids:
+                got, ref = k2.connected_component_labels_batched(occ), \
+                    interaction.connected_component_labels_two_level(occ)
+                if not torch.equal(got, ref):
+                    raise AssertionError(f"chunked rebake: {int((got != ref).sum())} labels "
+                                         f"differ from the two-level plain labelling")
+                labels_err = max(labels_err, int((got.long() - ref.long()).abs().max()))
+                n_grids += occ.shape[0]
+            log(f"chunked rebake: baked corners vs a CPU rebake of the same pool, largest error "
+                f"{bake_err:.3g} (bar 1e-6), recoloured {recolored}; {len(grids)} labelling "
+                f"calls on {n_grids} grids, equal to the two-level plain labelling; K1 frame "
+                f"vs the plain tile raster's {score:.4f} (bar {PARITY_BAR}), drops "
+                f"{rt.last_drops}; steps {rt.step_ms:.2f} ms for {PARITY_CHUNKED_STEPS}")
+            rows["chunked_rebake"] = dict(bake_max_abs_err=bake_err, labelled_grids=n_grids,
+                                          vs_tile_raster=score, drops=list(rt.last_drops))
+            if bake_err > 1e-6 or not recolored:
+                raise AssertionError(f"chunked rebake: {bake_err:.3g} from the CPU's rebake")
+            if score < PARITY_BAR or rt.last_drops != (0, 0) or not grids:
+                raise AssertionError(f"chunked rebake: frame {score:.4f}, drops "
+                                     f"{rt.last_drops}, {len(grids)} labelling calls")
+            del rt, build
+
+        with Phase(f"parity: the quick start's world with a three-deep Parent chain flattened "
+                   f"and compiled, and an EntityController through {CONTROLLER_STEPS} steps"):
+            cfg = EngineConfig.from_ron_str(QUICK_START_RON)
+            world, chain = parity_world()
+            poses = world_transforms(world)
+            flatten_to_world_frames(world)
+            reset()
+            rt = HeadlessRuntime(compile_scene(world, cfg, device=dev), cfg)
+            b = rt.sim.phys.bodies
+            chain_err = 0.0
+            for e in chain:
+                i = body_at(rt, tuple(float(x) for x in poses[e][0]))
+                q = torch.as_tensor(poses[e][1], device=dev)
+                chain_err = max(chain_err, float((b.orientation[i] - q).abs().max()))
+            ctl = EntityController(body_index=body_at(rt, CONTROLLED_AT))
+            ctl.motion.set_direction("forward", True)
+            ctl.motion.set_direction("left", True)
+            ctl.orientation.update(0.4, 0.1)
+            ctl_err = 0.0
+            for _ in range(CONTROLLER_STEPS):
+                rt.sim = ctl.apply(rt.sim)
+                rt.step(1)
+                q = ctl.orientation.orientation()
+                v = ctl.motion.world_velocity(q)
+                bb = rt.sim.phys.bodies
+                ctl_err = max(ctl_err, float((bb.velocity[ctl.body_index].cpu()
+                                              - torch.as_tensor(v)).abs().max()),
+                              float((bb.orientation[ctl.body_index].cpu()
+                                     - torch.as_tensor(q)).abs().max()))
+            torch.cuda.synchronize()
+            add()
+            moved = float(torch.linalg.vector_norm(
+                rt.sim.phys.bodies.position[ctl.body_index].cpu() - torch.tensor(CONTROLLED_AT)))
+            log(f"scene graph: the chain's bodies at the composed poses (orientation error "
+                f"{chain_err:.3g}); controller: velocity and orientation within {ctl_err:.3g} "
+                f"of the controller's over {CONTROLLER_STEPS} steps, moved {moved:.4f} m")
+            rows["scene_graph"] = dict(chain_max_err=chain_err, controller_max_err=ctl_err,
+                                       moved=moved)
+            if chain_err > 1e-5 or ctl_err > 1e-6 or moved <= 0.0:
+                raise AssertionError(f"scene graph and controller: chain {chain_err:.3g}, "
+                                     f"controller {ctl_err:.3g}, moved {moved}")
+            if not body_state_finite(rt.sim):
+                raise AssertionError("scene graph: non-finite body state")
+    finally:
+        rp.raster_depth, rp.raster_attributes = run_depth, run_attr
+        interaction.connected_component_labels_batched = run_labels
+    phase_s = time.perf_counter() - t_phase
+    log(f"parity phase: {phase_s:.2f} s; launches {launches}; K1 launches held against K1's "
+        f"plain version {held}")
+    if (held["depth"], held["attributes"]) != (launches["k1_raster_depth"],
+                                               launches["k1_raster_attributes"]):
+        raise AssertionError(f"parity: K1 launches {launches} but {held} held")
+    parity_launches = {k: launches[k] for k in ("k1_raster_attributes", "k1_raster_depth",
+                                                "k2_labels")}
+    for name, n in parity_launches.items():
+        if n <= 0:
+            raise AssertionError(f"parity: {name} was not launched")
+    record["parity"] = dict(rows, seconds=phase_s, launches=launches, k1_held=held)
+    errs = {"k1_raster_attributes": held["max_abs_err"], "k1_raster_depth": held["max_abs_err"],
+            "k2_labels": float(labels_err)}
+    for name, n in parity_launches.items():
+        entry = next((k for k in kernels if k["name"] == name), None)
+        if entry is None:  # --parity-only: the phase's own record
+            entry = dict(name=name, route="cuda", max_abs_err=errs[name])
+            kernels.append(entry)
+        entry["parity_launches"] = n
 
 
 def finish(t_all, record, kernels, kind, count) -> int:

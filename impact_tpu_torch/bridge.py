@@ -126,7 +126,7 @@ def _generator_from_key(key, device):
 
 def chunk_mesh_pool_from_reference(cp, device="cuda") -> ChunkMeshPool:
     """The reference's ChunkMeshPool → the port's (slot and chunk indices as
-    int64; the reference's top-2 type blend is not carried)."""
+    int64), its top-2 type blend (``tri_type2``, ``tri_blend``) included."""
     return tuple_from_reference(ChunkMeshPool, cp, device, **{
         f: _field(f, getattr(cp, f), device).to(torch.int64)
         for f in ("owner", "chunk", "slot_of", "n_dropped_verts", "n_dropped_tris",

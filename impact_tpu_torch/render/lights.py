@@ -324,11 +324,17 @@ def uni_cascade_visibility(quads, vps, splits, view_depth, world_pos, normal=Non
 
 def shade(lights: LightPools, world_pos, normal, albedo, f0, roughness, emissive, occlusion,
           camera_pos, valid, omni_shadows=None, uni_shadows=None, view_depth=None,
-          shadow_downsample: int = 1, soft_shadows: bool = False):
+          shadow_downsample: int = 1, soft_shadows: bool = False, bf16: bool = False):
     """Deferred shading: ambient + omni + uni lights → HDR luminance [H,W,3].
     Shadow visibility is evaluated on a 1/k pixel grid and nearest-upsampled
     when ``shadow_downsample`` = k > 1; ``soft_shadows`` widens the PCF
-    with each light's extent."""
+    with each light's extent. ``bf16`` evaluates the BRDF math in bfloat16
+    with the reference's casts: the normal, view direction, material inputs
+    and occlusion, each light's direction, illuminance and angular radius,
+    and the visibility go to bfloat16; positions and shadow projections stay
+    float32. The BRDF rounds as the reference's XLA program does
+    (``render/brdf.py``: dot products summed in float32, constants rounded
+    to bfloat16)."""
     h, w = world_pos.shape[:2]
     s = shadow_downsample
 
@@ -343,17 +349,22 @@ def shade(lights: LightPools, world_pos, normal, albedo, f0, roughness, emissive
     view_dir = camera_pos - world_pos
     view_dir = view_dir / torch.clamp(torch.linalg.vector_norm(view_dir, dim=-1, keepdim=True),
                                       min=1e-9)
+    if bf16:
+        bt = torch.bfloat16
+        normal, view_dir, albedo, f0, roughness, emissive, occlusion = (
+            x.to(bt) for x in (normal, view_dir, albedo, f0, roughness, emissive, occlusion))
+    dt = normal.dtype
     lum = emissive + ambient_brdf(normal, view_dir, albedo, f0, roughness) * (
-        lights.ambient_luminance * occlusion[..., None])
+        lights.ambient_luminance.to(dt) * occlusion[..., None])
 
     zero = torch.zeros((), device=world_pos.device)
     for li in range(lights.omni_mask.shape[0]):
         lvec = lights.omni_position[li] - world_pos
         dist2 = (lvec * lvec).sum(dim=-1)
         inv_dist = 1.0 / torch.clamp(torch.sqrt(dist2), min=1e-9)
-        ldir = lvec * inv_dist[..., None]
-        illum = lights.omni_intensity[li] / torch.clamp(dist2, min=1e-6)[..., None]
-        tan_r = 0.5 * lights.omni_extent[li] * inv_dist
+        ldir = (lvec * inv_dist[..., None]).to(dt)
+        illum = (lights.omni_intensity[li] / torch.clamp(dist2, min=1e-6)[..., None]).to(dt)
+        tan_r = (0.5 * lights.omni_extent[li] * inv_dist).to(dt)
         contrib = evaluate_brdf(normal, view_dir, ldir, albedo, f0, roughness,
                                 tan_angular_radius=tan_r) * illum
         if omni_shadows is not None:
@@ -362,12 +373,12 @@ def shade(lights: LightPools, world_pos, normal, albedo, f0, roughness, emissive
                 lights.omni_position[li], quads[li], vps[li], at_vis_res(world_pos),
                 source_extent=lights.omni_extent[li] if soft_shadows else None))
             vis = torch.where(lights.omni_shadowable[li], vis, torch.ones_like(vis))
-            contrib = contrib * vis[..., None]
+            contrib = contrib * vis[..., None].to(dt)
         lum = lum + torch.where(lights.omni_mask[li], contrib, zero)
 
     for li in range(lights.uni_mask.shape[0]):
-        ldir = -lights.uni_direction[li]
-        tan_r = torch.tan(0.5 * lights.uni_extent[li] * (math.pi / 180.0))
+        ldir = (-lights.uni_direction[li]).to(dt)
+        tan_r = torch.tan(0.5 * lights.uni_extent[li] * (math.pi / 180.0)).to(dt)
         b = evaluate_brdf(normal, view_dir, ldir, albedo, f0, roughness,
                           tan_angular_radius=tan_r)
         if uni_shadows is not None:
@@ -378,7 +389,7 @@ def shade(lights: LightPools, world_pos, normal, albedo, f0, roughness, emissive
                 angular_extent=(lights.uni_extent[li] * (math.pi / 180.0) if soft_shadows
                                 else None)))
             vis = torch.where(lights.uni_shadowable[li], vis, torch.ones_like(vis))
-            b = b * vis[..., None]
-        lum = lum + torch.where(lights.uni_mask[li], b * lights.uni_illuminance[li], zero)
+            b = b * vis[..., None].to(dt)
+        lum = lum + torch.where(lights.uni_mask[li], b * lights.uni_illuminance[li].to(dt), zero)
 
     return torch.where(valid[..., None], lum, zero).to(torch.float32)

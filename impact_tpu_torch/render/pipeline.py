@@ -88,6 +88,7 @@ class RenderConfig(NamedTuple):
     shadows_enabled: bool = True
     csm_cascades: int = 1
     soft_shadows: bool = False
+    bf16_shading: bool = False  # BRDF math in bfloat16 (render/lights.py:shade)
     sky_luminance: tuple = (0.0, 0.0, 0.0)
     # textured-material path: triplanar voxel-type texture layers, and the
     # textured mesh entities' full-PBR layers, applied in deferred_shade
@@ -414,7 +415,7 @@ def deferred_shade(gb: GBuffer, lights: LightPools, cam: Camera, omni_shadows, u
     lum = shade(lights, gb.world_pos, gb.normal, gb.albedo, gb.f0, gb.roughness, gb.emissive,
                 occlusion, cam.position, gb.valid, omni_shadows, uni_shadows, view_depth,
                 shadow_downsample=config.shadow_pcf_downsample,
-                soft_shadows=config.soft_shadows)
+                soft_shadows=config.soft_shadows, bf16=config.bf16_shading)
     if config.procedural_sky:
         from .sky import pixel_view_directions, procedural_sky
 

@@ -6,8 +6,8 @@ drive the engine through them).
 Commands are plain records enqueued from the host and drained by the
 runtime before a step. A rendering command re-derives the render
 configuration (``HeadlessRuntime.invalidate_render``), a physics command
-rebuilds the engine step (``invalidate_step``). The gizmo category raises
-NotImplementedError until the gizmos are ported (ROADMAP.md Queue 1.2).
+rebuilds the engine step (``invalidate_step``), a gizmo command sets the
+runtime's ``visible_gizmos``.
 """
 
 from __future__ import annotations
@@ -56,6 +56,7 @@ def execute_commands(runtime, queue: CommandQueue):
                  set_old_impulse_weight, set_simulation_speed,
                  set_enabled (solver)
       game_loop: pause, resume
+      gizmo:     show, hide (one kind), set_visible (a sequence of kinds)
       system:    reset_world
     An unknown action or category raises ValueError, as the reference's do.
     """
@@ -105,8 +106,17 @@ def execute_commands(runtime, queue: CommandQueue):
             else:
                 raise ValueError(f"unknown game_loop command {a!r}")
         elif c == "gizmo":
-            raise NotImplementedError(
-                "gizmo commands wait for the gizmos (ROADMAP.md Queue 1.2)")
+            # ref: GizmoAdminCommand, toggling gizmo visibility at run time
+            vis = set(runtime.visible_gizmos)
+            if a == "set_visible":
+                vis = set(v or ())
+            elif a == "show":
+                vis.add(v)
+            elif a == "hide":
+                vis.discard(v)
+            else:
+                raise ValueError(f"unknown gizmo command {a!r}")
+            runtime.visible_gizmos = tuple(sorted(vis))
         elif c == "system":
             if a == "reset_world":
                 runtime.reset_world()

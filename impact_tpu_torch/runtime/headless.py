@@ -16,7 +16,9 @@ The port makes one engine step per ``step`` call: the reference's
 ``tpu.steps_per_dispatch`` batching is a JAX dispatch device and the field
 is only carried. Commands (``enqueue_command``), checkpoints, ``profile``
 (a torch.profiler Chrome trace), a custom voxel-type ``registry`` (dense
-path) and the feature flags follow the reference runtime's surface.
+and chunked scenes), the gizmos drawn over each frame while
+``visible_gizmos`` names any (``render/gizmos.py``) and the feature flags
+follow the reference runtime's surface.
 """
 
 from __future__ import annotations
@@ -60,11 +62,8 @@ class HeadlessRuntime:
         self.sim = build.sim
         if registry is not None:
             # a custom registry: rebake the scene's material table and meshes
-            # (compile_scene baked with the registry it was given)
-            if isinstance(self.sim.meshes, ChunkMeshPool):
-                raise NotImplementedError(
-                    "a registry rebake of a chunked scene needs the chunk-submesh pool's "
-                    "top-2 type blend (ROADMAP.md Queue 1.6)")
+            # (compile_scene baked with the registry it was given); a chunk
+            # pool, which keeps no vertex census, rebakes from its top-2 blend
             table = material_corner_table(registry_to(registry, self.device))
             self.params = self.params._replace(material_table=table)
             self.sim = self.sim._replace(meshes=bake_mesh_materials(self.sim.meshes, table))
@@ -77,6 +76,7 @@ class HeadlessRuntime:
         self.metrics = EngineMetrics()
         self.timer = TaskTimer()
         self.paused = False
+        self.visible_gizmos: tuple = ()  # gizmo kinds drawn over each frame
         self.command_queue = None  # created by the first enqueue_command
         self._step = None
         self._earlier_host_syncs = 0  # host reads of the steps that rebuilds replaced
@@ -271,13 +271,37 @@ class HeadlessRuntime:
                 n_raster_drops=state.n_raster_drops + geo_drops + shadow_drops)
             img, hdr, state = postprocess(lum, gb.motion, state, rc)
             self._sync()
-            times["post"] = (time.perf_counter() - t3) * 1e3
+            t4 = time.perf_counter()
+            times["post"] = (t4 - t3) * 1e3
+            if self.visible_gizmos:
+                img = self.gizmo_overlay(img, tuple(self.visible_gizmos))
+                self._sync()
+                times["gizmos"] = (time.perf_counter() - t4) * 1e3
         self.sim = self.sim._replace(render=state)
         self.last_gbuffer = gb
         self.last_hdr = hdr
         self.last_drops = (int(geo_drops), int(shadow_drops))
         self.stage_ms = times
         return img
+
+    def gizmo_lines(self, kinds):
+        """(the gizmo lines of ``kinds`` at the current state, the camera's
+        unjittered view-projection they are drawn through)."""
+        from ..render.camera import projection_matrix, view_matrix
+        from ..render.gizmos import build_gizmo_lines
+
+        rc, cam = self.render_config, self.params.camera
+        lines = build_gizmo_lines(self.sim, self.params, kinds, aspect=rc.width / rc.height,
+                                  n_cascades=self.config.tpu.csm_cascades)
+        with fp32_render():
+            vp = projection_matrix(cam, rc.width, rc.height, None) @ view_matrix(cam)
+        return lines, vp
+
+    def gizmo_overlay(self, img, kinds):
+        """The gizmos of ``kinds`` drawn over the u8 frame ``img``."""
+        from ..render.gizmos import overlay_lines
+
+        return overlay_lines(img, *self.gizmo_lines(kinds))
 
     def dropped_raster_candidates(self) -> int:
         """Cumulative raster candidates lost to window or big-block overflow

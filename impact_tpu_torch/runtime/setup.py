@@ -873,6 +873,7 @@ def render_config_from_engine_config(config: EngineConfig) -> RenderConfig:
         shadows_enabled=r.shadow_mapping.enabled,
         csm_cascades=config.tpu.csm_cascades,
         soft_shadows=config.tpu.soft_shadows,
+        bf16_shading=config.tpu.bf16_shading,
         max_triangles=config.tpu.max_render_triangles,
         shadow_pcf_downsample=2 if big else 1,
         ao_downsample=2 if big else 1,

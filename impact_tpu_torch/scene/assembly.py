@@ -226,8 +226,8 @@ def build_render_scene(pool: VoxelObjectPool, meshes: CompactMesh, body_position
         k = tris_per_object
         meshes = meshes._replace(**{
             f: getattr(meshes, f)[:, :k]
-            for f in ("tri_active", "tri_pos", "tri_normal", "tri_type", "tri_albedo",
-                      "tri_f0", "tri_rough", "tri_emissive")
+            for f in ("tri_active", "tri_pos", "tri_normal", "tri_type", "tri_type2",
+                      "tri_blend", "tri_albedo", "tri_f0", "tri_rough", "tri_emissive")
         })
     local9 = (meshes.tri_pos * pool.voxel_extent[:, None, None]
               + pool.origin.repeat(1, 3)[:, None, :])

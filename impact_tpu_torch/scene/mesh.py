@@ -3,7 +3,8 @@
 io/{obj,ply}.rs).
 
 The primitives are the box, rectangle, UV sphere, hemisphere, cylinder,
-cone, capsule, circular frustum and screen quad. Meshes are host-side
+cone, capsule, circular frustum and screen quad, and line-segment meshes
+(wireframes for the gizmo overlay). Meshes are host-side
 numpy, made at scene setup; they reach the device as mesh-instance pools
 or static geometry (``scene/assembly.py``)."""
 
@@ -289,3 +290,38 @@ def mesh_to_static_geometry(mesh: TriangleMesh, albedo=(0.6, 0.6, 0.6), f0=0.04,
         tri_indices=torch.as_tensor(mesh.indices, device=device).long(),
         tri_active=torch.ones(len(mesh.indices), dtype=torch.bool, device=device),
     )
+
+
+class LineSegmentMesh(NamedTuple):
+    """Line-segment mesh (ref: impact_mesh line_segment.rs), drawn by the
+    gizmo overlay (``render/gizmos.py``)."""
+
+    positions: np.ndarray  # f32[V,3]
+    indices: np.ndarray  # i32[S,2] segment endpoints
+
+
+def line_segment_mesh(points, segments) -> LineSegmentMesh:
+    return LineSegmentMesh(np.asarray(points, np.float32), np.asarray(segments, np.int32))
+
+
+def wireframe_of(mesh: TriangleMesh) -> LineSegmentMesh:
+    """Unique-edge wireframe of a triangle mesh (edges sorted)."""
+    tri = np.asarray(mesh.indices)
+    edges = np.concatenate([tri[:, [0, 1]], tri[:, [1, 2]], tri[:, [2, 0]]])
+    edges = np.unique(np.sort(edges, axis=1), axis=0)
+    return LineSegmentMesh(mesh.positions, edges.astype(np.int32))
+
+
+def line_mesh_to_gizmo_lines(mesh: LineSegmentMesh, color=(1.0, 1.0, 1.0), device="cuda"):
+    """A LineSegmentMesh as ``render.gizmos.GizmoLines`` on ``device``, for
+    ``overlay_lines``."""
+    import torch
+
+    from ..render.gizmos import GizmoLines
+
+    start = torch.as_tensor(mesh.positions[mesh.indices[:, 0]], device=device)
+    end = torch.as_tensor(mesh.positions[mesh.indices[:, 1]], device=device)
+    n = start.shape[0]
+    return GizmoLines(start, end,
+                      torch.tensor([color], dtype=torch.float32, device=device).repeat(n, 1),
+                      torch.ones(n, dtype=torch.bool, device=device))

@@ -196,6 +196,7 @@ class TpuConfig:
     texture_resolution: int = 64  # procedural texture-array base size
     sdf_encoding: str = "f32"  # "f32" | "i8"
     orthographic_camera: bool = False
+    bf16_shading: bool = False  # BRDF math in bfloat16
     sky_luminance: tuple = (3000.0, 4500.0, 9000.0)
     raster_backend: str = "kernel"  # "kernel" (K1) | "raster" (plain tile raster)
     view_culling: bool = True

@@ -14,9 +14,10 @@ The picks are the reference's: the budget goes to the dirty chunks of
 highest priority (surface chunks first), lowest flat index first among ties
 (``stable_topk``, the order of ``jax.lax.top_k``), and the k-th chunk that
 needs a slot takes the k-th free slot in slot order. Quad merging stays
-chunk-local. The port's pools carry the baked materials and not the
-reference's top-2 type blend (``tri_type2``, ``tri_blend``), as its
-``CompactMesh`` does.
+chunk-local. Each slot carries its corners' baked materials and, as the
+reference's pool does, their top-2 type blend (``tri_type2``,
+``tri_blend``), from which ``bake_mesh_materials`` rebakes the pool for
+another voxel-type registry (the pool keeps no vertex census).
 """
 
 from __future__ import annotations
@@ -47,6 +48,8 @@ class ChunkMeshPool(NamedTuple):
     tri_pos: torch.Tensor  # f32[S,ctc,9] object grid units
     tri_normal: torch.Tensor  # f32[S,ctc,9]
     tri_type: torch.Tensor  # i32[S,ctc,3]
+    tri_type2: torch.Tensor  # i32[S,ctc,3]
+    tri_blend: torch.Tensor  # f32[S,ctc,3]
     tri_albedo: torch.Tensor  # f32[S,ctc,9] (baked)
     tri_f0: torch.Tensor  # f32[S,ctc,9]
     tri_rough: torch.Tensor  # f32[S,ctc,3]
@@ -85,6 +88,7 @@ def empty_chunk_mesh_pool(n_slots: int, tri_cap: int, n_objects: int, grid_size:
         slot_of=torch.full((n_objects, c), -1, dtype=torch.int64, device=device),
         chunk_dirty=z(n_objects, c, dtype=torch.bool), tri_active=z(s, t, dtype=torch.bool),
         tri_pos=z(s, t, 9), tri_normal=z(s, t, 9), tri_type=z(s, t, 3, dtype=torch.int32),
+        tri_type2=z(s, t, 3, dtype=torch.int32), tri_blend=z(s, t, 3),
         tri_albedo=z(s, t, 9), tri_f0=z(s, t, 9), tri_rough=z(s, t, 3),
         tri_emissive=z(s, t, 9), n_dropped_verts=z(dtype=torch.int64),
         n_dropped_tris=z(dtype=torch.int64), n_dropped_chunks=z(dtype=torch.int64),
@@ -204,6 +208,8 @@ def remesh_chunks(cpool: ChunkMeshPool, pool: VoxelObjectPool, material_table, b
         tri_pos=put(cpool.tri_pos, tri_pos),
         tri_normal=put(cpool.tri_normal, sub.tri_normal),
         tri_type=put(cpool.tri_type, sub.tri_type),
+        tri_type2=put(cpool.tri_type2, sub.tri_type2),
+        tri_blend=put(cpool.tri_blend, sub.tri_blend),
         tri_albedo=put(cpool.tri_albedo, sub.tri_albedo),
         tri_f0=put(cpool.tri_f0, sub.tri_f0),
         tri_rough=put(cpool.tri_rough, sub.tri_rough),

@@ -290,6 +290,8 @@ class CompactMesh(NamedTuple):
     tri_pos: torch.Tensor  # f32[Tc,9] grid units
     tri_normal: torch.Tensor  # f32[Tc,9]
     tri_type: torch.Tensor  # i32[Tc,3]
+    tri_type2: torch.Tensor  # i32[Tc,3] second material (== tri_type where pure)
+    tri_blend: torch.Tensor  # f32[Tc,3] weight of tri_type2 in [0, 0.5]
     tri_albedo: torch.Tensor  # f32[Tc,9] (baked by bake_mesh_materials)
     tri_f0: torch.Tensor  # f32[Tc,9]
     tri_rough: torch.Tensor  # f32[Tc,3]
@@ -328,11 +330,13 @@ def compact_mesh(mesh: SurfaceNetsMesh, vert_cap: int, tri_cap: int) -> CompactM
 
     vpos = _take_rows(mesh.vert_pos, vsel)
     vnrm = _take_rows(mesh.vert_normal, vsel)
-    vtype = torch.gather(mesh.vert_type, 1, vsel)
     flat = tidx.reshape(nb, -1)
     tri_pos = _take_rows(vpos, flat).reshape(nb, -1, 9)
     tri_normal = _take_rows(vnrm, flat).reshape(nb, -1, 9)
-    tri_type = torch.gather(vtype, 1, flat).reshape(nb, -1, 3)
+
+    def corners(vert_field):
+        return torch.gather(torch.gather(vert_field, 1, vsel), 1, flat).reshape(nb, -1, 3)
+
     n_t = tidx.shape[1]
     z9 = torch.zeros((nb, n_t, 9), dtype=torch.float32, device=dev)
     return CompactMesh(
@@ -345,7 +349,9 @@ def compact_mesh(mesh: SurfaceNetsMesh, vert_cap: int, tri_cap: int) -> CompactM
         tri_indices=tidx,
         tri_pos=tri_pos,
         tri_normal=tri_normal,
-        tri_type=tri_type,
+        tri_type=corners(mesh.vert_type),
+        tri_type2=corners(mesh.vert_type2),
+        tri_blend=corners(mesh.vert_blend),
         tri_albedo=z9,
         tri_f0=z9.clone(),
         tri_rough=torch.zeros((nb, n_t, 3), dtype=torch.float32, device=dev),
@@ -355,18 +361,28 @@ def compact_mesh(mesh: SurfaceNetsMesh, vert_cap: int, tri_cap: int) -> CompactM
     )
 
 
-def bake_mesh_materials(mesh: CompactMesh, material_table) -> CompactMesh:
-    """Fill the corner materials from the packed [T,10] table: per vertex the
-    exact weighted blend over its ≤8 corner materials, gathered corner-major.
-    Works on single [Tc,...] or batched [O,Tc,...] meshes."""
+def bake_mesh_materials(mesh, material_table):
+    """Fill the corner materials from the packed [T,10] table. A
+    ``CompactMesh`` (it keeps the vertex census) takes per vertex the exact
+    weighted blend over its ≤8 corner materials, gathered corner-major; a
+    census-less ``ChunkMeshPool`` (a rebake of a live chunked scene) falls
+    back to each corner's stored top-2 blend. Works on single [Tc,...] or
+    batched [O,Tc,...] meshes."""
     n_types = material_table.shape[0]
-    props = material_table[torch.clamp(mesh.vert_ctype.long(), 0, n_types - 1)]
-    vm = (props * mesh.vert_cweight[..., None]).sum(dim=-2)  # [...,Vc,10]
-    lead = vm.shape[:-2]
-    vc = vm.shape[-2]
-    tc3 = mesh.tri_indices.shape[-2] * 3
-    idx = torch.clamp(mesh.tri_indices.reshape(lead + (tc3, 1)), 0, vc - 1)
-    m = torch.gather(vm, -2, idx.expand(lead + (tc3, 10))).reshape(lead + (tc3 // 3, 3, 10))
+    if hasattr(mesh, "vert_ctype"):
+        props = material_table[torch.clamp(mesh.vert_ctype.long(), 0, n_types - 1)]
+        vm = (props * mesh.vert_cweight[..., None]).sum(dim=-2)  # [...,Vc,10]
+        lead = vm.shape[:-2]
+        vc = vm.shape[-2]
+        tc3 = mesh.tri_indices.shape[-2] * 3
+        idx = torch.clamp(mesh.tri_indices.reshape(lead + (tc3, 1)), 0, vc - 1)
+        m = torch.gather(vm, -2, idx.expand(lead + (tc3, 10))).reshape(
+            lead + (tc3 // 3, 3, 10))
+    else:
+        m1 = material_table[torch.clamp(mesh.tri_type.long(), 0, n_types - 1)]
+        m2 = material_table[torch.clamp(mesh.tri_type2.long(), 0, n_types - 1)]
+        b = mesh.tri_blend[..., None]
+        m = m1 * (1.0 - b) + m2 * b  # [...,3,10]
     lead_t = m.shape[:-2]
     return mesh._replace(
         tri_albedo=m[..., :, 0:3].reshape(lead_t + (9,)),

@@ -56,7 +56,7 @@ ENTRY_MODULES = ("impact_tpu_torch.runtime.setup", "impact_tpu_torch.bridge",
                  "impact_tpu_torch.apps.snapshot_tester", "impact_tpu_torch.render.textures",
                  "impact_tpu_torch.render.pipeline", "impact_tpu_torch.apps.impact_game",
                  "impact_tpu_torch.runtime.checkpoint", "impact_tpu_torch.apps.voxel_generator",
-                 "impact_tpu_torch.scene.mesh")
+                 "impact_tpu_torch.scene.mesh", "impact_tpu_torch.apps.parity_snapshots")
 
 
 @pytest.mark.parametrize("module", ENTRY_MODULES)
@@ -105,3 +105,56 @@ def test_generation_entry_points_default_to_the_card():
     finally:
         voxel_generator.cmd_stats = run
     assert seen == {"path": "graph.json", "device": "cuda"}
+
+
+SLICE13_MODULES = ("impact_tpu_torch.math.morton", "impact_tpu_torch.geometry.aabb",
+                   "impact_tpu_torch.geometry.bvh", "impact_tpu_torch.render.gizmos",
+                   "impact_tpu_torch.scene.graph", "impact_tpu_torch.scene.scene_graph",
+                   "impact_tpu_torch.scene.controller", "impact_tpu_torch.models.parity_scenes",
+                   "impact_tpu_torch.apps.parity_snapshots")
+
+
+def test_slice13_modules_are_checked():
+    """The gizmo, scene-graph and parity modules are among those imported
+    with jax blocked above."""
+    assert set(SLICE13_MODULES) <= set(MODULES)
+
+
+def test_parity_and_controller_entry_points_default_to_the_card(tmp_path):
+    """The parity harness's build_runtime and CLI run on ``cuda`` unless
+    told otherwise; EntityController.apply writes on the state's own device
+    (a meta-device state stays on meta: nothing falls back to the CPU)."""
+    import inspect
+    from typing import NamedTuple
+
+    import torch
+
+    from impact_tpu_torch.apps import parity_snapshots
+    from impact_tpu_torch.physics.state import BodyState
+    from impact_tpu_torch.physics.step import PhysicsState
+    from impact_tpu_torch.scene.controller import EntityController
+
+    params = inspect.signature(parity_snapshots.build_runtime).parameters
+    assert params["device"].default == "cuda"
+    seen = {}
+    run = parity_snapshots.run
+
+    def fake_run(names, cfg, device, goldens, out_dir):
+        seen.update(names=names, device=device)
+        return {}, {}
+
+    parity_snapshots.run = fake_run
+    try:
+        assert parity_snapshots.main(["--scene", "Bloom", "--out-dir", str(tmp_path)]) == 0
+    finally:
+        parity_snapshots.run = run
+    assert seen == {"names": ["Bloom"], "device": "cuda"}
+
+    class State(NamedTuple):
+        phys: PhysicsState
+
+    bodies = BodyState(*(torch.zeros((3, 4) if f == "orientation" else (3, 3), device="meta")
+                         for f in BodyState._fields))
+    state = State(PhysicsState(bodies=bodies, solver_cache=None, time=None))
+    out = EntityController(body_index=1).apply(state).phys.bodies
+    assert out.orientation.device.type == out.velocity.device.type == "meta"

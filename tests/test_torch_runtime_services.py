@@ -1,8 +1,9 @@
 """The port's runtime services on the CPU: the cases of
 ``tests/test_runtime_features.py:36-130,191`` on a small port-only world
 (BallPit with three balls, 2 object slots of 16³, 24 bodies, 16 contact
-slots, 48x32), with no JAX stepping. The gizmo cases wait for the gizmos
-(ROADMAP.md Queue 1.2); here the gizmo commands raise NotImplementedError.
+slots, 48x32), with no JAX stepping. The gizmo commands toggle
+``visible_gizmos`` as the reference's do (the overlay itself is held
+against impact_tpu in ``tests/test_torch_gizmos.py``).
 
 * Commands: pause makes ``step`` a no-op (state ``torch.equal``), resume
   restores stepping; a physics command rebuilds the step (keeping the host
@@ -120,11 +121,22 @@ def test_unknown_command_raises(category, action):
         rt.apply_commands()
 
 
-@pytest.mark.parametrize("action", ["show", "hide", "set_visible"])
-def test_gizmo_commands_wait_for_the_gizmos(action):
+@pytest.mark.parametrize("action, value, before, after", [
+    ("show", "reference_frame_axes", ("linear_velocity",),
+     ("linear_velocity", "reference_frame_axes")),
+    ("hide", "linear_velocity", ("contacts", "linear_velocity"), ("contacts",)),
+    ("set_visible", ["torque", "force", "torque"], ("contacts",), ("force", "torque")),
+])
+def test_gizmo_commands_toggle_visibility(action, value, before, after):
+    """The reference's gizmo commands (runtime/command.py:112-123): the
+    visible kinds become a sorted tuple; an unknown action raises."""
     rt = tiny_runtime()
-    rt.enqueue_command("gizmo", action, "reference_frame_axes")
-    with pytest.raises(NotImplementedError, match="Queue 1.2"):
+    rt.visible_gizmos = before
+    rt.enqueue_command("gizmo", action, value)
+    rt.apply_commands()
+    assert rt.visible_gizmos == after
+    rt.enqueue_command("gizmo", "bogus", value)
+    with pytest.raises(ValueError, match="unknown gizmo command"):
         rt.apply_commands()
 
 
