@@ -112,7 +112,25 @@ then drives these paths through the port's entry points:
    with another voxel-type registry (against a CPU rebake), stepped and
    rendered; the quick start's world with a three-deep Parent chain
    flattened and compiled, and an EntityController driving a kinematic
-   body; every K1 and labels launch held against its plain version.
+   body; every K1 and labels launch held against its plain version;
+15. the engine step sharded over the voxel-object pool
+   (``parallel_phase``, ``impact_tpu_torch/parallel``): (a) the quick
+   start's tumbler under ``scan``, from ``HeadlessRuntime``'s state at step
+   90 on a 1-rank ``nccl`` mesh in this process, 10 steps against
+   ``HeadlessRuntime``'s next 10 on the card within
+   ``tests/test_parallel.py:88-103``'s bars, every scan launch of the path
+   held against the plain loop on its active slots; with 4 ranks sharing
+   the card over host-staged ``gloo``: (b) Fracturing at the dry run's
+   config across its fracture and the filled 64³ asteroid (dense remesh)
+   across its carve and split, each from a state of a single-process run
+   on the card a few steps before the event, gathered and held to that
+   run to the same bars, every grid a rank labelled held against the
+   plain labelling; (c) the 1024-slot pod step (local dims, memory over
+   the state, the largest collective, no grid-shaped collective); (d) the
+   halo min filter on a 2×2 mesh against the plain 3-point min; and (e)
+   the jacobi solve at 1024 bodies and 4096 contact slots under
+   C·N·4 bytes of peak memory. Ranks sharing a card say nothing about a
+   multi-card speed.
 
 Kernel launch counts are zeroed just before each path and read just after
 it. Every phase prints one flushed line with its seconds; any failure exits
@@ -141,7 +159,8 @@ of the record), so two trees can be timed in turns in one call.
 ``--snapshots-only`` runs only the scan solver, snapshot and scene physics
 phases; ``--scene-physics-only`` only the scene physics phase; ``--api-only``
 only the API phase; ``--generation-only`` only the generation phase;
-``--parity-only`` only the parity phase.
+``--parity-only`` only the parity phase; ``--parallel-only`` only the
+parallel phase.
 """
 
 from __future__ import annotations
@@ -249,6 +268,15 @@ OVERLAY_SHARE = 1e-3
 # test's bar against impact_tpu; a float32 function that rounds the last bit
 # another way on the card can move a bfloat16 value by one step)
 BF16_SHARE = 1e-3
+# the parallel phase: (a)'s single-process steps before it shards the state
+# (the boxes land) and its sharded steps; the ranks sharing the card in (b)-(d);
+# (b)'s checkpoint, this many steps before its event, and the steps a
+# single-process run may take to reach the event; tests/test_parallel.py:
+# 88-103's bars (positions, momenta, grids) for a sharded state against a
+# single-process one on the card
+PARALLEL_WARMUP, PARALLEL_STEPS, PARALLEL_RANKS = 90, 10, 4
+PARALLEL_BEFORE_EVENT, PARALLEL_EVENT_STEPS = 3, 200
+PARALLEL_POS_ATOL, PARALLEL_MOMENTUM_ATOL, PARALLEL_SDF_ATOL = 1e-5, 1e-4, 1e-6
 API_KERNELS = {"k1_raster_attributes": "k1_attr_kernel", "k1_raster_depth": "k1_depth_kernel",
                "scan_velocity_iterations": "scan_velocity_kernel",
                "scan_position_correction": "scan_correction_kernel"}
@@ -1066,6 +1094,9 @@ def main(argv=None) -> int:
     ap.add_argument("--parity-only", action="store_true",
                     help="run only the parity phase (the reference tester's scenes, bf16 "
                          "shading, gizmos, the chunked rebake, the scene graph)")
+    ap.add_argument("--parallel-only", action="store_true",
+                    help="run only the parallel phase (the engine step sharded over the "
+                         "voxel-object pool, the halo exchange, the pod-scale checks)")
     args = ap.parse_args(argv)
     k1_only, ccl_only = args.k1_only, args.ccl_only
     t_all = time.perf_counter()
@@ -1154,6 +1185,10 @@ def main(argv=None) -> int:
     if args.parity_only:
         kernels = []
         parity_phase(dev, record, kernels)
+        return finish(t_all, record, kernels, kind, count)
+    if args.parallel_only:
+        kernels = []
+        parallel_phase(dev, record, kernels)
         return finish(t_all, record, kernels, kind, count)
 
     with Phase("K2 vs plain version, G=32: random fills, serpentine, empty, full"):
@@ -1534,6 +1569,7 @@ def main(argv=None) -> int:
     api_phase(dev, record, kernels)
     generation_phase(dev, record, kernels)
     parity_phase(dev, record, kernels)
+    parallel_phase(dev, record, kernels)
     return finish(t_all, record, kernels, kind, count)
 
 
@@ -3102,6 +3138,387 @@ def parity_phase(dev, record, kernels):
             entry = dict(name=name, route="cuda", max_abs_err=errs[name])
             kernels.append(entry)
         entry["parity_launches"] = n
+
+
+def hold_scan_active(args, out, what):
+    """One recorded scan launch of a path against the plain loop on its
+    active slots (the contacts are compacted, so they lead; an inactive slot
+    changes nothing): v, w, the positions and orientations, and the active
+    slots' impulses must be equal, the others' as the launch received them.
+    Returns (max abs err, active slots)."""
+    import torch
+
+    from impact_tpu_torch.physics import scan_solver
+
+    v, w, pos, ori, inv_mass, inv_inertia, prep, acc, n_it, n_corr, factor = args
+    k = int(prep.active.sum())
+    if not bool(prep.active[:k].all()):
+        raise AssertionError(f"scan {what}: the active slots do not lead")
+    head = type(prep)(*(f[:k] for f in prep))
+    ref_v, ref_w, ref_acc, ref_pos, ref_ori = scan_solver.scan_iterations_plain(
+        v, w, pos, ori, inv_mass, inv_inertia, head, acc[:k], n_it, n_corr, factor)
+    got_v, got_w, got_acc, got_pos, got_ori = out
+    err = 0.0
+    for name, g, r in (("v", got_v, ref_v), ("w", got_w, ref_w), ("pos", got_pos, ref_pos),
+                       ("ori", got_ori, ref_ori), ("impulses", got_acc[:k], ref_acc),
+                       ("idle impulses", got_acc[k:], acc[k:])):
+        if not torch.equal(g, r):
+            raise AssertionError(f"scan {what}: {name} differs from the plain loop by "
+                                 f"{(g - r).abs().max().item():.3g}")
+        if g.numel():
+            err = max(err, (g - r).abs().max().item())
+    return err, k
+
+
+def held_to_bars(got: dict, want: dict, what):
+    """A gathered sharded state against a single-process one on the card, to
+    ``tests/test_parallel.py:88-103``'s bars (the card's ``index_add_``
+    sums make neither run bitwise repeatable). Returns the largest error of
+    each barred field."""
+    import numpy as np
+
+    errs = {}
+    for key, atol in (("phys/bodies/position", PARALLEL_POS_ATOL),
+                      ("phys/bodies/momentum", PARALLEL_MOMENTUM_ATOL),
+                      ("voxels/sdf", PARALLEL_SDF_ATOL)):
+        g, w = got[key].astype(np.float64), want[key].astype(np.float64)
+        errs[key] = float(np.abs(g - w).max())
+        if not np.isfinite(g).all() or errs[key] > atol:
+            raise AssertionError(f"{what}: {key} differs by {errs[key]:.3g} (atol {atol})")
+    if not np.array_equal(got["voxels/alive"], want["voxels/alive"]):
+        raise AssertionError(f"{what}: alive {got['voxels/alive'].tolist()} vs "
+                             f"{want['voxels/alive'].tolist()}")
+    return errs
+
+
+def event_checkpoint(rt, path, before, max_steps):
+    """Step ``rt`` until an object slot comes alive (the event), write the
+    state ``before`` steps ahead of it (or the first one) to ``path`` and
+    step ``before`` past the event. Returns (the event's step, the steps
+    from the written state to ``rt``'s)."""
+    import collections
+
+    import torch
+
+    from impact_tpu_torch.runtime.checkpoint import save_checkpoint
+
+    ring = collections.deque(maxlen=before)
+    for i in range(1, max_steps + 1):
+        ring.append((i - 1, rt.sim, rt.sim.rng.get_state()))
+        alive = int(rt.sim.voxels.alive.sum())
+        rt.step(1)
+        if int(rt.sim.voxels.alive.sum()) != alive:
+            break
+    else:
+        raise AssertionError(f"no event in {max_steps} steps")
+    k0, sim, rng_state = ring[0]
+    gen = torch.Generator(device=rt.device)
+    gen.set_state(rng_state)
+    save_checkpoint(path, sim._replace(rng=gen))
+    rt.step(before)
+    return i, i + before - k0
+
+
+def parallel_quick_start(dev, store_dir):
+    """(a) The quick start's tumbler under ``scan``: HeadlessRuntime steps
+    it PARALLEL_WARMUP steps on the card (the boxes land), then that state,
+    sharded on a 1-rank ``nccl`` mesh in this process, takes PARALLEL_STEPS
+    sharded steps, held to HeadlessRuntime's next PARALLEL_STEPS to
+    ``held_to_bars``, every scan launch of the sharded path held against the
+    plain loop on its active slots. Returns (row, the path's launches, the
+    scan's max abs err)."""
+    import torch
+    import torch.distributed as dist
+
+    from impact_tpu_torch.ops import ccl_pallas as k2
+    from impact_tpu_torch.parallel import jobs
+    from impact_tpu_torch.parallel.mesh import gather_sim_state, make_device_mesh, \
+        shard_sim_state
+    from impact_tpu_torch.parallel.step import make_sharded_engine_step
+    from impact_tpu_torch.physics import scan_solver, solver
+    from impact_tpu_torch.render.pipeline import fp32_render
+    from impact_tpu_torch.runtime import HeadlessRuntime, compile_scene
+
+    world, cfg = jobs.scene("quick_start")
+    rt = HeadlessRuntime(compile_scene(world, cfg, device=dev), cfg)
+    rt.step(PARALLEL_WARMUP)
+    gen = torch.Generator(device=dev)
+    gen.set_state(rt.sim.rng.get_state())
+    start = rt.sim._replace(rng=gen)
+    dist.init_process_group("nccl", store=dist.FileStore(os.path.join(store_dir, "a"), 1),
+                            rank=0, world_size=1)
+    try:
+        mesh = make_device_mesh(1, 1, device=dev)
+        step = make_sharded_engine_step(rt.params, cfg, mesh, rt.info["mesh_vert_cap"],
+                                        rt.info["mesh_tri_cap"])
+        local = shard_sim_state(mesh, start)
+        calls, run_scan, sharded_ms = [], solver.scan_iterations, []
+
+        def rec_scan(*args):
+            out = run_scan(*args)
+            calls.append((args, out))
+            return out
+
+        scan_solver.LAUNCHES.reset()
+        k2.LAUNCHES.reset()
+        solver.scan_iterations = rec_scan
+        try:
+            with fp32_render():
+                for _ in range(PARALLEL_STEPS):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    local = step(local)
+                    torch.cuda.synchronize()
+                    sharded_ms.append((time.perf_counter() - t0) * 1e3)
+        finally:
+            solver.scan_iterations = run_scan
+        launches = {**scan_solver.LAUNCHES, **k2.LAUNCHES}
+        n_records = len(mesh.comm.records)
+        got = jobs.state_arrays(gather_sim_state(mesh, local))
+    finally:
+        dist.destroy_process_group()
+    single_ms = []
+    for _ in range(PARALLEL_STEPS):
+        rt.step(1)
+        single_ms.append(rt.step_ms)
+    errs = held_to_bars(got, jobs.state_arrays(rt.sim), "parallel (a)")
+    scan_err, active = 0.0, []
+    for args, out in calls:
+        e, k = hold_scan_active(args, out, "parallel (a)")
+        scan_err = max(scan_err, e)
+        active.append(k)
+    n_scan = launches["scan_velocity_iterations"] + launches["scan_position_correction"]
+    med = sorted(sharded_ms[1:])[len(sharded_ms[1:]) // 2]
+    med_single = sorted(single_ms)[len(single_ms) // 2]
+    log(f"parallel (a): from step {PARALLEL_WARMUP}, sharded steps (1 rank, nccl) "
+        f"{[round(x, 2) for x in sharded_ms]} ms (the first starts NCCL; median of the rest "
+        f"{med:.2f}), single-process {[round(x, 2) for x in single_ms]} ms (median "
+        f"{med_single:.2f}); {n_records} collectives; against the single-process run {errs}; "
+        f"{len(calls)} scan calls ({n_scan} launches) equal to the plain loop on their active "
+        f"slots {active}")
+    if not calls or n_scan != 2 * len(calls) or not any(active):
+        raise AssertionError(f"parallel (a): {len(calls)} scan calls, active slots {active}, "
+                             f"launches {launches}")
+    row = dict(sharded_ms=sharded_ms, single_ms=single_ms, collectives=n_records, errors=errs,
+               scan_calls=len(calls), scan_active=active)
+    return row, launches, scan_err
+
+
+def parallel_events(dev, world, store_dir):
+    """(b) Fracturing at the dry run's config and the filled 64³ asteroid
+    (dense remesh) on the world's ranks, each from the state of a
+    single-process run on the card a few steps before its event, gathered
+    and held to that run to ``held_to_bars``; every grid a rank labelled
+    held against the plain labelling. Returns (rows, the ranks' launches
+    summed, the labels' max abs err)."""
+    import numpy as np
+    import torch
+
+    from impact_tpu_torch.ops import ccl_pallas as k2
+    from impact_tpu_torch.parallel import jobs
+    from impact_tpu_torch.runtime import HeadlessRuntime, compile_scene
+
+    rows, launches, labelled = {}, {}, []
+    for name in ("fracturing", "asteroid"):
+        w, cfg = jobs.scene(name)
+        rt = HeadlessRuntime(compile_scene(w, cfg, device=dev), cfg)
+        ckpt = os.path.join(store_dir, f"{name}.npz")
+        event, n = event_checkpoint(rt, ckpt, PARALLEL_BEFORE_EVENT, PARALLEL_EVENT_STEPS)
+        res = world.run(jobs.step_job, name, world.n_ranks, n, ckpt, record_labels=True)
+        errs = held_to_bars(res[0]["state"], jobs.state_arrays(rt.sim), f"parallel (b) {name}")
+        receivers = [r["rank"] for r in res if r["received"]]
+        staged = sum(r["staged_bytes"] for r in res)
+        ms = np.mean([r["step_ms"] for r in res], axis=0)
+        for r in res:
+            for key, v in r["launches"].items():
+                launches[key] = launches.get(key, 0) + v
+            labelled += r["labelled"]
+        log(f"parallel (b) {name}: event at step {event} on the card; {n} sharded steps from "
+            f"step {event + PARALLEL_BEFORE_EVENT - n}; against the single-process run {errs}; "
+            f"ranks that received fragments or regions {receivers}; cross-shard pairs with "
+            f"active contacts {res[0]['cross_pairs']}; host staging {staged} B; step ms (mean "
+            f"over ranks) {[round(float(x), 2) for x in ms]}")
+        if not receivers or 0 in receivers:
+            raise AssertionError(f"parallel (b) {name}: receivers {receivers}")
+        rows[name] = dict(event_step=event, steps=n, errors=errs, receivers=receivers,
+                          cross_pairs=res[0]["cross_pairs"], staged_bytes=staged,
+                          step_ms=[float(x) for x in ms])
+    labels_err, n_grids = 0, 0
+    for occ in labelled:
+        occ = torch.as_tensor(occ, device=dev)
+        got, ref = k2.connected_component_labels_batched(occ), labels_plain(occ)
+        if not torch.equal(got, ref):
+            raise AssertionError(f"parallel (b): {int((got != ref).sum())} labels differ from "
+                                 f"the plain labelling")
+        labels_err = max(labels_err, int((got.long() - ref.long()).abs().max()))
+        n_grids += occ.shape[0]
+    log(f"parallel (b): {n_grids} grids of the ranks' {len(labelled)} labelling calls equal to "
+        f"the plain labelling; launches {launches}")
+    if not labelled or launches["k2_labels"] != len(labelled):
+        raise AssertionError(f"parallel (b): {len(labelled)} labelling calls, launches "
+                             f"{launches}")
+    rows["labelled_grids"] = n_grids
+    return rows, launches, float(labels_err)
+
+
+def parallel_pod(world):
+    """(c) The pod step of tests/test_parallel.py:245 (1024 slots of 16³
+    i8, jacobi, 4096 contact slots) on the world's ranks: local leading dims
+    O/4, each rank's device peak over its state under 8× that state, no
+    collective above 1.5 object-axis shards of its largest leaf and none of
+    a grid's shape, finite bodies and 6 alive. Returns a row per rank."""
+    from impact_tpu_torch.parallel import jobs
+
+    res = world.run(jobs.step_job, "pod", world.n_ranks, 1, gather=False, serial_build=True)
+    o_loc = jobs.POD_OBJECTS // world.n_ranks
+    rows = []
+    for r in res:
+        dims, nbytes = r["local_dims"], r["local_bytes"]
+        shard_leaf = max(nbytes[p] for p, d in dims.items() if d and d[0] == o_loc)
+        worst = max(rec["bytes"] for rec in r["records"])
+        grids = [rec["parts"] for rec in r["records"]
+                 if any(len(s) >= 4 and min(s[-3:]) >= 15 for s, _ in rec["parts"])]
+        rows.append(dict(rank=r["rank"], leading=dims["voxels/sdf"][0],
+                         peak_over_state=r["peak_extra_bytes"], state_bytes=r["state_bytes"],
+                         largest_collective=worst, shard_leaf_bytes=shard_leaf,
+                         step_ms=r["step_ms"][0], staged_bytes=r["staged_bytes"]))
+        if (dims["voxels/sdf"][0] != o_loc or dims["meshes/tri_pos"][0] != o_loc
+                or r["peak_extra_bytes"] >= 8 * r["state_bytes"] or worst > 1.5 * shard_leaf
+                or grids or not r["finite"] or r["n_alive"] != 6):
+            raise AssertionError(f"parallel (c): rank {r['rank']}: {rows[-1]}, grids {grids}, "
+                                 f"finite {r['finite']}, alive {r['n_alive']}")
+    log(f"parallel (c): {rows}")
+    return rows
+
+
+def parallel_halo(dev, world):
+    """(d) The halo min filter on a 2×2 mesh of the world's ranks: equal to
+    the plain 3-point min of the whole grid, boundary closed."""
+    import numpy as np
+    import torch
+
+    from impact_tpu_torch.parallel import jobs
+
+    grid = np.random.default_rng(0).uniform(size=(4, 16, 16, 16)).astype(np.float32)
+    grid[:, 0], grid[:, -1] = -5.0, -7.0
+    res = world.run(jobs.halo_job, grid, 2, 2)
+    pad = torch.nn.functional.pad(torch.as_tensor(grid, device=dev), (0, 0, 0, 0, 1, 1),
+                                  value=float("inf"))
+    want = torch.minimum(torch.minimum(pad[:, :-2], pad[:, 1:-1]), pad[:, 2:]).cpu()
+    got = torch.as_tensor(res[0]["out"])
+    if not torch.equal(got, want) or got[0, 0, 0, 0] != -5.0 or got[0, -1, 0, 0] != -7.0:
+        raise AssertionError("parallel (d): the sharded min filter differs from the plain "
+                             "3-point min")
+    halos = [len(r["halos"]) for r in res]
+    staged = sum(r["staged_bytes"] for r in res)
+    log(f"parallel (d): equal to the plain 3-point min (closed boundary); halo transfers per "
+        f"rank {halos}, host staging {staged} B")
+    return dict(halos=halos, staged_bytes=staged)
+
+
+def parallel_solver_memory(dev):
+    """(e) The jacobi solve at N = 1024 bodies, C = 4096 contact slots
+    (tests/test_parallel.py:189): device peak over the inputs under C·N·4
+    bytes (no [C, N] incidence), finite velocities."""
+    import torch
+
+    from impact_tpu_torch.physics import solver
+    from impact_tpu_torch.render.pipeline import fp32_render
+
+    n, c = 1024, 4096
+    b, prep, scfg = solver_scene(n, c, dev)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    with fp32_render():
+        out, _ = solver.solve_contacts(b, prep, scfg, mode="jacobi")
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    log(f"parallel (e): peak {peak} B over the inputs, bar C*N*4 = {c * n * 4} B")
+    if peak >= c * n * 4 or not bool(torch.isfinite(out.velocity).all()):
+        raise AssertionError(f"parallel (e): peak {peak} B")
+    return dict(peak_bytes=peak, bar_bytes=c * n * 4)
+
+
+def parallel_phase(dev, record, kernels):
+    """The engine step sharded over the voxel-object pool
+    (``impact_tpu_torch/parallel``): checks (a)-(e) of the docstring's item
+    15, (b)-(d) on PARALLEL_RANKS ranks sharing the card over host-staged
+    gloo."""
+    import tempfile
+
+    from impact_tpu_torch.parallel.world import World
+
+    t_phase = time.perf_counter()
+    rows = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_parallel_") as tmp:
+        with Phase(f"parallel (a): the quick start's tumbler under scan, sharded on a 1-rank "
+                   f"nccl mesh, {PARALLEL_STEPS} steps against HeadlessRuntime's"):
+            rows["a"], launches_a, scan_err = parallel_quick_start(dev, tmp)
+        with World(PARALLEL_RANKS, device=dev, backend="gloo", store_dir=tmp) as world:
+            with Phase(f"parallel (b): Fracturing and the filled 64^3 asteroid on "
+                       f"{PARALLEL_RANKS} ranks sharing the card over host-staged gloo, across "
+                       f"their events, against single-process runs"):
+                rows["b"], launches_b, labels_err = parallel_events(dev, world, tmp)
+            with Phase(f"parallel (c): the 1024-slot pod step on {PARALLEL_RANKS} ranks"):
+                rows["c"] = parallel_pod(world)
+            with Phase("parallel (d): the halo min filter on a 2x2 mesh"):
+                rows["d"] = parallel_halo(dev, world)
+        with Phase("parallel (e): the jacobi solve at 1024 bodies and 4096 contact slots"):
+            rows["e"] = parallel_solver_memory(dev)
+    phase_s = time.perf_counter() - t_phase
+    n_scan = launches_a["scan_velocity_iterations"] + launches_a["scan_position_correction"]
+    launches = {"scan_solver": n_scan, "k2_labels": launches_b["k2_labels"]}
+    log(f"parallel phase: {phase_s:.2f} s; launches {launches} ((a) in this process, (b) summed "
+        f"over the ranks)")
+    record["parallel"] = dict(rows, seconds=phase_s, launches=launches)
+    errs = {"scan_solver": scan_err, "k2_labels": labels_err}
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"parallel: {name} was not launched")
+        entry = next((k for k in kernels if k["name"] == name), None)
+        if entry is None:  # --parallel-only: the phase's own record
+            entry = dict(name=name, route="cuda", max_abs_err=errs[name])
+            kernels.append(entry)
+        entry["parallel_launches"] = n
+
+
+def solver_scene(n_bodies, n_contacts, dev, seed=11):
+    """tests/test_parallel.py:142-187's random contact scene on the card:
+    bodies, the prepared contacts and the solver config."""
+    import numpy as np
+    import torch
+
+    from impact_tpu_torch.physics.collision import ContactBuffer
+    from impact_tpu_torch.physics.solver import empty_solver_cache, prepare_contacts
+    from impact_tpu_torch.physics.state import KIND_DYNAMIC, empty_body_state
+    from impact_tpu_torch.utils.config import ConstraintSolverConfig
+
+    rng = np.random.default_rng(seed)
+
+    def t(x, dtype=torch.float32):
+        return torch.as_tensor(np.asarray(x), dtype=dtype, device=dev)
+
+    b = empty_body_state(n_bodies, dev)
+    b = b._replace(
+        kind=torch.full((n_bodies,), KIND_DYNAMIC, dtype=b.kind.dtype, device=dev),
+        inv_mass=t(rng.uniform(0.2, 2.0, n_bodies)),
+        inv_inertia_body=torch.eye(3, device=dev).expand(n_bodies, 3, 3).contiguous(),
+        position=t(rng.normal(size=(n_bodies, 3))),
+        momentum=t(rng.normal(size=(n_bodies, 3))))
+    ia = rng.integers(0, n_bodies, n_contacts)
+    ib = (ia + 1 + rng.integers(0, n_bodies - 1, n_contacts)) % n_bodies
+    nrm = rng.normal(size=(n_contacts, 3))
+    nrm /= np.linalg.norm(nrm, axis=-1, keepdims=True)
+    buf = ContactBuffer(
+        active=t(rng.uniform(size=n_contacts) < 0.9, torch.bool),
+        key=torch.arange(n_contacts, dtype=torch.int64, device=dev),
+        body_a=t(ia, torch.int64), body_b=t(ib, torch.int64),
+        position=t(rng.normal(size=(n_contacts, 3))), normal=t(nrm),
+        depth=t(rng.uniform(0.0, 0.05, n_contacts)),
+        response=t(np.tile([[0.3, 0.6, 0.4]], (n_contacts, 1))))
+    cfg = ConstraintSolverConfig()
+    return b, prepare_contacts(b, buf, empty_solver_cache(n_contacts, dev), cfg), cfg
 
 
 def finish(t_all, record, kernels, kind, count) -> int:

@@ -1,0 +1,354 @@
+"""The scenes and the rank jobs of the multi-device checks: the dry run, the
+tests on CPU ranks and ``chip_smoke.py``'s parallel phase run these in the
+ranks of a :class:`~.world.World` (module-level functions of the port, so a
+spawned rank imports nothing else).
+
+A job builds its scene on its rank (``compile_scene`` is deterministic, so
+every rank builds the same state), optionally loads a checkpoint the parent
+wrote, shards the state, steps it with the sharded step and returns what
+the parent checks as numpy arrays and plain values.
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from ..ecs import components as C
+from ..models import fracturing, voxel_box_tumbler
+from ..models.bench import bench_chunked_config, bench_chunked_fill_scene
+from ..ops import ccl_pallas as k2
+from ..physics import scan_solver
+from ..render.pipeline import fp32_render
+from ..runtime.checkpoint import load_checkpoint
+from ..runtime.setup import compile_scene
+from ..utils.config import EngineConfig
+from ..voxel import interaction
+from .halo import make_sharded_min_filter_x
+from .mesh import (
+    OBJECTS_SPACE,
+    gather_sim_state,
+    gather_tensor,
+    leaves_with_path,
+    make_device_mesh,
+    shard_sim_state,
+    shard_tensor,
+)
+from .step import make_sharded_engine_step
+
+POD_OBJECTS = 1024  # tests/test_parallel.py:245's pool
+
+
+def small_config() -> EngineConfig:
+    """The dry run's config (``__graft_entry__.py:35-47``)."""
+    cfg = EngineConfig()
+    cfg.tpu.max_voxel_objects = 4
+    cfg.tpu.max_bodies = 12
+    cfg.tpu.max_contacts = 128
+    cfg.tpu.voxel_grid_size = 16
+    cfg.tpu.render_width = 128
+    cfg.tpu.render_height = 96
+    cfg.tpu.solver_mode = "jacobi"
+    cfg.physics.simulator.initial_time_step_duration = 0.01
+    return cfg
+
+
+def _boxes(n_boxes: int, extent: float = 6.0):
+    world = voxel_box_tumbler(n_boxes=n_boxes)
+    for eid in world.entities_with(C.VoxelBox):
+        for f in ("extent_x", "extent_y", "extent_z"):
+            world.set_field(eid, C.VoxelBox, f, extent)
+    return world
+
+
+def _rule_world():
+    """A voxel box 9.9 m from a kinematic anchor, drifting away at 2 m/s:
+    its shadows are off beyond 6 m, it is removed beyond 10 m (a few steps
+    in; the distance-rule scene of tests/test_runtime_features.py:202-245,
+    started near its removal)."""
+    from ..ecs import World
+
+    w = World()
+    anchor = w.create_entity(C.ReferenceFrame(position=(0.0, 0.0, 0.0)),
+                             C.KinematicRigidBodyMarker())
+    w.create_entity(
+        C.ReferenceFrame(position=(9.9, 0.0, 0.0)), C.Motion(linear_velocity=(2.0, 0.0, 0.0)),
+        C.VoxelBox(voxel_extent=0.25, extent_x=6, extent_y=6, extent_z=6),
+        C.SameVoxelType(voxel_type=0), C.DynamicVoxels(),
+        C.DistanceTriggeredRules(anchor_id=anchor, no_shadowing_dist_squared=36.0,
+                                 removal_dist_squared=100.0))
+    return w
+
+
+def scene(name: str, n_objects_axis: int = 1):
+    """(world, config) of a named multi-device scene:
+
+    * ``tumbler``: ``tests/test_parallel.py:54-63`` (2 boxes of 6 voxels,
+      8 slots of 16³, 128 contact slots);
+    * ``quick_start``: README's quick start (4 boxes, 8 slots, the scan
+      solver at the default sizes);
+    * ``dryrun``: 2 boxes at ``small_config``, 2 slots per objects-axis rank
+      and at least 4 (``__graft_entry__.py:96-99``);
+    * ``fracturing``: the Fracturing scene at ``small_config``;
+    * ``asteroid``: the filled 64³ asteroid and its absorber at
+      ``bench_chunked_config(64)``, dense (``chunked_remesh`` off);
+    * ``carve``: the same at 32³ in twice the absorption gate's cap of
+      slots, so the object-gated carve runs;
+    * ``rules``: a box under distance rules, removed a few steps in;
+    * ``pod``: 6 boxes in 1024 slots of 16³, i8, jacobi, 4096 contact slots
+      (``tests/test_parallel.py:245``)."""
+    if name == "tumbler":
+        cfg = EngineConfig()
+        cfg.tpu.max_voxel_objects = 8
+        cfg.tpu.max_bodies = 16
+        cfg.tpu.max_contacts = 128
+        cfg.tpu.voxel_grid_size = 16
+        cfg.physics.simulator.initial_time_step_duration = 0.01
+        return _boxes(2), cfg
+    if name == "quick_start":
+        cfg = EngineConfig()
+        cfg.tpu.max_voxel_objects = 8
+        cfg.tpu.max_bodies = 24
+        return voxel_box_tumbler(n_boxes=4), cfg
+    if name == "dryrun":
+        cfg = small_config()
+        cfg.tpu.max_voxel_objects = max(4, 2 * n_objects_axis)
+        cfg.tpu.max_bodies = cfg.tpu.max_voxel_objects + 8
+        return voxel_box_tumbler(n_boxes=2), cfg
+    if name == "fracturing":
+        return fracturing(), small_config()
+    if name == "asteroid":
+        cfg = bench_chunked_config(64)
+        cfg.tpu.chunked_remesh = False
+        return bench_chunked_fill_scene(64), cfg
+    if name == "carve":
+        cfg = bench_chunked_config(32)
+        cfg.tpu.chunked_remesh = False
+        cfg.tpu.max_voxel_objects = 2 * cfg.tpu.absorption_gate_cap
+        cfg.tpu.max_bodies = cfg.tpu.max_voxel_objects + 8
+        return bench_chunked_fill_scene(32), cfg
+    if name == "rules":
+        cfg = EngineConfig()
+        t = cfg.tpu
+        t.max_voxel_objects, t.max_bodies, t.max_contacts, t.voxel_grid_size = 4, 16, 8, 16
+        t.solver_mode = "jacobi"
+        cfg.physics.simulator.initial_time_step_duration = 0.01
+        cfg.physics.rigid_body_force.drag_load_map_config.directory = None
+        return _rule_world(), cfg
+    if name == "pod":
+        cfg = EngineConfig()
+        cfg.tpu.max_voxel_objects = POD_OBJECTS
+        cfg.tpu.max_bodies = POD_OBJECTS + 16
+        cfg.tpu.max_contacts = 4096
+        cfg.tpu.voxel_grid_size = 16
+        cfg.tpu.sdf_encoding = "i8"
+        cfg.tpu.solver_mode = "jacobi"
+        cfg.physics.simulator.initial_time_step_duration = 0.01
+        return _boxes(6), cfg
+    raise KeyError(name)
+
+
+def state_arrays(sim) -> dict:
+    """The state's tensors as numpy arrays by field path, and the fracture
+    generator's state under ``rng_state``."""
+    out = {}
+    for path, leaf in leaves_with_path(sim):
+        if isinstance(leaf, torch.Tensor):
+            out[path] = leaf.detach().cpu().numpy()
+        elif isinstance(leaf, torch.Generator):
+            out["rng_state"] = leaf.get_state().numpy()
+    return out
+
+
+def _mesh(ctx, n_objects_axis: int, n_space_axis: int = 1):
+    n = n_objects_axis * n_space_axis
+    return make_device_mesh(n_objects_axis, n_space_axis, device=ctx.device,
+                            backend=ctx.backend, ranks=None if n == ctx.world_size else range(n))
+
+
+def _sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def step_job(ctx, name: str, n_objects_axis: int, n_steps: int, checkpoint=None,
+             gather: bool = True, serial_build: bool = False, record_labels: bool = False):
+    """Build scene ``name`` on every rank (one rank after another with
+    ``serial_build``, to bound the host's peak), start from ``checkpoint``
+    if given, shard it over an (n_objects_axis, 1) mesh and take
+    ``n_steps`` sharded steps. Returns, per rank: the local leading dims of
+    the sharded leaves, the collectives of the steps, host staging, the
+    slots this rank received (objects that came alive here), the pairs of
+    voxel objects on different ranks with active contacts in any step (as
+    body slots),
+    step times, device peak memory over the step beyond the state (on the
+    card), the kernel launches of the steps, with ``record_labels`` every
+    occupancy grid the rank labelled, and, on rank 0 with ``gather``, the
+    whole state after the steps."""
+    mesh = _mesh(ctx, n_objects_axis)
+    if mesh is None:
+        return None
+    dev = ctx.device
+    world, cfg = scene(name, n_objects_axis)
+
+    def build_local():
+        build = compile_scene(world, cfg, device=dev)
+        sim = build.sim
+        if checkpoint is not None:
+            sim, _ = load_checkpoint(checkpoint, sim, device=dev)
+        return shard_sim_state(mesh, sim), build.params, build.info
+
+    if serial_build:  # the whole state exists on one rank at a time
+        for r in range(n_objects_axis):
+            if r == mesh.coordinate[0]:
+                local, params, info = build_local()
+            dist.barrier(group=mesh.comm.groups["objects"][0])
+    else:
+        local, params, info = build_local()
+    step = make_sharded_engine_step(params, cfg, mesh, info["mesh_vert_cap"],
+                                    info["mesh_tri_cap"])
+    comm = mesh.comm
+    o_loc = cfg.tpu.max_voxel_objects // n_objects_axis
+    owner_of_body = {int(b): i // o_loc for i, b in enumerate(
+        comm.all_gather(local.voxels.body_index).tolist())}
+    comm.clear()
+    state_bytes = sum(t.numel() * t.element_size() for _, t in leaves_with_path(local)
+                      if isinstance(t, torch.Tensor))
+    if dev.type == "cuda":
+        _sync(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+    received, cross, step_ms, labelled = 0, set(), [], []
+    run_labels = interaction.connected_component_labels_batched
+
+    def rec_labels(occ):
+        labelled.append(occ.cpu().numpy())
+        return run_labels(occ)
+
+    for counter in (scan_solver.LAUNCHES, k2.LAUNCHES):
+        counter.reset()
+    if record_labels:
+        interaction.connected_component_labels_batched = rec_labels
+    try:
+        for _ in range(n_steps):
+            alive0 = local.voxels.alive
+            _sync(dev)
+            t0 = time.perf_counter()
+            with fp32_render():  # as HeadlessRuntime.step: float32 matmuls on the card
+                local = step(local)
+            _sync(dev)
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            received += int((local.voxels.alive & ~alive0).sum())
+            c = local.phys.solver_cache
+            for a, b in zip(c.body_a[c.active].tolist(), c.body_b[c.active].tolist()):
+                oa, ob = owner_of_body.get(a), owner_of_body.get(b)
+                if oa is not None and ob is not None and oa != ob:
+                    cross.add((min(a, b), max(a, b)))
+    finally:
+        interaction.connected_component_labels_batched = run_labels
+    launches = {**scan_solver.LAUNCHES, **k2.LAUNCHES}
+    peak_extra = (torch.cuda.max_memory_allocated(dev) - base) if dev.type == "cuda" else None
+    records = [r._asdict() for r in comm.records]
+    out = dict(
+        rank=ctx.rank, coordinate=mesh.coordinate, received=received,
+        cross_pairs=sorted(cross), step_ms=step_ms, host_syncs=step.host_syncs,
+        staged_bytes=comm.staged_bytes, records=records, state_bytes=state_bytes,
+        launches=launches, labelled=labelled,
+        peak_extra_bytes=peak_extra,
+        local_dims={p: tuple(t.shape) for p, t in leaves_with_path(local)
+                    if isinstance(t, torch.Tensor)},
+        local_bytes={p: t.numel() * t.element_size() for p, t in leaves_with_path(local)
+                     if isinstance(t, torch.Tensor)},
+        finite=bool(torch.isfinite(local.phys.bodies.position).all()),
+        n_alive=int(comm.all_gather(local.voxels.alive).sum()))
+    if gather:
+        whole = gather_sim_state(mesh, local)
+        out["state"] = state_arrays(whole) if mesh.coordinate[0] == 0 else None
+    return out
+
+
+def halo_job(ctx, grid: np.ndarray, n_objects_axis: int, n_space_axis: int):
+    """The sharded 3-point min filter of ``grid`` [O, Gx, Gy, Gz] on an
+    (n_objects_axis, n_space_axis) mesh → the gathered result on the first
+    rank, and the halo collectives."""
+    mesh = _mesh(ctx, n_objects_axis, n_space_axis)
+    if mesh is None:
+        return None
+    g = torch.as_tensor(grid, device=ctx.device)
+    out = make_sharded_min_filter_x(mesh)(shard_tensor(mesh, g, OBJECTS_SPACE))
+    whole = gather_tensor(mesh, out, OBJECTS_SPACE)
+    halos = [r._asdict() for r in mesh.comm.records if r.op == "halo"]
+    return dict(out=whole.cpu().numpy() if ctx.rank == 0 else None, halos=halos,
+                coordinate=mesh.coordinate, staged_bytes=mesh.comm.staged_bytes)
+
+
+def dryrun_job(ctx, n_devices: int):
+    """The dry run on one rank (``__graft_entry__.py:65-140``): one full
+    sharded step of ``scene("dryrun")`` on an (n, 1) mesh, then the halo
+    min filter of the stepped grids on an (n/2, 2) mesh, held against the
+    plain 3-point min."""
+    t0 = time.perf_counter()
+    out = step_job(ctx, "dryrun", n_devices, 1)
+    step_s = time.perf_counter() - t0
+    sdf = torch.as_tensor(out.pop("state")["voxels/sdf"]) if ctx.rank == 0 else None
+    n_space = 2 if n_devices % 2 == 0 and n_devices >= 4 else 1
+    mesh = _mesh(ctx, n_devices // n_space, n_space)
+    shape = list(out["local_dims"]["voxels/sdf"])
+    shape[0] *= n_devices
+    grid = sdf.to(ctx.device) if sdf is not None else torch.empty(shape, device=ctx.device)
+    grid = mesh.comm.broadcast(grid.float(), 0, "objects")
+    if n_space > 1:
+        grid = mesh.comm.broadcast(grid, 0, "space")
+    t1 = time.perf_counter()
+    got = gather_tensor(mesh, make_sharded_min_filter_x(mesh)(
+        shard_tensor(mesh, grid, OBJECTS_SPACE)), OBJECTS_SPACE)
+    pad = torch.nn.functional.pad(grid, (0, 0, 0, 0, 1, 1), value=float("inf"))
+    want = torch.minimum(torch.minimum(pad[:, :-2], pad[:, 1:-1]), pad[:, 2:])
+    return dict(step_s=step_s, halo_s=time.perf_counter() - t1, finite=out["finite"],
+                mesh=(n_devices, 1), halo_mesh=(n_devices // n_space, n_space),
+                halo_equal=bool(torch.equal(got, want)), records=len(out["records"]))
+
+
+def mesh_job(ctx, grid: np.ndarray, n_objects_axis: int, n_space_axis: int):
+    """The mesh's names, shape and this rank's coordinate, and a round trip
+    of ``grid`` [O, Gx, ...] sharded over objects × space: each block
+    doubled plus one, gathered (on the first rank)."""
+    mesh = _mesh(ctx, n_objects_axis, n_space_axis)
+    if mesh is None:
+        return None
+    local = shard_tensor(mesh, torch.as_tensor(grid, device=ctx.device), OBJECTS_SPACE)
+    whole = gather_tensor(mesh, local * 2 + 1, OBJECTS_SPACE)
+    return dict(axis_names=mesh.axis_names, dim_names=tuple(mesh.torch_mesh.mesh_dim_names),
+                shape=mesh.shape, coordinate=mesh.coordinate, local_shape=tuple(local.shape),
+                out=whole.cpu().numpy() if ctx.rank == 0 else None)
+
+
+def guards_job(ctx):
+    """On 4 ranks: the ValueErrors of a pool that does not divide over the
+    objects axis (sharding it, and the sharded step), of a mesh with a
+    space axis, and of chunked mode."""
+    meshes = _mesh(ctx, 4), _mesh(ctx, 2, 2)  # every rank makes every mesh
+    if meshes[0] is None:
+        return None
+    world, cfg = scene("dryrun", 3)  # 6 slots
+    build = compile_scene(world, cfg, device=ctx.device)
+    caps = build.info["mesh_vert_cap"], build.info["mesh_tri_cap"]
+    errors = {}
+
+    def expect(name, fn):
+        try:
+            fn()
+        except ValueError as e:
+            errors[name] = str(e)
+
+    expect("shard", lambda: shard_sim_state(meshes[0], build.sim))
+    expect("step", lambda: make_sharded_engine_step(build.params, cfg, meshes[0], *caps))
+    world, cfg = scene("dryrun", 2)  # 4 slots
+    build = compile_scene(world, cfg, device=ctx.device)
+    expect("space", lambda: make_sharded_engine_step(build.params, cfg, meshes[1], *caps))
+    cfg.tpu.chunked_remesh = True
+    expect("chunked", lambda: make_sharded_engine_step(build.params, cfg, meshes[0], *caps))
+    return errors

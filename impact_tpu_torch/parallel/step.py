@@ -1,0 +1,353 @@
+"""The engine step sharded over the voxel-object pool: the decomposition
+that GSPMD derives for the reference's ``jax.jit(step, in_shardings=...)``
+(``__graft_entry__.py:109-117``), written out.
+
+Each rank holds its block of the ``objects`` axis: slots [lo, hi) of the
+voxel grids and the other voxel leaves, the meshes and the probes
+(``mesh.sim_state_shardings``). Bodies, the solver cache, the render state
+and the fracture generator are replicated. Per step:
+
+* the per-object vectors (``VECTOR_FIELDS``, [O] or [O,3]) are gathered
+  once, and kept up to date on every rank through the stages: the step's
+  decisions read them, so every rank takes the same branch;
+* physics runs replicated on every rank. Its voxel contacts: the probes are
+  gathered once; each rank emits the plane and sphere contacts of its own
+  objects and the pair contacts whose sampled object B it owns (B's grid is
+  read only where it lives), compacts them, and the ranks' buffers are
+  gathered and merged by key into the unsharded step's very buffer. On the
+  card the solve's ``index_add_`` sums are not bitwise repeatable, so rank
+  0's physics state is broadcast after the solve to keep the replicas equal;
+* absorption carves each rank's own objects (the gate's ranking is global);
+* a fracture event or a split candidate: its owner broadcasts the source
+  object's grids (and, for a split, its labels, computed on the owner);
+  every rank runs the unsharded function on a small pool of the source and
+  the event's free slots, and keeps the rows that land in its own slots;
+  every rank draws the event's uniforms, so the generators stay equal;
+* the dirty sync: owners compute the new body rows and origins of their
+  dirty objects and re-mesh them; the rows are gathered and applied in
+  slot order on every rank.
+
+A step without an event moves no grid between ranks. Only the ``objects``
+axis is sharded through the step: a mesh with a ``space`` axis larger than
+1, and chunked mode, raise (ROADMAP.md, Queue 1).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..physics.collision import ContactBuffer, compact_contacts
+from ..physics.step import physics_step
+from ..runtime.engine import (
+    EngineParams,
+    SimState,
+    _free_slots,
+    _inherit_fragment_motion,
+    _put,
+    apply_distance_rules,
+    event_slots,
+    fracture_candidates,
+    gather_objects,
+    impact_point_local,
+    put_body_rows,
+    remesh_objects,
+    step_plan,
+    voxel_body_rows,
+)
+from ..voxel.collision import VoxelProbes, extract_probes, merge_contact_buffers, stable_topk, \
+    voxel_contacts
+from ..voxel.interaction import (
+    _absorber_overlap_mask,
+    _apply_absorption_dense,
+    connected_component_labels,
+    fracture_object,
+    split_off_disconnected_regions,
+)
+from ..voxel.mesh import CompactMesh
+from ..voxel.object import VoxelObjectPool, occupancy
+from .mesh import DeviceMesh
+
+# the per-object vectors every rank holds whole during a step
+VECTOR_FIELDS = ("alive", "body_index", "voxel_extent", "origin", "mesh_dirty", "split_pending",
+                 "casts_shadows")
+
+
+def _put_rows(full, to, new):
+    """``full`` with rows ``to`` replaced by ``new``; a ``to`` of
+    ``len(full)`` writes a spare row that is dropped (where the event or the
+    gate has no row for this rank)."""
+    return torch.cat([full, full[:1]]).index_copy(0, to, new.to(full.dtype))[:full.shape[0]]
+
+
+def broadcast_tree(comm, tree, src: int, axis: str = "objects"):
+    """Every tensor of a NamedTuple tree as the rank at ``src`` holds it, in
+    one broadcast."""
+    leaves = []
+
+    def collect(t):
+        if isinstance(t, tuple) and hasattr(t, "_fields"):
+            for x in t:
+                collect(x)
+        elif isinstance(t, torch.Tensor):
+            leaves.append(t)
+
+    collect(tree)
+    got = comm.broadcast_rows([t.reshape(1, -1) for t in leaves], src, axis)
+    it = iter(g.reshape(t.shape) for g, t in zip(got, leaves))
+
+    def fill(t):
+        if isinstance(t, tuple) and hasattr(t, "_fields"):
+            return type(t)(*(fill(x) for x in t))
+        return next(it) if isinstance(t, torch.Tensor) else t
+
+    return fill(tree)
+
+
+def make_sharded_engine_step(params: EngineParams, config, mesh: DeviceMesh, mesh_vert_cap: int,
+                             mesh_tri_cap: int, enable_voxel_contacts: bool = True,
+                             enable_absorption: bool = True, enable_splitting: bool = True,
+                             enable_fracturing: bool = True, fracture_uniforms=None):
+    """The engine step ``step(local_sim) -> local_sim`` of
+    ``runtime.engine.make_engine_step`` (same signature and feature flags,
+    plus the mesh) over a state sharded as ``mesh.sim_state_shardings``:
+    ``params`` whole on every rank, the state this rank's shard
+    (``shard_sim_state``). Its gathered result equals the unsharded step's
+    (``gather_sim_state``). ``step.host_syncs`` counts the device reads of
+    its branches, one per decision as the unsharded step's."""
+    tc = config.tpu
+    if mesh.size("space") > 1:
+        raise ValueError("the sharded engine step splits the objects axis only: the space axis "
+                         "through the step is ROADMAP.md Queue 1, item 1")
+    if tc.chunked_remesh:
+        raise ValueError("chunked mode (tpu.chunked_remesh) under sharding is ROADMAP.md "
+                         "Queue 1, item 2")
+    comm = mesh.comm
+    n_ranks, me = mesh.size("objects"), comm.coordinate("objects")
+    (dt, n_substeps, solver_cfg, max_contacts, o_max, remesh_budget, impact_cfg, n_seeds,
+     n_events, n_split_objs, n_split_regions, draw, absorb, rules) = step_plan(
+        params, config, enable_absorption, enable_fracturing, fracture_uniforms)
+    if o_max % n_ranks:
+        raise ValueError(f"{o_max} object slots do not divide over {n_ranks} ranks")
+    o_loc = o_max // n_ranks
+    lo, hi = me * o_loc, (me + 1) * o_loc
+    dev = mesh.device
+    gate_cap = min(tc.absorption_gate_cap, o_max)
+
+    def host(t):
+        step.host_syncs += 1
+        return t.tolist()
+
+    def owner(slot: int) -> int:
+        return slot // o_loc
+
+    def gathered(pool: VoxelObjectPool) -> VoxelObjectPool:
+        """The step's view: the pool with its per-object vectors gathered
+        whole; its grids stay this rank's block."""
+        vecs = comm.all_gather_rows([getattr(pool, f) for f in VECTOR_FIELDS])
+        return pool._replace(**dict(zip(VECTOR_FIELDS, vecs)))
+
+    def local(view: VoxelObjectPool) -> VoxelObjectPool:
+        """The rank's block of the view."""
+        return view._replace(**{f: getattr(view, f)[lo:hi] for f in VECTOR_FIELDS})
+
+    def merged_contacts(vc: ContactBuffer) -> ContactBuffer:
+        """The ranks' compacted buffers merged by key into the unsharded
+        buffer: every active key is unique, and the unsharded compaction
+        keeps the lowest ``max_contacts`` of them in key order."""
+        g = ContactBuffer(*comm.all_gather_rows(list(vc)))
+        order = torch.sort(g.key, stable=True)[1]
+        g = ContactBuffer(*(f[order] for f in g))
+        return compact_contacts(g.key, g.active, g.body_a, g.body_b, g.position, g.normal,
+                                g.depth, g.response, max_contacts)
+
+    def source_rows(view, slot: int, extra=()):
+        """Object ``slot``'s grids (and ``extra`` rows its owner computed),
+        broadcast from its owner."""
+        src = owner(slot)
+        if src == me:
+            rows = [view.sdf[slot - lo:slot - lo + 1], view.vtype[slot - lo:slot - lo + 1],
+                    *extra]
+        else:
+            g = view.sdf.shape[1:]
+            rows = [torch.empty_like(view.sdf[:1]), torch.empty_like(view.vtype[:1]),
+                    *(torch.empty((1, *g), dtype=torch.int32, device=dev) for _ in extra)]
+        return comm.broadcast_rows(rows, src)
+
+    def event_pool(view, slots, sdf, vtype):
+        """A pool of the event's rows: ``slots`` [n] (slot 0 the source, −1 =
+        none), with their vectors, the source's broadcast grids and this
+        rank's grids of its own slots (zeros for the others, whose rows only
+        their owners keep)."""
+        gslot = torch.clamp(slots, min=0)
+        mine = (slots >= lo) & (slots < hi)
+        li = torch.clamp(slots - lo, 0, o_loc - 1)
+
+        def grid(block, src):
+            rows = torch.where(mine[:, None, None, None], block[li],
+                               torch.zeros((), dtype=block.dtype, device=dev))
+            return torch.cat([src, rows[1:]])
+
+        return view._replace(sdf=grid(view.sdf, sdf), vtype=grid(view.vtype, vtype),
+                             **{f: getattr(view, f)[gslot] for f in VECTOR_FIELDS})
+
+    def event_free(slots):
+        """The event pool's indices of the free ``slots`` (−1 kept)."""
+        ar = torch.arange(1, slots.shape[0] + 1, device=dev)
+        return torch.where(slots >= 0, ar, -1)
+
+    def write_rows(view, slots, rows: VoxelObjectPool):
+        """The view with the event pool's ``rows`` written back: vectors at
+        every slot, grids at this rank's slots."""
+        dest = torch.where(slots >= 0, slots, o_max)
+        mine = (slots >= lo) & (slots < hi)
+        dest_l = torch.where(mine, slots - lo, o_loc)
+        return view._replace(sdf=_put_rows(view.sdf, dest_l, rows.sdf),
+                             vtype=_put_rows(view.vtype, dest_l, rows.vtype),
+                             **{f: _put_rows(getattr(view, f), dest, getattr(rows, f))
+                                for f in VECTOR_FIELDS})
+
+    def absorption(phys, view):
+        """The object-gated (or dense) carve of this rank's objects; the
+        gate ranks the whole pool's overlapping objects."""
+        b, absorbers = phys.bodies, params.absorbers
+        pool = local(view)
+        if gate_cap < o_max:
+            hit = _absorber_overlap_mask(view, absorbers, b.position, b.orientation)
+            order = torch.argsort((~hit).to(torch.uint8), stable=True)[:gate_cap]
+            sel = hit[order] & (order >= lo) & (order < hi)
+            rows = torch.clamp(order - lo, 0, o_loc - 1)
+            sub = _apply_absorption_dense(gather_objects(pool, rows), absorbers, b.position,
+                                          b.orientation)
+            dest = torch.where(sel, rows, o_loc)
+            pool = pool._replace(**{f: _put_rows(getattr(pool, f), dest, getattr(sub, f))
+                                    for f in ("sdf", "mesh_dirty", "split_pending")})
+        else:
+            pool = _apply_absorption_dense(pool, absorbers, b.position, b.orientation)
+        return gathered(pool)
+
+    def maybe_fracture(phys, view, gen):
+        """Up to ``n_events`` fracture events (ref: fracturing.rs:508)."""
+        top_obj, ranked, best_contact = fracture_candidates(phys, view, params, n_events)
+        free_all = _free_slots(view.alive)
+        valid, targets = host(torch.stack([torch.isfinite(ranked[top_obj]).long(), top_obj]))
+        for e in range(n_events):
+            if not valid[e]:
+                continue
+            target = top_obj[e]
+            free = event_slots(free_all, e, n_seeds - 1)
+            tb = view.body_index[target]
+            impact_local = impact_point_local(phys, best_contact[target], tb)
+            uniforms = draw(gen, n_seeds)  # every rank draws: the generators stay equal
+            sdf, vtype = source_rows(view, targets[e])
+            slots = torch.cat([target[None], free])
+            rows = fracture_object(event_pool(view, slots, sdf, vtype), 0, impact_local,
+                                   uniforms, event_free(free), params.fracture_radius[target],
+                                   n_seeds, impact_cfg)
+            new = write_rows(view, slots, rows)
+            # fracture_object marks every dirty, alive object split-pending
+            new = new._replace(split_pending=new.split_pending | (new.mesh_dirty & new.alive))
+            phys = _inherit_fragment_motion(phys, new, tb, new.alive & ~view.alive)
+            view = new
+        return phys, view
+
+    def maybe_split(phys, view):
+        """Up to ``n_split_objs`` split candidates, ``n_split_regions``
+        regions each (ref: extraction.rs:78); each candidate is labelled on
+        its owner."""
+        candidates = view.split_pending & view.alive
+        cand_objs = stable_topk(candidates.to(torch.int32), n_split_objs)
+        free_all = _free_slots(view.alive)
+        flags, cands = host(torch.stack([candidates[cand_objs].long(), cand_objs]))
+        valid = [e for e in range(n_split_objs) if flags[e]]
+        if not valid:
+            return phys, view
+        mine = [e for e in valid if owner(cands[e]) == me]
+        labels = {}
+        if mine:
+            objs = torch.tensor([cands[e] - lo for e in mine], device=dev)
+            lab = connected_component_labels(occupancy(local(view))[objs]).to(torch.int32)
+            labels = {e: lab[k:k + 1] for k, e in enumerate(mine)}
+        for e in valid:
+            obj = cand_objs[e]
+            sdf, vtype, lab = source_rows(view, cands[e], (labels.get(e),))
+            free = event_slots(free_all, e, n_split_regions)
+            slots = torch.cat([obj[None], free])
+            rows, _, _ = split_off_disconnected_regions(event_pool(view, slots, sdf, vtype), 0,
+                                                        event_free(free), lab[0])
+            new = write_rows(view, slots, rows)
+            phys = _inherit_fragment_motion(phys, new, view.body_index[obj],
+                                            new.alive & ~view.alive)
+            view = new
+        return phys, view
+
+    def sync_dirty(phys, view, meshes, probes):
+        """The inertia/COM sync, remesh and probe refresh of up to
+        ``remesh_budget`` dirty objects, lowest slots first: owners compute,
+        the body rows and origins are gathered. Each rank computes the rows
+        on a batch of the unsharded step's shape (its own objects at their
+        places, its other rows' results dropped), so that the card's
+        reductions sum each object as the unsharded step does."""
+        idx = torch.nonzero(view.mesh_dirty).flatten()[:remesh_budget]
+        slots = idx.tolist()  # the decision's one read
+        step.host_syncs += 1
+        if not slots:
+            return phys, view, meshes, probes
+        k = len(slots)
+        mine = (idx >= lo) & (idx < hi)
+        sub = gather_objects(local(view), torch.clamp(idx - lo, 0, o_loc - 1))
+        rows, origin = voxel_body_rows(phys, sub, params.type_density,
+                                       torch.ones(k, dtype=torch.bool, device=dev))
+        bufs = [torch.where(mine.reshape((k,) + (1,) * (r.ndim - 1)), r,
+                            torch.zeros((), dtype=r.dtype, device=dev)) for r in (*rows, origin)]
+        got = comm.all_gather_rows(bufs)
+        pick = (idx // o_loc) * k + torch.arange(k, device=dev)  # each row from its owner
+        got = [g[pick] for g in got]
+        phys = put_body_rows(phys, view.body_index[idx], got[:-1])
+        view = view._replace(origin=_put(view.origin, idx, got[-1]),
+                             mesh_dirty=_put(view.mesh_dirty, idx,
+                                             torch.zeros(k, dtype=torch.bool, device=dev)))
+        own = [j for j, s in enumerate(slots) if lo <= s < hi]
+        if own:
+            jt = torch.tensor(own, device=dev)
+            li = idx[jt] - lo
+            sub = gather_objects(sub, jt)._replace(origin=origin[jt])
+            new_mesh = remesh_objects(sub, tc.mesh_merge_levels, mesh_vert_cap, mesh_tri_cap,
+                                      params.material_table)
+            meshes = CompactMesh(*(_put(old, li, new) for old, new in zip(meshes, new_mesh)))
+            new_probes = extract_probes(sub, params.voxel_response[idx[jt]])
+            probes = VoxelProbes(*(_put(old, li, new) for old, new in zip(probes, new_probes)))
+        return phys, view, meshes, probes
+
+    def step(sim: SimState) -> SimState:
+        phys, view = sim.phys, gathered(sim.voxels)
+        prev_pos, prev_ori = phys.bodies.position, phys.bodies.orientation
+        if rules:
+            phys, view = apply_distance_rules(phys, view, params.dist_rules,
+                                              params.casts_shadows_base)
+        extra = None
+        if enable_voxel_contacts:
+            probes_all = VoxelProbes(*comm.all_gather_rows(list(sim.probes)))
+            collidables = params.phys_params.collidables
+
+            def extra(bodies, contacts):
+                vc = voxel_contacts(view, probes_all, collidables, bodies.position,
+                                    bodies.orientation, max_contacts, shard=(lo, hi))
+                return merge_contact_buffers(contacts, merged_contacts(vc), max_contacts)
+
+        phys = physics_step(phys, params.phys_params, dt, n_substeps, solver_cfg, max_contacts,
+                            tc.solver_mode, extra)
+        if dev.type == "cuda":
+            phys = broadcast_tree(comm, phys, 0)
+        if absorb:
+            view = absorption(phys, view)
+        if enable_fracturing:
+            phys, view = maybe_fracture(phys, view, sim.rng)
+        if enable_splitting:
+            phys, view = maybe_split(phys, view)
+        phys, view, meshes, probes = sync_dirty(phys, view, sim.meshes, sim.probes)
+        return SimState(phys=phys, voxels=local(view), meshes=meshes, probes=probes,
+                        render=sim.render, prev_position=prev_pos, prev_orientation=prev_ori,
+                        rng=sim.rng)
+
+    step.host_syncs = 0
+    return step

@@ -161,10 +161,16 @@ def _put(t, idx, rows):
     return t.index_copy(0, idx, rows.to(t.dtype))
 
 
-def _sync_voxel_bodies(phys: PhysicsState, pool: VoxelObjectPool, type_density, sync_mask):
-    """Refresh body mass/inertia for the masked voxel objects and keep each
-    body origin at its object's COM: the position shifts by R·Δcom and the
-    grid origin compensates (ref: object/inertia.rs property transfer)."""
+# the body fields the object sync rewrites, in this order
+BODY_SYNC_FIELDS = ("kind", "mass", "inv_mass", "inertia_body", "inv_inertia_body", "position")
+
+
+def voxel_body_rows(phys: PhysicsState, pool: VoxelObjectPool, type_density, sync_mask):
+    """(the rows of BODY_SYNC_FIELDS of the objects' bodies, the objects'
+    grid origins) after the sync of the masked objects: mass and inertia
+    from the grids, each body origin at its object's COM (the position
+    shifts by R·Δcom and the grid origin compensates; ref:
+    object/inertia.rs property transfer)."""
     mass, com, inertia = inertial_properties(pool, type_density)
     b = phys.bodies
     bidx = pool.body_index
@@ -172,19 +178,27 @@ def _sync_voxel_bodies(phys: PhysicsState, pool: VoxelObjectPool, type_density, 
     sm1, sm2, sm3 = sm[:, None], sm[:, None, None], sm
     new_pos = b.position[bidx] + quat.rotate(b.orientation[bidx], com)
     inv_inertia = torch.linalg.inv(inertia + torch.eye(3, device=inertia.device) * 1e-12)
-    kind = torch.where(sm3, KIND_DYNAMIC, b.kind[bidx])
-    b = b._replace(
-        kind=_put(b.kind, bidx, kind),
-        mass=_put(b.mass, bidx, torch.where(sm3, mass, b.mass[bidx])),
-        inv_mass=_put(b.inv_mass, bidx,
-                      torch.where(sm3, 1.0 / torch.clamp(mass, min=1e-9), b.inv_mass[bidx])),
-        inertia_body=_put(b.inertia_body, bidx, torch.where(sm2, inertia, b.inertia_body[bidx])),
-        inv_inertia_body=_put(b.inv_inertia_body, bidx,
-                              torch.where(sm2, inv_inertia, b.inv_inertia_body[bidx])),
-        position=_put(b.position, bidx, torch.where(sm1, new_pos, b.position[bidx])),
-    )
-    return phys._replace(bodies=b), pool._replace(
-        origin=torch.where(sm1, pool.origin - com, pool.origin))
+    rows = (torch.where(sm3, KIND_DYNAMIC, b.kind[bidx]),
+            torch.where(sm3, mass, b.mass[bidx]),
+            torch.where(sm3, 1.0 / torch.clamp(mass, min=1e-9), b.inv_mass[bidx]),
+            torch.where(sm2, inertia, b.inertia_body[bidx]),
+            torch.where(sm2, inv_inertia, b.inv_inertia_body[bidx]),
+            torch.where(sm1, new_pos, b.position[bidx]))
+    return rows, torch.where(sm1, pool.origin - com, pool.origin)
+
+
+def put_body_rows(phys: PhysicsState, bidx, rows) -> PhysicsState:
+    """phys with the BODY_SYNC_FIELDS rows of bodies ``bidx`` replaced."""
+    b = phys.bodies
+    return phys._replace(bodies=b._replace(**{
+        f: _put(getattr(b, f), bidx, r) for f, r in zip(BODY_SYNC_FIELDS, rows)}))
+
+
+def _sync_voxel_bodies(phys: PhysicsState, pool: VoxelObjectPool, type_density, sync_mask):
+    """Refresh body mass/inertia for the masked voxel objects and keep each
+    body origin at its object's COM (``voxel_body_rows``)."""
+    rows, origin = voxel_body_rows(phys, pool, type_density, sync_mask)
+    return put_body_rows(phys, pool.body_index, rows), pool._replace(origin=origin)
 
 
 def _inherit_fragment_motion(phys: PhysicsState, pool: VoxelObjectPool, src_body, new_mask):
@@ -223,6 +237,38 @@ def _free_slots(alive):
     return torch.where(~alive[order], order, -1)
 
 
+def event_slots(free_all, e: int, n: int):
+    """The ``n`` free slots of event ``e`` (disjoint ranges of ``free_all``;
+    all −1 past its end)."""
+    lo = e * n
+    if lo + n <= free_all.shape[0]:
+        return free_all[lo:lo + n]
+    return torch.full((n,), -1, dtype=torch.int64, device=free_all.device)
+
+
+def fracture_candidates(phys: PhysicsState, pool: VoxelObjectPool, params, n_events: int):
+    """(the ``n_events`` objects of highest contact impulse, each object's
+    impulse where it exceeds its fracture threshold else −inf, each
+    object's strongest contact slot) from the solver cache (ref:
+    fracturing.rs:508). Reads only the pool's per-object vectors."""
+    cache = phys.solver_cache
+    imp_n = torch.where(cache.active, cache.impulses[:, 0], 0.0)
+    bo = pool.body_index[:, None]
+    involved = (cache.body_a[None, :] == bo) | (cache.body_b[None, :] == bo)  # [O,C]
+    imp_per_obj = torch.where(involved, imp_n[None, :], 0.0).max(dim=1).values
+    best_contact = torch.argmax(torch.where(involved, imp_n[None, :], -1.0), dim=1)
+    exceed = params.fracturable & pool.alive & (imp_per_obj > params.fracture_threshold)
+    ranked = torch.where(exceed, imp_per_obj, float("-inf"))
+    return stable_topk(ranked, n_events), ranked, best_contact
+
+
+def impact_point_local(phys: PhysicsState, contact, body):
+    """The solver cache's contact point ``contact`` in ``body``'s frame."""
+    b = phys.bodies
+    return quat.inverse_rotate(b.orientation[body],
+                               phys.solver_cache.position[contact] - b.position[body])
+
+
 def remesh_objects(sub: VoxelObjectPool, merge_levels: int, vert_cap: int, tri_cap: int,
                    material_table) -> CompactMesh:
     """Surface Nets + compaction + material bake of a gathered sub-pool, in
@@ -234,6 +280,54 @@ def remesh_objects(sub: VoxelObjectPool, merge_levels: int, vert_cap: int, tri_c
                             merge_levels)
         parts.append(bake_mesh_materials(compact_mesh(full, vert_cap, tri_cap), material_table))
     return CompactMesh(*(torch.cat(f) for f in zip(*parts)))
+
+
+class StepPlan(NamedTuple):
+    """The sizes and switches an engine step fixes when it is made."""
+
+    dt: float
+    n_substeps: int
+    solver_cfg: object
+    max_contacts: int
+    o_max: int
+    remesh_budget: int  # dirty objects synced and re-meshed per step
+    impact_cfg: object
+    n_seeds: int  # Voronoi seeds of a fracture event
+    n_events: int  # fracture events per step
+    n_split_objs: int  # split candidates checked per step
+    n_split_regions: int  # regions extracted per candidate
+    draw: object  # (generator, n_seeds) -> an event's uniforms
+    absorb: bool  # the scene has absorbers and absorption is on
+    rules: bool  # the scene has distance rules
+
+
+def step_plan(params: EngineParams, config, enable_absorption: bool, enable_fracturing: bool,
+              fracture_uniforms=None) -> StepPlan:
+    """The plan of the engine step of ``params`` under ``config`` (shared by
+    ``make_engine_step`` and ``parallel.step.make_sharded_engine_step``)."""
+    tc = config.tpu
+    o_max = tc.max_voxel_objects
+    impact_cfg = config.voxel.interaction.fracturing.impact
+    return StepPlan(
+        dt=config.physics.simulator.initial_time_step_duration,
+        n_substeps=config.physics.simulator.n_substeps,
+        solver_cfg=config.physics.constraint_solver,
+        max_contacts=tc.max_contacts,
+        o_max=o_max,
+        remesh_budget=(min(o_max, max(4, tc.max_fracture_fragments * tc.max_fracture_events))
+                       if enable_fracturing else min(o_max, 4)),
+        impact_cfg=impact_cfg,
+        n_seeds=max(2, min(impact_cfg.max_fragment_count, tc.max_fracture_fragments, o_max)),
+        n_events=min(tc.max_fracture_events, o_max),
+        n_split_objs=max(1, min(tc.max_split_objects, o_max)),
+        n_split_regions=max(1, min(tc.max_split_regions, o_max)),
+        draw=fracture_uniforms or draw_fracture_uniforms,
+        # scenes without absorbers skip the pass, without distance rules the
+        # rules (the pools are scene constants)
+        absorb=enable_absorption and bool(params.absorbers.sph_mask.any()
+                                          or params.absorbers.cap_mask.any()),
+        rules=params.dist_rules is not None and bool(params.dist_rules.mask.any()),
+    )
 
 
 def make_engine_step(params: EngineParams, config, mesh_vert_cap: int, mesh_tri_cap: int,
@@ -250,24 +344,9 @@ def make_engine_step(params: EngineParams, config, mesh_vert_cap: int, mesh_tri_
     ``draw_fracture_uniforms``; the tests pass JAX's)."""
     tc = config.tpu
     chunked = bool(tc.chunked_remesh)
-    dt = config.physics.simulator.initial_time_step_duration
-    n_substeps = config.physics.simulator.n_substeps
-    solver_cfg = config.physics.constraint_solver
-    max_contacts = tc.max_contacts
-    o_max = tc.max_voxel_objects
-    remesh_budget = (min(o_max, max(4, tc.max_fracture_fragments * tc.max_fracture_events))
-                     if enable_fracturing else min(o_max, 4))
-    impact_cfg = config.voxel.interaction.fracturing.impact
-    n_seeds = max(2, min(impact_cfg.max_fragment_count, tc.max_fracture_fragments, o_max))
-    n_events = min(tc.max_fracture_events, o_max)
-    n_split_objs = max(1, min(tc.max_split_objects, o_max))
-    n_split_regions = max(1, min(tc.max_split_regions, o_max))
-    draw = fracture_uniforms or draw_fracture_uniforms
-    # scenes without absorbers skip the pass, without distance rules the
-    # rules (the pools are scene constants)
-    absorb = enable_absorption and bool(params.absorbers.sph_mask.any()
-                                        or params.absorbers.cap_mask.any())
-    rules = params.dist_rules is not None and bool(params.dist_rules.mask.any())
+    (dt, n_substeps, solver_cfg, max_contacts, o_max, remesh_budget, impact_cfg, n_seeds,
+     n_events, n_split_objs, n_split_regions, draw, absorb, rules) = step_plan(
+        params, config, enable_absorption, enable_fracturing, fracture_uniforms)
 
     def host(t):
         step.host_syncs += 1
@@ -284,15 +363,7 @@ def make_engine_step(params: EngineParams, config, mesh_vert_cap: int, mesh_tri_
     def maybe_fracture(phys: PhysicsState, pool: VoxelObjectPool, gen):
         """Fracture the objects whose contact impulse exceeds their threshold,
         up to ``n_events`` per step (ref: fracturing.rs:508)."""
-        cache = phys.solver_cache
-        imp_n = torch.where(cache.active, cache.impulses[:, 0], 0.0)
-        bo = pool.body_index[:, None]
-        involved = (cache.body_a[None, :] == bo) | (cache.body_b[None, :] == bo)  # [O,C]
-        imp_per_obj = torch.where(involved, imp_n[None, :], 0.0).max(dim=1).values
-        best_contact = torch.argmax(torch.where(involved, imp_n[None, :], -1.0), dim=1)
-        exceed = params.fracturable & pool.alive & (imp_per_obj > params.fracture_threshold)
-        ranked = torch.where(exceed, imp_per_obj, float("-inf"))
-        top_obj = stable_topk(ranked, n_events)
+        top_obj, ranked, best_contact = fracture_candidates(phys, pool, params, n_events)
         # free-slot ranges per event, disjoint, computed up front
         free_all = _free_slots(pool.alive)
         valid = host(torch.isfinite(ranked[top_obj]))
@@ -300,13 +371,9 @@ def make_engine_step(params: EngineParams, config, mesh_vert_cap: int, mesh_tri_
             if not valid[e]:
                 continue
             target = top_obj[e]
-            lo = e * (n_seeds - 1)
-            free = (free_all[lo:lo + n_seeds - 1] if lo + n_seeds - 1 <= o_max
-                    else torch.full((n_seeds - 1,), -1, dtype=torch.int64, device=ranked.device))
+            free = event_slots(free_all, e, n_seeds - 1)
             tb = pool.body_index[target]
-            impact_world = cache.position[best_contact[target]]
-            impact_local = quat.inverse_rotate(phys.bodies.orientation[tb],
-                                               impact_world - phys.bodies.position[tb])
+            impact_local = impact_point_local(phys, best_contact[target], tb)
             pool2 = fracture_object(pool, target, impact_local, draw(gen, n_seeds), free,
                                     params.fracture_radius[target], n_seeds, impact_cfg)
             phys = _inherit_fragment_motion(phys, pool2, tb, pool2.alive & ~pool.alive)
@@ -332,10 +399,7 @@ def make_engine_step(params: EngineParams, config, mesh_vert_cap: int, mesh_tri_
         labels = connected_component_labels(occupancy(pool)[objs])
         for k, e in enumerate(valid):
             obj = cand_objs[e]
-            lo = e * n_split_regions
-            slots = (free_all[lo:lo + n_split_regions] if lo + n_split_regions <= o_max
-                     else torch.full((n_split_regions,), -1, dtype=torch.int64,
-                                     device=free_all.device))
+            slots = event_slots(free_all, e, n_split_regions)
             pool2, _, _ = split_off_disconnected_regions(pool, obj, slots, labels[k])
             phys = _inherit_fragment_motion(phys, pool2, pool.body_index[obj],
                                             pool2.alive & ~pool.alive)

@@ -315,13 +315,25 @@ def separating_contacts_for_interlocked(pos, normal, depth, active, com_a, com_b
 
 def voxel_contacts(pool: VoxelObjectPool, probes: VoxelProbes, collidables: CollidablePools,
                    body_position, body_orientation, max_contacts: int,
-                   max_pairs: int | None = None) -> ContactBuffer:
+                   max_pairs: int | None = None, shard: tuple[int, int] | None = None
+                   ) -> ContactBuffer:
     """Probe contacts against planes, spheres and the broad-phase pairs of
-    voxel objects → a compacted ContactBuffer with keys ≥ VOXEL_KEY_BASE."""
+    voxel objects → a compacted ContactBuffer with keys ≥ VOXEL_KEY_BASE.
+
+    ``shard=(lo, hi)``: the pool's vectors and the probes are whole but its
+    grids hold only slots [lo, hi) (``parallel/step.py``). Then only the
+    contacts of those slots are emitted: their plane and sphere contacts,
+    and the pairs whose sampled object B is one of them. Every value is
+    computed as on the whole pool, so the shards' buffers merged by key
+    equal the whole pool's."""
     o, p = probes.active.shape
     dev = probes.active.device
     if max_pairs is None:
         max_pairs = min(o * o, max(16, 4 * o))
+    owned = None
+    if shard is not None:
+        ar_o = torch.arange(o, device=dev)
+        owned = (ar_o >= shard[0]) & (ar_o < shard[1])
     body_idx = pool.body_index
     q_b = body_orientation[body_idx]
     x_b = body_position[body_idx]
@@ -344,6 +356,8 @@ def voxel_contacts(pool: VoxelObjectPool, probes: VoxelProbes, collidables: Coll
     sd = torch.einsum("opc,lc->opl", probe_world, pn) - pd[None, None, :]
     dep = 0.5 * pool.voxel_extent[:, None, None] - sd
     active = probes.active[:, :, None] & collidables.pln_mask[None, None, :] & (dep >= 0.0)
+    if owned is not None:
+        active = active & owned[:, None, None]
     nrm = pn[None, None].expand(o, p, npl, 3)
     resp = combine_response(probes.response[:, :, None, :],
                             collidables.pln_response[None, None].expand(o, p, npl, 3))
@@ -363,6 +377,8 @@ def voxel_contacts(pool: VoxelObjectPool, probes: VoxelProbes, collidables: Coll
            - dist)
     active = (probes.active[:, :, None] & collidables.sph_mask[None, None, :] & (dep >= 0.0)
               & (body_idx[:, None, None] != collidables.sph_body[None, None, :]))
+    if owned is not None:
+        active = active & owned[:, None, None]
     resp = combine_response(probes.response[:, :, None, :],
                             collidables.sph_response[None, None].expand(o, p, ns, 3))
     key = key_cursor + torch.arange(o * p * ns, dtype=torch.int64, device=dev).reshape(o, p, ns)
@@ -376,7 +392,7 @@ def voxel_contacts(pool: VoxelObjectPool, probes: VoxelProbes, collidables: Coll
     g = pool.grid_size
     if encoded:
         sdf_unit = pool.voxel_extent * QUANTIZATION_STEP_SIZE
-        packed_flat = pack_cell_corners_i8(pool.sdf).reshape(-1, 2)
+        packed_flat = pack_cell_corners_i8(pool.sdf).reshape(-1, 2)  # the shard's grids
     else:
         sdf_unit = torch.ones_like(pool.voxel_extent)
 
@@ -403,6 +419,10 @@ def voxel_contacts(pool: VoxelObjectPool, probes: VoxelProbes, collidables: Coll
     local = quat.rotate(q_inv[pair_b][:, None, :], probe_world[pair_a] - x_b[pair_b][:, None, :])
     pts = (local - pool.origin[pair_b][:, None, :]) / pool.voxel_extent[pair_b][:, None, None]
     obj_b = pair_b[:, None].expand(-1, p)
+    if owned is not None:
+        # B's grid lives on its owner: other pairs sample a clamped slot and
+        # are not emitted
+        obj_b = torch.clamp(obj_b - shard[0], 0, shard[1] - shard[0] - 1)
     if encoded:
         d_ab, g_local = sample_packed_sdf_pairs(packed_flat, obj_b, pts, g)
     else:
@@ -424,11 +444,16 @@ def voxel_contacts(pool: VoxelObjectPool, probes: VoxelProbes, collidables: Coll
     # (ref: constraint.rs:241)
     interlocked, sep_pos, sep_ax, sep_dep = separating_contacts_for_interlocked(
         pos, n_ab, dep, active, x_b[pair_a], x_b[pair_b])
-    emit(key, active & ~interlocked[:, None], ba, bb, pos, n_ab, dep, resp)
+    if owned is not None:
+        mine = owned[pair_b]
+        active_out, interlocked_out = active & mine[:, None], interlocked & mine
+    else:
+        active_out, interlocked_out = active, interlocked
+    emit(key, active_out & ~interlocked[:, None], ba, bb, pos, n_ab, dep, resp)
     key_cursor += o * o * p
     # restitution 0, "infinite" friction (ref: contact.rs:644)
     sep_resp = torch.tensor([0.0, 1e9, 1e9], device=dev).expand(mp, 3)
-    emit(key_cursor + pair_key, interlocked, body_idx[pair_a], body_idx[pair_b], sep_pos,
+    emit(key_cursor + pair_key, interlocked_out, body_idx[pair_a], body_idx[pair_b], sep_pos,
          sep_ax, sep_dep, sep_resp)
 
     return compact_contacts(*[torch.cat(c) for c in zip(*parts)], max_contacts)

@@ -56,7 +56,8 @@ ENTRY_MODULES = ("impact_tpu_torch.runtime.setup", "impact_tpu_torch.bridge",
                  "impact_tpu_torch.apps.snapshot_tester", "impact_tpu_torch.render.textures",
                  "impact_tpu_torch.render.pipeline", "impact_tpu_torch.apps.impact_game",
                  "impact_tpu_torch.runtime.checkpoint", "impact_tpu_torch.apps.voxel_generator",
-                 "impact_tpu_torch.scene.mesh", "impact_tpu_torch.apps.parity_snapshots")
+                 "impact_tpu_torch.scene.mesh", "impact_tpu_torch.apps.parity_snapshots",
+                 "impact_tpu_torch.parallel.dryrun", "impact_tpu_torch.parallel.mesh")
 
 
 @pytest.mark.parametrize("module", ENTRY_MODULES)
@@ -158,3 +159,22 @@ def test_parity_and_controller_entry_points_default_to_the_card(tmp_path):
     state = State(PhysicsState(bodies=bodies, solver_cache=None, time=None))
     out = EntityController(body_index=1).apply(state).phys.bodies
     assert out.orientation.device.type == out.velocity.device.type == "meta"
+
+
+def test_parallel_entry_points_default_to_the_card(monkeypatch):
+    """The dry run's CLI, make_device_mesh and the rank spawner run on
+    ``cuda`` unless told otherwise."""
+    import inspect
+
+    from impact_tpu_torch.parallel import dryrun, make_device_mesh
+    from impact_tpu_torch.parallel.world import World
+
+    assert "impact_tpu_torch.parallel.dryrun" in MODULES
+    seen = {}
+    monkeypatch.setattr(dryrun, "dryrun_multichip",
+                        lambda n, device, backend: seen.update(n=n, device=device,
+                                                               backend=backend))
+    assert dryrun.main([]) == 0
+    assert seen == {"n": 8, "device": "cuda", "backend": None}
+    for f in (make_device_mesh, World.__init__):
+        assert inspect.signature(f).parameters["device"].default == "cuda", f.__qualname__
