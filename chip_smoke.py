@@ -129,8 +129,16 @@ then drives these paths through the port's entry points:
    the state, the largest collective, no grid-shaped collective); (d) the
    halo min filter on a 2×2 mesh against the plain 3-point min; and (e)
    the jacobi solve at 1024 bodies and 4096 contact slots under
-   C·N·4 bytes of peak memory. Ranks sharing a card say nothing about a
-   multi-card speed.
+   C·N·4 bytes of peak memory; (f) the ``space`` axis, on 8 ranks sharing
+   the card: the tumbler on 2×2 and 4×2 against a single-process run,
+   Fracturing on 2×2 and the filled 64³ asteroid on 1×4 across their
+   events against a single-process run whose inertia sums slab by slab
+   (the divergence from the plain run reported), every slab labels launch
+   held against its plain version and timed, the merged slab labels
+   against the whole grid's, the 1024-slot pod on 4×2 (local dims, halo
+   transfers, no grid- or slab-shaped collective, the largest collective,
+   memory over the state) and the dry run on 2×2. Ranks sharing a card
+   say nothing about a multi-card speed.
 
 Kernel launch counts are zeroed just before each path and read just after
 it. Every phase prints one flushed line with its seconds; any failure exits
@@ -277,6 +285,8 @@ BF16_SHARE = 1e-3
 PARALLEL_WARMUP, PARALLEL_STEPS, PARALLEL_RANKS = 90, 10, 4
 PARALLEL_BEFORE_EVENT, PARALLEL_EVENT_STEPS = 3, 200
 PARALLEL_POS_ATOL, PARALLEL_MOMENTUM_ATOL, PARALLEL_SDF_ATOL = 1e-5, 1e-4, 1e-6
+# (f), the space axis: its ranks sharing the card and the tumbler's steps
+SPACE_RANKS, SPACE_STEPS = 8, 5
 API_KERNELS = {"k1_raster_attributes": "k1_attr_kernel", "k1_raster_depth": "k1_depth_kernel",
                "scan_velocity_iterations": "scan_velocity_kernel",
                "scan_position_correction": "scan_correction_kernel"}
@@ -669,7 +679,8 @@ def labels_phases(dev, batches, labels_launches, record, kernels):
         torch.cuda.synchronize()
         log(f"connected_component_labels at G=32, 48, 63, 39, 40, 72: launches "
             f"{dict(k2.LAUNCHES)}")
-        if dict(k2.LAUNCHES) != dict(k2_ccl=0, k2_ccl_wide=0, k2_labels=len(flat)):
+        if dict(k2.LAUNCHES) != dict(k2_ccl=0, k2_ccl_wide=0, k2_labels=len(flat),
+                                     k2_labels_slab=0):
             raise AssertionError(f"the flat labelling did not go through the labels kernel alone: "
                                  f"{dict(k2.LAUNCHES)}")
         torch.cuda.set_sync_debug_mode("error")
@@ -2178,7 +2189,7 @@ def api_phase(dev, record, kernels):
     def add():
         for c in counters:
             for k, v in c.items():
-                launches[k] += v
+                launches[k] = launches.get(k, 0) + v
 
     tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_api_")
     run_depth, run_attr = rp.raster_depth, rp.raster_attributes
@@ -2503,7 +2514,7 @@ def generation_phase(dev, record, kernels):
     def add():
         for c in counters:
             for k, v in c.items():
-                launches[k] += v
+                launches[k] = launches.get(k, 0) + v
 
     tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_generation_")
     t_phase = time.perf_counter()
@@ -3440,6 +3451,217 @@ def parallel_solver_memory(dev):
     return dict(peak_bytes=peak, bar_bytes=c * n * 4)
 
 
+def space_rows(res):
+    """Per rank of a sharded run: step ms, halo transfers and their bytes,
+    host staging and the events' grid bytes."""
+    rows = []
+    for r in res:
+        if r is None:
+            continue
+        halos = [x for x in r["records"] if x["op"] == "halo"]
+        rows.append(dict(rank=r["rank"], coordinate=tuple(r["coordinate"]),
+                         step_ms=[round(x, 2) for x in r["step_ms"]], halos=len(halos),
+                         halo_bytes=sum(x["bytes"] for x in halos),
+                         staged_bytes=r["staged_bytes"], event_bytes=r["event_bytes"]))
+    return rows
+
+
+def exact_leaves(got: dict, want: dict, what):
+    """The leaves a space-sharded state must hold bit for bit (grids, flags,
+    meshes, the probes' choice) against a single-process one; raises
+    naming the first that differs."""
+    import numpy as np
+
+    keys = [k for k in want if k.startswith(("voxels/sdf", "voxels/vtype", "voxels/alive",
+                                             "voxels/mesh_dirty", "voxels/split_pending",
+                                             "meshes/", "probes/active", "probes/response"))]
+    for k in keys:
+        if got[k].shape != want[k].shape or not np.array_equal(got[k], want[k]):
+            raise AssertionError(f"{what}: {k} differs from the single-process run")
+    return len(keys)
+
+
+def divergence(got: dict, want: dict):
+    """{leaf: max abs difference} of the body and origin leaves that differ
+    (a report, not a check)."""
+    import numpy as np
+
+    out = {}
+    for k in ("phys/bodies/inertia_body", "phys/bodies/mass", "voxels/origin",
+              "phys/bodies/orientation", "phys/bodies/position", "phys/bodies/momentum",
+              "phys/bodies/angular_momentum"):
+        d = np.abs(got[k].astype(np.float64) - want[k].astype(np.float64))
+        if d.size and d.max() > 0:
+            out[k] = float(d.max())
+    return out
+
+
+def parallel_space_tumbler(dev, world):
+    """(f) The tumbler of tests/test_parallel.py:54-63 on 2×2 and 4×2
+    meshes, SPACE_STEPS sharded steps, held to a single-process run on the
+    card: grids, flags, meshes and probes bit for bit, bodies to
+    ``held_to_bars``. Returns (rows, launches summed over the ranks)."""
+    from impact_tpu_torch.parallel import jobs
+    from impact_tpu_torch.runtime import HeadlessRuntime, compile_scene
+
+    w, cfg = jobs.scene("tumbler")
+    rt = HeadlessRuntime(compile_scene(w, cfg, device=dev), cfg)
+    rt.step(SPACE_STEPS)
+    want = jobs.state_arrays(rt.sim)
+    rows, launches = {}, {}
+    for shape in ((2, 2), (4, 2)):
+        res = world.run(jobs.step_job, "tumbler", shape[0], SPACE_STEPS, n_space_axis=shape[1])
+        what = f"parallel (f) tumbler {shape[0]}x{shape[1]}"
+        errs = held_to_bars(res[0]["state"], want, what)
+        n_exact = exact_leaves(res[0]["state"], want, what)
+        per_rank = space_rows(res)
+        for r in res:
+            for key, v in (r or {}).get("launches", {}).items():
+                launches[key] = launches.get(key, 0) + v
+        dims = res[0]["local_dims"]["voxels/sdf"]
+        log(f"{what}: {SPACE_STEPS} steps; local sdf {dims}; {n_exact} leaves equal to the "
+            f"single-process run, bodies {errs}; per rank {per_rank}")
+        if tuple(dims) != (8 // shape[0], 8, 16, 16) or not any(r["halos"] for r in per_rank):
+            raise AssertionError(f"{what}: local sdf {dims}, ranks {per_rank}")
+        rows[f"{shape[0]}x{shape[1]}"] = dict(errors=errs, ranks=per_rank)
+    return rows, launches
+
+
+def parallel_space_events(dev, world, store_dir):
+    """(f) Fracturing on 2×2 across its fracture and the filled 64³
+    asteroid on 1×4 across its carve and split, from a state of a
+    single-process run on the card a few steps before the event: held to
+    a single-process run from that state whose inertia sums slab by slab
+    as the rows do (``jobs.slab_ordered_inertia``): grids, flags, meshes
+    and probes bit for bit, bodies to ``held_to_bars``; the divergence from
+    the plain run (the inertia's float32 sums in another order) is
+    reported. Every slab labels launch of the ranks is held against its
+    plain version and timed, and the merged labels of the asteroid's
+    slabs against the whole grid's kernel labels. Returns (rows, the
+    ranks' launches summed, the slab launches' max abs err, their timing
+    row)."""
+    import numpy as np
+    import torch
+
+    from impact_tpu_torch.devtools import cuda_time_ms
+    from impact_tpu_torch.ops import ccl_pallas as k2
+    from impact_tpu_torch.parallel import jobs
+    from impact_tpu_torch.runtime import HeadlessRuntime, compile_scene
+
+    rows, launches, labelled, first_slabs = {}, {}, [], []
+    for name, shape in (("fracturing", (2, 2)), ("asteroid", (1, 4))):
+        w, cfg = jobs.scene(name)
+        rt = HeadlessRuntime(compile_scene(w, cfg, device=dev), cfg)
+        ckpt = os.path.join(store_dir, f"space_{name}.npz")
+        event, n = event_checkpoint(rt, ckpt, PARALLEL_BEFORE_EVENT, PARALLEL_EVENT_STEPS)
+        world.submit(jobs.step_job, name, shape[0], n, ckpt, record_labels=True,
+                     n_space_axis=shape[1])
+        ref = HeadlessRuntime(compile_scene(jobs.scene(name)[0], cfg, device=dev), cfg)
+        ref.load_checkpoint(ckpt)
+        with jobs.slab_ordered_inertia(shape[1]):
+            ref.step(n)
+        res = world.collect()
+        what = f"parallel (f) {name} {shape[0]}x{shape[1]}"
+        got = res[0]["state"]
+        errs = held_to_bars(got, jobs.state_arrays(ref.sim), what)
+        n_exact = exact_leaves(got, jobs.state_arrays(ref.sim), what)
+        plain = divergence(got, jobs.state_arrays(rt.sim))
+        per_rank = space_rows(res)
+        for r in res:
+            if r is None:
+                continue
+            for key, v in r["launches"].items():
+                launches[key] = launches.get(key, 0) + v
+            labelled += r["labelled"]
+            if name == "asteroid":
+                first_slabs.append(r["labelled"][0])
+        log(f"{what}: event at step {event} on the card; {n} sharded steps from step "
+            f"{event + PARALLEL_BEFORE_EVENT - n}; {n_exact} leaves equal to the slab-ordered "
+            f"single-process run, bodies {errs}; against the plain single-process run "
+            f"(report) {plain or 'equal'}; per rank {per_rank}")
+        if not any(r["event_bytes"] for r in per_rank):
+            raise AssertionError(f"{what}: no event moved a grid")
+        rows[name] = dict(event_step=event, steps=n, errors=errs, plain_divergence=plain,
+                          ranks=per_rank)
+    # each slab labels launch against its plain version, and timed
+    err, ms, plain_ms, bounds = 0, [], [], []
+    for occ in labelled:
+        occ = torch.as_tensor(occ, device=dev)
+        got, ref_lab = k2.connected_component_labels_batched(occ), labels_plain(occ)
+        if occ.shape[1] == occ.shape[-1] or not torch.equal(got, ref_lab):
+            raise AssertionError(f"parallel (f): slab labels {tuple(occ.shape)} differ from the "
+                                 f"plain version")
+        err = max(err, int((got.long() - ref_lab.long()).abs().max()))
+        ms.append(cuda_time_ms(lambda o=occ: k2.connected_component_labels_batched(o), reps=20))
+        plain_ms.append(cuda_time_ms(lambda o=occ: labels_plain(o), reps=1, warmup=1))
+        bounds.append(k2.labels_bound_ms(occ))
+    log(f"parallel (f): {len(labelled)} slab labels launches {[tuple(x.shape) for x in labelled]}"
+        f" equal to the plain version; ms per launch {[round(x, 4) for x in ms]}, plain "
+        f"{[round(x, 3) for x in plain_ms]}, bound {[round(b[0], 6) for b in bounds]} ms")
+    # the merged labels of the asteroid's slabs against the whole grid's kernel labels
+    whole = np.concatenate(first_slabs, axis=1)
+    res = world.run(jobs.slab_labels_job, whole, 4)
+    kernel = k2.connected_component_labels_batched(torch.as_tensor(whole, device=dev))
+    if not np.array_equal(res[0]["labels"], kernel.cpu().numpy()):
+        raise AssertionError("parallel (f): the merged slab labels differ from the whole grid's")
+    log(f"parallel (f): the asteroid's slabs' merged labels equal the whole {whole.shape[1:]} "
+        f"grid's kernel labels ({len(np.unique(res[0]['labels'])) - 1} components); halo "
+        f"transfers per rank {[len(r['halos']) for r in res[:4]]}")
+    by_shape = {}
+    for occ, t in zip(labelled, ms):
+        by_shape.setdefault(str(list(occ.shape)), []).append(t)
+    log("parallel (f): slab labels ms per launch by shape (median): "
+        + ", ".join(f"{k} {float(np.median(v)):.4f} ({len(v)})" for k, v in by_shape.items()))
+    timing = dict(ms=float(np.mean(ms)), plain_ms=float(np.mean(plain_ms)),
+                  bound_ms=float(np.mean([b[0] for b in bounds])), bound_by=bounds[0][1],
+                  launches_ms=ms, shapes=[list(x.shape) for x in labelled])
+    return rows, launches, float(err), timing
+
+
+def parallel_space_pod(world):
+    """(f) The pod step of tests/test_parallel.py:245-405 on 4×2: 1024 slots
+    of 16³ i8, jacobi; local sdf dims [256, 8, 16, 16], halo transfers, no
+    collective of a grid's or a slab's shape, none above 1.5 object-axis
+    shards of the largest leaf, device peak under 8× the rank's state."""
+    from impact_tpu_torch.parallel import jobs
+
+    res = world.run(jobs.step_job, "pod", 4, 1, gather=False, serial_build=True,
+                    n_space_axis=2)
+    g, o_loc = 16, jobs.POD_OBJECTS // 4
+    rows = space_rows(res)
+    for r, row in zip(res, rows):
+        dims, nbytes = r["local_dims"], r["local_bytes"]
+        shard_leaf = max(nbytes[p] for p, d in dims.items() if d and d[0] == o_loc)
+        worst = max(rec["bytes"] for rec in r["records"])
+        shaped = [rec["parts"] for rec in r["records"]
+                  if any(len(s) >= 4 and s[-1] >= g and s[-2] >= g and s[-3] >= g // 2
+                         for s, _ in rec["parts"])]
+        row.update(largest_collective=worst, shard_leaf_bytes=shard_leaf,
+                   peak_over_state=r["peak_extra_bytes"], state_bytes=r["state_bytes"])
+        if (tuple(dims["voxels/sdf"]) != (o_loc, g // 2, g, g) or worst > 1.5 * shard_leaf
+                or shaped or r["peak_extra_bytes"] >= 8 * r["state_bytes"]
+                or not r["finite"] or r["n_alive"] != 6 or r["event_bytes"]):
+            raise AssertionError(f"parallel (f) pod: {row}, shaped {shaped}, "
+                                 f"sdf {dims['voxels/sdf']}")
+    if not any(r["halos"] for r in rows):
+        raise AssertionError("parallel (f) pod: no halo transfer")
+    log(f"parallel (f) pod 4x2: {rows}")
+    return rows
+
+
+def parallel_space_dryrun(world):
+    """(f) The dry run on 2×2: the full engine step and the halo min
+    filter."""
+    from impact_tpu_torch.parallel import jobs
+
+    r = world.run(jobs.dryrun_job, 4)[0]
+    log(f"parallel (f) dry run: mesh {r['mesh']}, step {r['step_s']:.2f} s with "
+        f"{r['step_halos']} halo transfers, min filter equal {r['halo_equal']}")
+    if r["mesh"] != (2, 2) or not (r["finite"] and r["halo_equal"] and r["step_halos"]):
+        raise AssertionError(f"parallel (f) dry run: {r}")
+    return r
+
+
 def parallel_phase(dev, record, kernels):
     """The engine step sharded over the voxel-object pool
     (``impact_tpu_torch/parallel``): checks (a)-(e) of the docstring's item
@@ -3466,6 +3688,24 @@ def parallel_phase(dev, record, kernels):
                 rows["d"] = parallel_halo(dev, world)
         with Phase("parallel (e): the jacobi solve at 1024 bodies and 4096 contact slots"):
             rows["e"] = parallel_solver_memory(dev)
+        t_space = time.perf_counter()
+        with World(SPACE_RANKS, device=dev, backend="gloo", store_dir=tmp) as world:
+            with Phase(f"parallel (f): the tumbler on 2x2 and 4x2 (space axis), {SPACE_STEPS} "
+                       f"steps against a single-process run"):
+                rows["f_tumbler"], launches_f = parallel_space_tumbler(dev, world)
+            with Phase("parallel (f): Fracturing on 2x2 and the filled 64^3 asteroid on 1x4 "
+                       "across their events; every slab labels launch against its plain "
+                       "version"):
+                rows["f_events"], launches_fe, slab_err, slab_timing = parallel_space_events(
+                    dev, world, tmp)
+            with Phase("parallel (f): the 1024-slot pod step on 4x2"):
+                rows["f_pod"] = parallel_space_pod(world)
+            with Phase("parallel (f): the dry run on 2x2"):
+                rows["f_dryrun"] = parallel_space_dryrun(world)
+        rows["f_seconds"] = time.perf_counter() - t_space
+        log(f"parallel (f): {rows['f_seconds']:.2f} s on {SPACE_RANKS} ranks sharing the card over "
+            f"host-staged gloo (their times say nothing about a multi-card speed); launches "
+            f"{launches_f} (tumbler), {launches_fe} (events)")
     phase_s = time.perf_counter() - t_phase
     n_scan = launches_a["scan_velocity_iterations"] + launches_a["scan_position_correction"]
     launches = {"scan_solver": n_scan, "k2_labels": launches_b["k2_labels"]}
@@ -3481,6 +3721,17 @@ def parallel_phase(dev, record, kernels):
             entry = dict(name=name, route="cuda", max_abs_err=errs[name])
             kernels.append(entry)
         entry["parallel_launches"] = n
+    # the labels kernel's slab entry: launched only on this phase's (f) path
+    n_slab = launches_fe.get("k2_labels_slab", 0)
+    if n_slab <= 0 or n_slab != len(slab_timing["launches_ms"]):
+        raise AssertionError(f"parallel (f): slab labels launches {launches_fe}, "
+                             f"{len(slab_timing['launches_ms'])} held to the plain version")
+    kernels.append(dict(
+        name="k2_labels_slab", route="cuda", source="impact_tpu_torch/csrc/ccl.cu",
+        replaces="impact_tpu/ops/ccl_pallas.py:45", launches=n_slab, max_abs_err=slab_err,
+        ms=slab_timing["ms"], plain_ms=slab_timing["plain_ms"],
+        bound_ms=slab_timing["bound_ms"], bound_by=slab_timing["bound_by"], library_ms=None))
+    record["parallel"]["k2_labels_slab"] = slab_timing
 
 
 def solver_scene(n_bodies, n_contacts, dev, seed=11):

@@ -34,6 +34,7 @@ SIGNATURES = {
     "k1_raster_attributes": [_P, _I, _P, _P, _P, _I, _I, _I, _I,
                              _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "k2_ccl_labels": [_P, _P, _I, _I, _P],
+    "k2_ccl_labels_slab": [_P, _P, _I, _I, _I, _P],
     "k2_ccl_sweeps": [_P, _P, _P, _P, _I, _I, _I, _P],
     "k2_ccl_wide": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "p1_probe_floor": [_I, _P, _P, _I, _P, _I, _P],

@@ -298,8 +298,9 @@ struct Tile {
   int base, i0, j0, k0, ti, tj, tk;
 };
 
-__device__ __forceinline__ Tile tile_of_block(int g) {
-  const int nti = (g + kTileI - 1) / kTileI, ntj = (g + kTileJ - 1) / kTileJ;
+// A grid is [gx, g, g]: a whole grid (gx == g) or a slab of x planes.
+__device__ __forceinline__ Tile tile_of_block(int gx, int g) {
+  const int nti = (gx + kTileI - 1) / kTileI, ntj = (g + kTileJ - 1) / kTileJ;
   const int ntk = (g + kTileK - 1) / kTileK;
   const int per_grid = nti * ntj * ntk;
   const int b = blockIdx.x / per_grid;
@@ -309,7 +310,7 @@ __device__ __forceinline__ Tile tile_of_block(int g) {
   t -= r.ti * ntj * ntk;
   r.tj = t / ntk;
   r.tk = t - r.tj * ntk;
-  r.base = b * g * g * g;
+  r.base = b * gx * g * g;
   r.i0 = r.ti * kTileI;
   r.j0 = r.tj * kTileJ;
   r.k0 = r.tk * kTileK;
@@ -317,13 +318,13 @@ __device__ __forceinline__ Tile tile_of_block(int g) {
 }
 
 __global__ void __launch_bounds__(kTileVoxels)
-k2_labels_tile(const uint8_t* __restrict__ occ, int32_t* __restrict__ lab, int g) {
+k2_labels_tile(const uint8_t* __restrict__ occ, int32_t* __restrict__ lab, int gx, int g) {
   __shared__ int par[kTileVoxels];
-  const Tile t = tile_of_block(g);
+  const Tile t = tile_of_block(gx, g);
   const int l = threadIdx.x;
   const int ii = l / kTileJK, jj = (l / kTileK) % kTileJ, kk = l % kTileK;
   const int i = t.i0 + ii, j = t.j0 + jj, k = t.k0 + kk;
-  const bool in = i < g && j < g && k < g;
+  const bool in = i < gx && j < g && k < g;
   const int v = t.base + (i * g + j) * g + k;
   const bool o = in && occ[v];
   // a warp holds 32 / kTileK whole rows along k; each voxel starts under the
@@ -357,8 +358,8 @@ k2_labels_tile(const uint8_t* __restrict__ occ, int32_t* __restrict__ lab, int g
 // occupied is joined through them already: those are adjacent to this pair
 // inside the two tiles, which the tile pass joined.
 __global__ void __launch_bounds__(kFaceThreads)
-k2_labels_faces(const uint8_t* __restrict__ occ, int32_t* __restrict__ lab, int g) {
-  const Tile t = tile_of_block(g);
+k2_labels_faces(const uint8_t* __restrict__ occ, int32_t* __restrict__ lab, int gx, int g) {
+  const Tile t = tile_of_block(gx, g);
   int f = threadIdx.x;
   int i = t.i0, j = t.j0, k = t.k0, step, along, w;
   if (f < kFaceI) {
@@ -384,7 +385,7 @@ k2_labels_faces(const uint8_t* __restrict__ occ, int32_t* __restrict__ lab, int 
     step = 1;
     along = g;
   }
-  if (i >= g || j >= g || k >= g) return;
+  if (i >= gx || j >= g || k >= g) return;
   const uint8_t* o = occ + t.base;
   const int v = (i * g + j) * g + k;
   if (!o[v] || !o[v - step]) return;
@@ -408,25 +409,35 @@ k2_labels_compress(int32_t* __restrict__ lab, int n, int total) {
 
 }  // namespace
 
-// Labels of a batch of bool grids [batch, g, g, g] (occupancy read as bytes)
-// into i32 labels of the same shape: three launches, no host read.
-extern "C" int k2_ccl_labels(const void* occ, void* labels, int batch, int g, void* stream) {
-  const long long total = static_cast<long long>(batch) * g * g * g;
-  if (batch <= 0 || g <= 0 || total >= (1LL << 31)) return cudaErrorInvalidValue;
+// Labels of a batch of bool slabs [batch, gx, g, g] (occupancy read as
+// bytes) into i32 labels of the same shape, each the minimum linear index
+// (i * g + j) * g + k of its component inside the slab: three launches, no
+// host read.
+extern "C" int k2_ccl_labels_slab(const void* occ, void* labels, int batch, int gx, int g,
+                                  void* stream) {
+  const long long total = static_cast<long long>(batch) * gx * g * g;
+  if (batch <= 0 || g <= 0 || gx <= 0 || gx > g || total >= (1LL << 31))
+    return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const uint8_t* o = static_cast<const uint8_t*>(occ);
   int32_t* lab = static_cast<int32_t*>(labels);
-  const long long tiles = static_cast<long long>(batch) * ((g + kTileI - 1) / kTileI) *
+  const long long tiles = static_cast<long long>(batch) * ((gx + kTileI - 1) / kTileI) *
                           ((g + kTileJ - 1) / kTileJ) * ((g + kTileK - 1) / kTileK);
-  k2_labels_tile<<<static_cast<int>(tiles), kTileVoxels, 0, st>>>(o, lab, g);
+  k2_labels_tile<<<static_cast<int>(tiles), kTileVoxels, 0, st>>>(o, lab, gx, g);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  k2_labels_faces<<<static_cast<int>(tiles), kFaceThreads, 0, st>>>(o, lab, g);
+  k2_labels_faces<<<static_cast<int>(tiles), kFaceThreads, 0, st>>>(o, lab, gx, g);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int blocks = static_cast<int>((total + kCompressThreads - 1) / kCompressThreads);
-  k2_labels_compress<<<blocks, kCompressThreads, 0, st>>>(lab, g * g * g, static_cast<int>(total));
+  k2_labels_compress<<<blocks, kCompressThreads, 0, st>>>(lab, gx * g * g,
+                                                          static_cast<int>(total));
   return cudaGetLastError();
+}
+
+// Labels of a batch of bool grids [batch, g, g, g]: the slab entry at gx = g.
+extern "C" int k2_ccl_labels(const void* occ, void* labels, int batch, int g, void* stream) {
+  return k2_ccl_labels_slab(occ, labels, batch, g, g, stream);
 }
 
 // Up to 16 sweeps of K2-wide from buffer a (parity 0) or b (parity 1); sweep

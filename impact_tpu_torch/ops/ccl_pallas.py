@@ -39,7 +39,7 @@ import torch
 
 from ..utils.launches import LaunchCounter
 
-LAUNCHES = LaunchCounter(k2_ccl=0, k2_ccl_wide=0, k2_labels=0)
+LAUNCHES = LaunchCounter(k2_ccl=0, k2_ccl_wide=0, k2_labels=0, k2_labels_slab=0)
 # labels and ``big`` = G³ must fit the shared-memory kernel's u16 buffers
 MAX_GRID_VOXELS = 65535
 # dynamic shared memory one block may opt into on the H100 (227 KB)
@@ -48,11 +48,17 @@ MAX_BLOCK_SHARED_BYTES = 232448
 WIDE_GROUP = 16
 
 
+def _voxels(occ) -> int:
+    """Voxels of one grid (G³, or gx·G² of a slab)."""
+    return occ.shape[-3] * occ.shape[-2] * occ.shape[-1]
+
+
 def initial_labels(occ):
-    """Linear index where occupied, ``big`` = G³ elsewhere (i32)."""
-    g = occ.shape[-1]
-    lin = torch.arange(g ** 3, dtype=torch.int32, device=occ.device).reshape(g, g, g)
-    return torch.where(occ, lin, g ** 3)
+    """Linear index where occupied, ``big`` = G³ elsewhere (i32); of a slab
+    [..,gx,G,G], its own linear index and gx·G²."""
+    n = _voxels(occ)
+    lin = torch.arange(n, dtype=torch.int32, device=occ.device).reshape(occ.shape[-3:])
+    return torch.where(occ, lin, n)
 
 
 def min_sweep(occ, labels, big: int, axes=(1, 2, 3)):
@@ -73,7 +79,7 @@ def ccl_sweeps_plain(occ, labels, max_sweeps: int):
     """The kernel's function in plain PyTorch: (labels i32 [B,G,G,G],
     sweeps i32 [B]). Grid b stops after the first sweep that leaves it
     unchanged (that sweep counted) or after ``max_sweeps`` sweeps."""
-    big = occ.shape[-1] ** 3
+    big = _voxels(occ)
     running = torch.ones(occ.shape[0], dtype=torch.bool, device=occ.device)
     sweeps = torch.zeros(occ.shape[0], dtype=torch.int32, device=occ.device)
     for _ in range(max_sweeps):
@@ -175,17 +181,21 @@ def _ccl_sweeps_wide(occ, labels, max_sweeps: int):
 def connected_component_labels_plain(occ):
     """The labels kernel's function in plain PyTorch: the fixpoint sweep
     (capped at G³ sweeps, the longest path through a grid), −1 where empty."""
-    g = occ.shape[-1]
-    labels, _ = ccl_sweeps_plain(occ, initial_labels(occ), g ** 3)
+    labels, _ = ccl_sweeps_plain(occ, initial_labels(occ), _voxels(occ))
     return torch.where(occ, labels, -1)
 
 
 def connected_component_labels_batched(occ):
     """Labels of each grid of a contiguous bool batch [B,G,G,G]: i32, the
     minimum linear index of each 6-connected component, −1 where empty. The
-    labels kernel on CUDA tensors, its plain version on CPU tensors."""
-    if occ.ndim != 4 or occ.shape[1:] != (occ.shape[-1],) * 3:
-        raise ValueError(f"occupancy must be [B,G,G,G], got {tuple(occ.shape)}")
+    labels kernel on CUDA tensors, its plain version on CPU tensors.
+
+    A batch of slabs [B,gx,G,G] (x planes of larger grids, gx < G) is
+    labelled as grids of that extent: each label the slab's own linear index
+    (i·G² + j·G + k), components cut at the slab's faces; on the card the
+    kernel's slab entry (``k2_ccl_labels_slab``) labels it."""
+    if occ.ndim != 4 or occ.shape[2] != occ.shape[3] or not 0 < occ.shape[1] <= occ.shape[3]:
+        raise ValueError(f"occupancy must be [B,G,G,G] or [B,gx,G,G], got {tuple(occ.shape)}")
     if occ.dtype != torch.bool or not occ.is_contiguous():
         raise ValueError(f"the labels take contiguous bool occupancy, got {occ.dtype}"
                          f"{'' if occ.is_contiguous() else ' (not contiguous)'}")
@@ -201,11 +211,18 @@ def connected_component_labels_batched(occ):
         return out
     from .. import _build
 
-    rc = _build.load().k2_ccl_labels(occ.data_ptr(), out.data_ptr(), occ.shape[0],
-                                     occ.shape[-1], torch.cuda.current_stream(dev).cuda_stream)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    nb, gx, g = occ.shape[0], occ.shape[1], occ.shape[-1]
+    if gx == g:
+        rc = _build.load().k2_ccl_labels(occ.data_ptr(), out.data_ptr(), nb, g, stream)
+        if rc != 0:
+            raise RuntimeError(f"k2_ccl_labels launch failed: cudaError {rc}")
+        LAUNCHES["k2_labels"] += 1
+        return out
+    rc = _build.load().k2_ccl_labels_slab(occ.data_ptr(), out.data_ptr(), nb, gx, g, stream)
     if rc != 0:
-        raise RuntimeError(f"k2_ccl_labels launch failed: cudaError {rc}")
-    LAUNCHES["k2_labels"] += 1
+        raise RuntimeError(f"k2_ccl_labels_slab launch failed: cudaError {rc}")
+    LAUNCHES["k2_labels_slab"] += 1
     return out
 
 
@@ -229,8 +246,9 @@ def labels_bound_ms(occ) -> tuple:
     could take for one ``connected_component_labels_batched`` call, whatever
     implements it: bytes = occupancy in (1 B) and labels out (4 B) per
     voxel, the start labels being implicit; operations = 3 per voxel (the
-    test of each face-neighbour pair). Returns (ms, "bytes"|"operations")."""
-    n = occ.shape[0] * occ.shape[-1] ** 3
+    test of each face-neighbour pair); voxels counted as [B,gx,G,G], so a
+    batch of slabs counts its own. Returns (ms, "bytes"|"operations")."""
+    n = occ.shape[0] * _voxels(occ)
     t_bytes = 5 * n / 3.35e12 * 1e3
     t_ops = 3 * n / 67e12 * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")

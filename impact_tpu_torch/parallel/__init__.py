@@ -1,8 +1,8 @@
 """Multi-device scale-out on ``torch.distributed`` (port of
 ``impact_tpu/parallel``): device meshes, state shardings, the halo exchange
-and the engine step sharded over the voxel-object pool. Every collective
-goes through ``comm.Comm``; ``world.World`` spawns ranks for the dry run and
-the checks."""
+and the engine step sharded over the voxel-object pool and the grids' x
+axis. Every collective goes through ``comm.Comm``; ``world.World`` spawns
+ranks for the dry run and the checks."""
 
 from .dryrun import dryrun_multichip
 from .halo import exchange_halo_x, make_sharded_min_filter_x, sharded_grid_spec

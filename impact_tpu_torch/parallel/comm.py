@@ -182,22 +182,29 @@ class Comm:
 
     def halo(self, send_left, send_right, axis: str = "space"):
         """The halo pair along a ring-less axis: each rank sends its first
-        plane to its left neighbour and its last to its right one, and
+        planes to its left neighbour and its last to its right one, and
         receives (from_left, from_right); an edge receives None on its open
-        side and sends nothing past it."""
+        side and sends nothing past it. A direction whose send is None (on
+        every rank of the axis) moves nothing: a None ``send_left`` leaves
+        ``from_right`` None, a None ``send_right`` ``from_left``."""
         group, me, n = self.groups[axis]
-        wl, wr = self._wire(send_left), self._wire(send_right)
-        from_left = torch.empty_like(wr) if me > 0 else None
-        from_right = torch.empty_like(wl) if me < n - 1 else None
+        wl = self._wire(send_left) if send_left is not None else None
+        wr = self._wire(send_right) if send_right is not None else None
+        from_left = torch.empty_like(wr) if me > 0 and wr is not None else None
+        from_right = torch.empty_like(wl) if me < n - 1 and wl is not None else None
         ops = []
         if me > 0:
             peer = self._global(axis, me - 1)
-            ops += [dist.P2POp(dist.isend, wl, peer, group),
-                    dist.P2POp(dist.irecv, from_left, peer, group)]
+            if wl is not None:
+                ops.append(dist.P2POp(dist.isend, wl, peer, group))
+            if from_left is not None:
+                ops.append(dist.P2POp(dist.irecv, from_left, peer, group))
         if me < n - 1:
             peer = self._global(axis, me + 1)
-            ops += [dist.P2POp(dist.isend, wr, peer, group),
-                    dist.P2POp(dist.irecv, from_right, peer, group)]
+            if wr is not None:
+                ops.append(dist.P2POp(dist.isend, wr, peer, group))
+            if from_right is not None:
+                ops.append(dist.P2POp(dist.irecv, from_right, peer, group))
         if ops:
             for req in dist.batch_isend_irecv(ops):
                 req.wait()

@@ -1,6 +1,7 @@
 """The multi-device dry run (port of ``__graft_entry__.py:65-140``): one full
-sharded engine step of two tumbling boxes on an (n, 1) mesh, then the halo
-exchange's min filter on an (n/2, 2) mesh, in ``n`` spawned ranks.
+sharded engine step of two tumbling boxes on an (n/2, 2) mesh (objects ×
+space; (n, 1) for odd n or n < 4), then the halo exchange's min filter on
+the same mesh, in ``n`` spawned ranks.
 
     python -m impact_tpu_torch.parallel.dryrun --ranks 8 --device cpu
     python -m impact_tpu_torch.parallel.dryrun --ranks 4 --backend gloo   # one card
@@ -34,7 +35,8 @@ def dryrun_multichip(n_devices: int, device="cuda", backend: str | None = None,
         raise AssertionError(f"dry run: {reports}")
     print(f"dryrun_multichip OK: {n_devices} ranks ({backend} on {device}), mesh "
           f"{dict(objects=r['mesh'][0], space=r['mesh'][1])} for one full engine step "
-          f"({r['step_s']:.1f} s), {dict(objects=r['halo_mesh'][0], space=r['halo_mesh'][1])} "
+          f"({r['step_s']:.1f} s, {r['step_halos']} halo transfers), "
+          f"{dict(objects=r['halo_mesh'][0], space=r['halo_mesh'][1])} "
           f"for the halo exchange ({r['halo_s']:.2f} s), total "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     return r

@@ -11,6 +11,7 @@ the parent checks as numpy arrays and plain values.
 
 from __future__ import annotations
 
+import contextlib
 import time
 
 import numpy as np
@@ -23,23 +24,27 @@ from ..models.bench import bench_chunked_config, bench_chunked_fill_scene
 from ..ops import ccl_pallas as k2
 from ..physics import scan_solver
 from ..render.pipeline import fp32_render
+from ..runtime import engine
 from ..runtime.checkpoint import load_checkpoint
 from ..runtime.setup import compile_scene
 from ..utils.config import EngineConfig
-from ..voxel import interaction
+from ..voxel import inertia, interaction
+from ..voxel.object import VoxelObjectPool
 from .halo import make_sharded_min_filter_x
 from .mesh import (
     OBJECTS_SPACE,
     gather_sim_state,
     gather_tensor,
+    grid_slab,
     leaves_with_path,
     make_device_mesh,
     shard_sim_state,
     shard_tensor,
 )
-from .step import make_sharded_engine_step
+from .step import make_sharded_engine_step, ordered_sum, slab_labels, slab_meshes_and_probes
 
 POD_OBJECTS = 1024  # tests/test_parallel.py:245's pool
+POD_SMALL_OBJECTS = 64  # the pod's config at a pool the CPU ranks step in seconds
 
 
 def small_config() -> EngineConfig:
@@ -99,7 +104,13 @@ def scene(name: str, n_objects_axis: int = 1):
       slots, so the object-gated carve runs;
     * ``rules``: a box under distance rules, removed a few steps in;
     * ``pod``: 6 boxes in 1024 slots of 16³, i8, jacobi, 4096 contact slots
-      (``tests/test_parallel.py:245``)."""
+      (``tests/test_parallel.py:245``);
+    * ``pod_small``: the same in 64 slots;
+    * any of them with ``_i8`` appended: with i8 SDF codes."""
+    if name.endswith("_i8"):
+        world, cfg = scene(name[:-3], n_objects_axis)
+        cfg.tpu.sdf_encoding = "i8"
+        return world, cfg
     if name == "tumbler":
         cfg = EngineConfig()
         cfg.tpu.max_voxel_objects = 8
@@ -138,10 +149,11 @@ def scene(name: str, n_objects_axis: int = 1):
         cfg.physics.simulator.initial_time_step_duration = 0.01
         cfg.physics.rigid_body_force.drag_load_map_config.directory = None
         return _rule_world(), cfg
-    if name == "pod":
+    if name in ("pod", "pod_small"):
+        n = POD_OBJECTS if name == "pod" else POD_SMALL_OBJECTS
         cfg = EngineConfig()
-        cfg.tpu.max_voxel_objects = POD_OBJECTS
-        cfg.tpu.max_bodies = POD_OBJECTS + 16
+        cfg.tpu.max_voxel_objects = n
+        cfg.tpu.max_bodies = n + 16
         cfg.tpu.max_contacts = 4096
         cfg.tpu.voxel_grid_size = 16
         cfg.tpu.sdf_encoding = "i8"
@@ -149,6 +161,33 @@ def scene(name: str, n_objects_axis: int = 1):
         cfg.physics.simulator.initial_time_step_duration = 0.01
         return _boxes(6), cfg
     raise KeyError(name)
+
+
+@contextlib.contextmanager
+def slab_ordered_inertia(n_slabs: int):
+    """The single-process engine's inertia summed per object slab by slab,
+    in slab order (``step.ordered_sum``), as a row of ``n_slabs`` ranks sums
+    it: the plain version of the sharded step's inertia, for holding a
+    space-sharded run against a single-process one."""
+    plain = engine.inertial_properties
+
+    def props(pool, type_density, x0=0, reduce=None):
+        gx = pool.grid_size // n_slabs
+        firsts = [inertia.first_moment_sums(
+            pool._replace(sdf=pool.sdf[:, s * gx:(s + 1) * gx].contiguous(),
+                          vtype=pool.vtype[:, s * gx:(s + 1) * gx].contiguous()),
+            type_density, s * gx) for s in range(n_slabs)]
+        first = ordered_sum(torch.stack([f[2] for f in firsts]))
+        com = inertia.center_of_mass(first)
+        second = ordered_sum(torch.stack([inertia.second_moment_sums(m, pos, com)
+                                          for m, pos, _ in firsts]))
+        return inertia.inertia_from_sums(first, second, pool.voxel_extent)
+
+    engine.inertial_properties = props
+    try:
+        yield
+    finally:
+        engine.inertial_properties = plain
 
 
 def state_arrays(sim) -> dict:
@@ -163,6 +202,12 @@ def state_arrays(sim) -> dict:
     return out
 
 
+def _barrier(mesh):
+    """Every rank of the mesh: each waits for its column, then its row."""
+    for axis in ("objects", "space"):
+        dist.barrier(group=mesh.comm.groups[axis][0])
+
+
 def _mesh(ctx, n_objects_axis: int, n_space_axis: int = 1):
     n = n_objects_axis * n_space_axis
     return make_device_mesh(n_objects_axis, n_space_axis, device=ctx.device,
@@ -175,20 +220,21 @@ def _sync(dev):
 
 
 def step_job(ctx, name: str, n_objects_axis: int, n_steps: int, checkpoint=None,
-             gather: bool = True, serial_build: bool = False, record_labels: bool = False):
+             gather: bool = True, serial_build: bool = False, record_labels: bool = False,
+             n_space_axis: int = 1):
     """Build scene ``name`` on every rank (one rank after another with
     ``serial_build``, to bound the host's peak), start from ``checkpoint``
-    if given, shard it over an (n_objects_axis, 1) mesh and take
-    ``n_steps`` sharded steps. Returns, per rank: the local leading dims of
-    the sharded leaves, the collectives of the steps, host staging, the
-    slots this rank received (objects that came alive here), the pairs of
-    voxel objects on different ranks with active contacts in any step (as
-    body slots),
-    step times, device peak memory over the step beyond the state (on the
-    card), the kernel launches of the steps, with ``record_labels`` every
-    occupancy grid the rank labelled, and, on rank 0 with ``gather``, the
-    whole state after the steps."""
-    mesh = _mesh(ctx, n_objects_axis)
+    if given, shard it over an (n_objects_axis, n_space_axis) mesh and take
+    ``n_steps`` sharded steps. Returns, per rank: the local dims of the
+    sharded leaves, the collectives of the steps, host staging, the bytes
+    of the events' grid moves, the slots this rank received (objects that
+    came alive here), the pairs of voxel objects on different rows with
+    active contacts in any step (as body slots), step times, device peak
+    memory over the step beyond the state (on the card), the kernel
+    launches of the steps, with ``record_labels`` every occupancy grid (or
+    slab) the rank labelled, and, on rank 0 with ``gather``, the whole
+    state after the steps."""
+    mesh = _mesh(ctx, n_objects_axis, n_space_axis)
     if mesh is None:
         return None
     dev = ctx.device
@@ -202,10 +248,11 @@ def step_job(ctx, name: str, n_objects_axis: int, n_steps: int, checkpoint=None,
         return shard_sim_state(mesh, sim), build.params, build.info
 
     if serial_build:  # the whole state exists on one rank at a time
-        for r in range(n_objects_axis):
-            if r == mesh.coordinate[0]:
+        flat = mesh.coordinate[0] * n_space_axis + mesh.coordinate[1]
+        for r in range(n_objects_axis * n_space_axis):
+            if r == flat:
                 local, params, info = build_local()
-            dist.barrier(group=mesh.comm.groups["objects"][0])
+            _barrier(mesh)
     else:
         local, params, info = build_local()
     step = make_sharded_engine_step(params, cfg, mesh, info["mesh_vert_cap"],
@@ -256,6 +303,7 @@ def step_job(ctx, name: str, n_objects_axis: int, n_steps: int, checkpoint=None,
         rank=ctx.rank, coordinate=mesh.coordinate, received=received,
         cross_pairs=sorted(cross), step_ms=step_ms, host_syncs=step.host_syncs,
         staged_bytes=comm.staged_bytes, records=records, state_bytes=state_bytes,
+        event_bytes=step.event_bytes,
         launches=launches, labelled=labelled,
         peak_extra_bytes=peak_extra,
         local_dims={p: tuple(t.shape) for p, t in leaves_with_path(local)
@@ -285,19 +333,29 @@ def halo_job(ctx, grid: np.ndarray, n_objects_axis: int, n_space_axis: int):
                 coordinate=mesh.coordinate, staged_bytes=mesh.comm.staged_bytes)
 
 
+def dryrun_mesh(n_devices: int) -> tuple:
+    """The dry run's mesh: (n/2, 2) for even n ≥ 4, as the reference's
+    (``__graft_entry__.py:92-99``), else (n, 1)."""
+    n_space = 2 if n_devices % 2 == 0 and n_devices >= 4 else 1
+    return n_devices // n_space, n_space
+
+
 def dryrun_job(ctx, n_devices: int):
     """The dry run on one rank (``__graft_entry__.py:65-140``): one full
-    sharded step of ``scene("dryrun")`` on an (n, 1) mesh, then the halo
-    min filter of the stepped grids on an (n/2, 2) mesh, held against the
-    plain 3-point min."""
+    sharded step of ``scene("dryrun")`` on the ``dryrun_mesh``, then the
+    halo min filter of the stepped grids on the same mesh, held against
+    the plain 3-point min."""
+    n_obj, n_space = dryrun_mesh(n_devices)
     t0 = time.perf_counter()
-    out = step_job(ctx, "dryrun", n_devices, 1)
+    out = step_job(ctx, "dryrun", n_obj, 1, n_space_axis=n_space)
+    if out is None:  # a rank outside the mesh
+        return None
     step_s = time.perf_counter() - t0
     sdf = torch.as_tensor(out.pop("state")["voxels/sdf"]) if ctx.rank == 0 else None
-    n_space = 2 if n_devices % 2 == 0 and n_devices >= 4 else 1
-    mesh = _mesh(ctx, n_devices // n_space, n_space)
+    mesh = _mesh(ctx, n_obj, n_space)
     shape = list(out["local_dims"]["voxels/sdf"])
-    shape[0] *= n_devices
+    shape[0] *= n_obj
+    shape[1] *= n_space
     grid = sdf.to(ctx.device) if sdf is not None else torch.empty(shape, device=ctx.device)
     grid = mesh.comm.broadcast(grid.float(), 0, "objects")
     if n_space > 1:
@@ -307,9 +365,49 @@ def dryrun_job(ctx, n_devices: int):
         shard_tensor(mesh, grid, OBJECTS_SPACE)), OBJECTS_SPACE)
     pad = torch.nn.functional.pad(grid, (0, 0, 0, 0, 1, 1), value=float("inf"))
     want = torch.minimum(torch.minimum(pad[:, :-2], pad[:, 1:-1]), pad[:, 2:])
+    halos = sum(r["op"] == "halo" for r in out["records"])
     return dict(step_s=step_s, halo_s=time.perf_counter() - t1, finite=out["finite"],
-                mesh=(n_devices, 1), halo_mesh=(n_devices // n_space, n_space),
-                halo_equal=bool(torch.equal(got, want)), records=len(out["records"]))
+                mesh=(n_obj, n_space), halo_mesh=(n_obj, n_space),
+                halo_equal=bool(torch.equal(got, want)), records=len(out["records"]),
+                step_halos=halos)
+
+
+def slab_labels_job(ctx, occ: np.ndarray, n_space_axis: int):
+    """The labels of bool grids ``occ`` [B,G,G,G] split into slabs on a
+    (1, n_space_axis) mesh (``step.slab_labels``): every rank's slab labels,
+    its labels launches (on the card) and halo records, and on the first
+    rank the gathered labels."""
+    mesh = _mesh(ctx, 1, n_space_axis)
+    if mesh is None:
+        return None
+    k2.LAUNCHES.reset()
+    local = shard_tensor(mesh, torch.as_tensor(occ, device=ctx.device), OBJECTS_SPACE)
+    lab = slab_labels(mesh, grid_slab(mesh, occ.shape[-1]), local)
+    whole = gather_tensor(mesh, lab, OBJECTS_SPACE)
+    return dict(labels=whole.cpu().numpy() if ctx.rank == 0 else None,
+                slab=local.cpu().numpy(), launches=dict(k2.LAUNCHES),
+                halos=[r._asdict() for r in mesh.comm.records if r.op == "halo"])
+
+
+def slab_mesh_job(ctx, pool: dict, response: np.ndarray, n_space_axis: int,
+                  merge_levels: int, vert_cap: int, tri_cap: int, material_table: np.ndarray):
+    """The meshes and probes of a pool (``pool``: VoxelObjectPool fields as
+    numpy arrays, whole grids) meshed slab by slab on a (1, n_space_axis)
+    mesh (``step.slab_meshes_and_probes``): every rank's result as numpy
+    arrays by field."""
+    mesh = _mesh(ctx, 1, n_space_axis)
+    if mesh is None:
+        return None
+    dev = ctx.device
+    whole = VoxelObjectPool(**{k: torch.as_tensor(v, device=dev) for k, v in pool.items()})
+    sub = whole._replace(sdf=shard_tensor(mesh, whole.sdf, OBJECTS_SPACE),
+                         vtype=shard_tensor(mesh, whole.vtype, OBJECTS_SPACE))
+    meshes, probes = slab_meshes_and_probes(
+        mesh, grid_slab(mesh, whole.grid_size), sub, torch.as_tensor(response, device=dev),
+        merge_levels, vert_cap, tri_cap, torch.as_tensor(material_table, device=dev))
+    out = {f"meshes/{k}": v.cpu().numpy() for k, v in meshes._asdict().items()}
+    out.update({f"probes/{k}": v.cpu().numpy() for k, v in probes._asdict().items()})
+    return out
 
 
 def mesh_job(ctx, grid: np.ndarray, n_objects_axis: int, n_space_axis: int):
@@ -328,9 +426,11 @@ def mesh_job(ctx, grid: np.ndarray, n_objects_axis: int, n_space_axis: int):
 
 def guards_job(ctx):
     """On 4 ranks: the ValueErrors of a pool that does not divide over the
-    objects axis (sharding it, and the sharded step), of a mesh with a
-    space axis, and of chunked mode."""
-    meshes = _mesh(ctx, 4), _mesh(ctx, 2, 2)  # every rank makes every mesh
+    objects axis (sharding it, and the sharded step), of slabs the step
+    cannot split along x (G not a multiple of the space axis, a slab not a
+    multiple of the probe block or of 2**mesh_merge_levels), and of chunked
+    mode. Each names what it refuses."""
+    meshes = _mesh(ctx, 4), _mesh(ctx, 1, 4)  # every rank makes every mesh
     if meshes[0] is None:
         return None
     world, cfg = scene("dryrun", 3)  # 6 slots
@@ -348,7 +448,11 @@ def guards_job(ctx):
     expect("step", lambda: make_sharded_engine_step(build.params, cfg, meshes[0], *caps))
     world, cfg = scene("dryrun", 2)  # 4 slots
     build = compile_scene(world, cfg, device=ctx.device)
-    expect("space", lambda: make_sharded_engine_step(build.params, cfg, meshes[1], *caps))
+    for name, g, levels in (("slab_divide", 18, 2), ("slab_probe", 24, 2),
+                            ("slab_merge", 16, 3)):
+        bad = scene("dryrun", 2)[1]
+        bad.tpu.voxel_grid_size, bad.tpu.mesh_merge_levels = g, levels
+        expect(name, lambda c=bad: make_sharded_engine_step(build.params, c, meshes[1], *caps))
     cfg.tpu.chunked_remesh = True
     expect("chunked", lambda: make_sharded_engine_step(build.params, cfg, meshes[0], *caps))
     return errors

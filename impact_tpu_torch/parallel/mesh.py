@@ -16,11 +16,13 @@ collective goes through the mesh's :class:`~.comm.Comm`.
 from __future__ import annotations
 
 import os
+from typing import NamedTuple
 
 import torch
 import torch.distributed as dist
 from torch.distributed.tensor import Replicate, Shard
 
+from ..voxel.collision import PROBE_BLOCK
 from .comm import Comm, resolve_backend
 
 AXES = ("objects", "space")
@@ -85,6 +87,43 @@ def make_device_mesh(n_objects_axis: int | None = None, n_space_axis: int = 1, d
     if tm.get_coordinate() is None:
         return None
     return DeviceMesh(tm, dev, chosen)
+
+
+class Slab(NamedTuple):
+    """This rank's slab of the voxel grids' x axis: planes [x0, x0+gx) of
+    G, the ``index``-th of ``count`` along the mesh's ``space`` axis."""
+
+    x0: int
+    gx: int
+    g: int
+    index: int
+    count: int
+
+
+def check_slab_constraints(g: int, n_space: int, merge_levels: int):
+    """Raise ValueError unless G³ grids split into ``n_space`` slabs along
+    x that the sharded step can mesh and probe on their own: G a multiple
+    of the axis, each slab a multiple of the probe block (4³ probe blocks
+    stay inside a slab) and of 2^merge_levels (merged quad blocks stay
+    inside a slab). GSPMD splits any shape; the port does not (ROADMAP.md,
+    Queue 3)."""
+    if g % n_space:
+        raise ValueError(f"slab constraint: G = {g} does not divide over a space axis of "
+                         f"{n_space}")
+    gx = g // n_space
+    if gx % PROBE_BLOCK:
+        raise ValueError(f"slab constraint: a slab of {gx} x planes is not a multiple of the "
+                         f"probe block ({PROBE_BLOCK})")
+    if gx % (1 << merge_levels):
+        raise ValueError(f"slab constraint: a slab of {gx} x planes is not a multiple of "
+                         f"2**mesh_merge_levels ({1 << merge_levels})")
+
+
+def grid_slab(mesh: DeviceMesh, g: int) -> Slab:
+    """This rank's slab of G³ grids, from its ``space`` coordinate."""
+    n = mesh.size("space")
+    i = mesh.comm.coordinate("space")
+    return Slab(i * (g // n), g // n, g, i, n)
 
 
 # --- placements ---------------------------------------------------------------------

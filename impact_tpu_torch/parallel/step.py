@@ -27,9 +27,32 @@ and the fracture generator are replicated. Per step:
   dirty objects and re-mesh them; the rows are gathered and applied in
   slot order on every rank.
 
-A step without an event moves no grid between ranks. Only the ``objects``
-axis is sharded through the step: a mesh with a ``space`` axis larger than
-1, and chunked mode, raise (ROADMAP.md, Queue 1).
+With a ``space`` axis, the voxel grids are also split along x: each rank
+of an objects-axis row holds its slab [O/n_o, G/n_s, G, G] of the row's
+objects (``mesh.Slab``), every other object-axis leaf whole for the row.
+The stencils read their neighbour planes through the halo exchange, and
+the per-object results are combined over the row:
+
+* the pair samples of the voxel contacts: each slab samples those whose
+  lower corner plane it holds (the right halo plane completes the cells),
+  and one exact sum over the row gives every rank the whole sample set;
+* absorption carves each slab; ``mesh_dirty``/``split_pending`` are OR-ed
+  over the row;
+* the inertia sync sums the slabs' partial sums over the row (in another
+  order than one sum over the grid: bodies agree to rounding);
+* the remesh meshes each slab with two right halo planes and combines the
+  slabs' compacted pieces into the whole mesh (``compact_mesh_slab``); the
+  probes take the occupancy halo and are gathered over the row;
+* a split candidate is labelled slab by slab through the labels kernel and
+  the face label pairs are resolved over the row
+  (``connected_component_labels_slab``);
+* an event gathers the source's slabs over its row: the one grid-sized
+  move, only on an event (``step.event_bytes``); each rank keeps the slabs
+  of its own slots.
+
+A step without an event moves no grid between ranks and no slab: only
+planes, pieces of meshes and per-object vectors. Chunked mode raises
+(ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
@@ -54,18 +77,22 @@ from ..runtime.engine import (
     step_plan,
     voxel_body_rows,
 )
+from ..runtime.engine import MeshSlab
 from ..voxel.collision import VoxelProbes, extract_probes, merge_contact_buffers, stable_topk, \
     voxel_contacts
+from ..voxel.encoding import far_value
 from ..voxel.interaction import (
     _absorber_overlap_mask,
     _apply_absorption_dense,
     connected_component_labels,
+    connected_component_labels_slab,
     fracture_object,
     split_off_disconnected_regions,
 )
 from ..voxel.mesh import CompactMesh
 from ..voxel.object import VoxelObjectPool, occupancy
-from .mesh import DeviceMesh
+from .halo import exchange_halo_x
+from .mesh import DeviceMesh, check_slab_constraints, grid_slab
 
 # the per-object vectors every rank holds whole during a step
 VECTOR_FIELDS = ("alive", "body_index", "voxel_extent", "origin", "mesh_dirty", "split_pending",
@@ -103,6 +130,61 @@ def broadcast_tree(comm, tree, src: int, axis: str = "objects"):
     return fill(tree)
 
 
+def ordered_sum(parts):
+    """``parts`` [S, ...] summed in order: ((p0 + p1) + p2) + ..."""
+    out = parts[0]
+    for p in parts[1:]:
+        out = out + p
+    return out
+
+
+# --- the row: the ranks along ``space`` that hold the slabs of the same objects ----
+
+
+def row_gather(mesh: DeviceMesh, t):
+    """[S, ...]: the row's ``t`` in slab order."""
+    return mesh.comm.all_gather(t, "space").reshape(mesh.size("space"), *t.shape)
+
+
+def row_combine(mesh: DeviceMesh, t):
+    """The row's ``t`` of which at most one is not 0 in each element, summed
+    as i32 words: exactly that one (−0.0 and NaNs included)."""
+    words = t.contiguous().view(torch.int32) if t.dtype == torch.float32 else t
+    out = mesh.comm.all_reduce(words.reshape(-1), "space").reshape(words.shape)
+    return out.view(torch.float32) if t.dtype == torch.float32 else out
+
+
+def slab_labels(mesh: DeviceMesh, slab, occ):
+    """The whole grids' labels of this rank's slabs ``occ`` [K,gx,G,G] of
+    the row's objects (``connected_component_labels_slab``)."""
+    return connected_component_labels_slab(
+        occ, slab.x0, lambda t: exchange_halo_x(t, mesh, fill=-1, left=1, right=0)[0],
+        lambda t: row_gather(mesh, t))
+
+
+def slab_meshes_and_probes(mesh: DeviceMesh, slab, sub: VoxelObjectPool, response,
+                           merge_levels: int, vert_cap: int, tri_cap: int, material_table):
+    """The whole meshes and probes of a sub-pool of this rank's slabs of the
+    row's objects, on every rank of the row: one halo exchange of sdf and
+    vtype planes (one left, two right) feeds both; the meshes combine the
+    slabs' compacted pieces (``compact_mesh_slab``), the probes are the
+    slabs' gathered side by side."""
+    far = far_value(sub.sdf.dtype, 1.0)
+    (l_sdf, _), (r_sdf, r_vt) = exchange_halo_x([sub.sdf, sub.vtype], mesh, fill=[far, 0],
+                                               left=1, right=2)
+    ms = MeshSlab(slab.x0, slab.index, slab.count, r_sdf, r_vt, lambda t: row_gather(mesh, t),
+                  lambda t: row_combine(mesh, t))
+    meshes = remesh_objects(sub, merge_levels, vert_cap, tri_cap, material_table, ms)
+    halo = tuple(occupancy(sub._replace(sdf=p)) for p in (l_sdf, r_sdf[:, :1]))
+    pr = extract_probes(sub, response, slab.x0, halo)
+    k = pr.active.shape[0]
+    got = mesh.comm.all_gather_rows([pr.active, pr.pos_local], "space")
+    whole = [t.reshape(slab.count, k, *t.shape[1:]).transpose(0, 1).reshape(k, -1, *t.shape[2:])
+             for t in got]
+    return meshes, VoxelProbes(whole[0], whole[1],
+                               response[:, None, :].expand(k, whole[0].shape[1], 3))
+
+
 def make_sharded_engine_step(params: EngineParams, config, mesh: DeviceMesh, mesh_vert_cap: int,
                              mesh_tri_cap: int, enable_voxel_contacts: bool = True,
                              enable_absorption: bool = True, enable_splitting: bool = True,
@@ -112,15 +194,15 @@ def make_sharded_engine_step(params: EngineParams, config, mesh: DeviceMesh, mes
     plus the mesh) over a state sharded as ``mesh.sim_state_shardings``:
     ``params`` whole on every rank, the state this rank's shard
     (``shard_sim_state``). Its gathered result equals the unsharded step's
-    (``gather_sim_state``). ``step.host_syncs`` counts the device reads of
-    its branches, one per decision as the unsharded step's."""
+    (``gather_sim_state``); with a ``space`` axis, bodies (and the grid
+    origins and probe positions, which follow the COM) to rounding.
+    ``step.host_syncs`` counts the device reads of its branches, one per
+    decision as the unsharded step's; ``step.event_bytes`` the bytes of
+    the events' grid moves."""
     tc = config.tpu
-    if mesh.size("space") > 1:
-        raise ValueError("the sharded engine step splits the objects axis only: the space axis "
-                         "through the step is ROADMAP.md Queue 1, item 1")
     if tc.chunked_remesh:
         raise ValueError("chunked mode (tpu.chunked_remesh) under sharding is ROADMAP.md "
-                         "Queue 1, item 2")
+                         "Queue 1, item 1")
     comm = mesh.comm
     n_ranks, me = mesh.size("objects"), comm.coordinate("objects")
     (dt, n_substeps, solver_cfg, max_contacts, o_max, remesh_budget, impact_cfg, n_seeds,
@@ -128,6 +210,12 @@ def make_sharded_engine_step(params: EngineParams, config, mesh: DeviceMesh, mes
         params, config, enable_absorption, enable_fracturing, fracture_uniforms)
     if o_max % n_ranks:
         raise ValueError(f"{o_max} object slots do not divide over {n_ranks} ranks")
+    g = tc.voxel_grid_size
+    split_x = mesh.size("space") > 1
+    if split_x:
+        check_slab_constraints(g, mesh.size("space"), tc.mesh_merge_levels)
+    slab = grid_slab(mesh, g)
+    x0, gx = slab.x0, slab.gx
     o_loc = o_max // n_ranks
     lo, hi = me * o_loc, (me + 1) * o_loc
     dev = mesh.device
@@ -139,6 +227,18 @@ def make_sharded_engine_step(params: EngineParams, config, mesh: DeviceMesh, mes
 
     def owner(slot: int) -> int:
         return slot // o_loc
+
+    def row_sum(t):
+        """The row's ``t`` summed in slab order, the same on every rank and
+        in every run."""
+        return ordered_sum(row_gather(mesh, t))
+
+    def row_any(t):
+        return comm.all_reduce(t.to(torch.uint8), "space", "max").bool()
+
+    def whole_x(t):
+        """The row's slabs [K,gx,...] side by side: [K,G,...]."""
+        return torch.cat(list(row_gather(mesh, t)), dim=1)
 
     def gathered(pool: VoxelObjectPool) -> VoxelObjectPool:
         """The step's view: the pool with its per-object vectors gathered
@@ -161,8 +261,8 @@ def make_sharded_engine_step(params: EngineParams, config, mesh: DeviceMesh, mes
                                 g.depth, g.response, max_contacts)
 
     def source_rows(view, slot: int, extra=()):
-        """Object ``slot``'s grids (and ``extra`` rows its owner computed),
-        broadcast from its owner."""
+        """Object ``slot``'s whole grids (and ``extra`` slab rows its owner
+        row computed), broadcast from its owner and gathered over the row."""
         src = owner(slot)
         if src == me:
             rows = [view.sdf[slot - lo:slot - lo + 1], view.vtype[slot - lo:slot - lo + 1],
@@ -171,13 +271,24 @@ def make_sharded_engine_step(params: EngineParams, config, mesh: DeviceMesh, mes
             g = view.sdf.shape[1:]
             rows = [torch.empty_like(view.sdf[:1]), torch.empty_like(view.vtype[:1]),
                     *(torch.empty((1, *g), dtype=torch.int32, device=dev) for _ in extra)]
-        return comm.broadcast_rows(rows, src)
+        rows = comm.broadcast_rows(rows, src)
+        step.event_bytes += sum(r.numel() * r.element_size() for r in rows) * (n_ranks > 1)
+        if split_x:
+            rows = [whole_x(r) for r in rows]
+            step.event_bytes += sum(r.numel() * r.element_size() for r in rows)
+        return rows
+
+    def embed(block):
+        """Slab rows [n,gx,G,G] at their x planes of zero [n,G,G,G] grids."""
+        if not split_x:
+            return block
+        return torch.nn.functional.pad(block, (0, 0, 0, 0, x0, g - x0 - gx))
 
     def event_pool(view, slots, sdf, vtype):
         """A pool of the event's rows: ``slots`` [n] (slot 0 the source, −1 =
-        none), with their vectors, the source's broadcast grids and this
-        rank's grids of its own slots (zeros for the others, whose rows only
-        their owners keep)."""
+        none), with their vectors, the source's whole grids and this rank's
+        slabs of its own slots at their planes (zeros elsewhere and for the
+        others' slots, whose rows only their owners keep)."""
         gslot = torch.clamp(slots, min=0)
         mine = (slots >= lo) & (slots < hi)
         li = torch.clamp(slots - lo, 0, o_loc - 1)
@@ -185,7 +296,7 @@ def make_sharded_engine_step(params: EngineParams, config, mesh: DeviceMesh, mes
         def grid(block, src):
             rows = torch.where(mine[:, None, None, None], block[li],
                                torch.zeros((), dtype=block.dtype, device=dev))
-            return torch.cat([src, rows[1:]])
+            return torch.cat([src, embed(rows[1:])])
 
         return view._replace(sdf=grid(view.sdf, sdf), vtype=grid(view.vtype, vtype),
                              **{f: getattr(view, f)[gslot] for f in VECTOR_FIELDS})
@@ -197,18 +308,19 @@ def make_sharded_engine_step(params: EngineParams, config, mesh: DeviceMesh, mes
 
     def write_rows(view, slots, rows: VoxelObjectPool):
         """The view with the event pool's ``rows`` written back: vectors at
-        every slot, grids at this rank's slots."""
+        every slot, grids (this rank's slabs) at this rank's slots."""
         dest = torch.where(slots >= 0, slots, o_max)
         mine = (slots >= lo) & (slots < hi)
         dest_l = torch.where(mine, slots - lo, o_loc)
-        return view._replace(sdf=_put_rows(view.sdf, dest_l, rows.sdf),
-                             vtype=_put_rows(view.vtype, dest_l, rows.vtype),
+        return view._replace(sdf=_put_rows(view.sdf, dest_l, rows.sdf[:, x0:x0 + gx]),
+                             vtype=_put_rows(view.vtype, dest_l, rows.vtype[:, x0:x0 + gx]),
                              **{f: _put_rows(getattr(view, f), dest, getattr(rows, f))
                                 for f in VECTOR_FIELDS})
 
     def absorption(phys, view):
-        """The object-gated (or dense) carve of this rank's objects; the
-        gate ranks the whole pool's overlapping objects."""
+        """The object-gated (or dense) carve of this rank's objects (its
+        slabs of them); the gate ranks the whole pool's overlapping
+        objects."""
         b, absorbers = phys.bodies, params.absorbers
         pool = local(view)
         if gate_cap < o_max:
@@ -217,12 +329,15 @@ def make_sharded_engine_step(params: EngineParams, config, mesh: DeviceMesh, mes
             sel = hit[order] & (order >= lo) & (order < hi)
             rows = torch.clamp(order - lo, 0, o_loc - 1)
             sub = _apply_absorption_dense(gather_objects(pool, rows), absorbers, b.position,
-                                          b.orientation)
+                                          b.orientation, x0)
             dest = torch.where(sel, rows, o_loc)
             pool = pool._replace(**{f: _put_rows(getattr(pool, f), dest, getattr(sub, f))
                                     for f in ("sdf", "mesh_dirty", "split_pending")})
         else:
-            pool = _apply_absorption_dense(pool, absorbers, b.position, b.orientation)
+            pool = _apply_absorption_dense(pool, absorbers, b.position, b.orientation, x0)
+        if split_x:
+            flags = row_any(torch.stack([pool.mesh_dirty, pool.split_pending]))
+            pool = pool._replace(mesh_dirty=flags[0], split_pending=flags[1])
         return gathered(pool)
 
     def maybe_fracture(phys, view, gen):
@@ -253,7 +368,7 @@ def make_sharded_engine_step(params: EngineParams, config, mesh: DeviceMesh, mes
     def maybe_split(phys, view):
         """Up to ``n_split_objs`` split candidates, ``n_split_regions``
         regions each (ref: extraction.rs:78); each candidate is labelled on
-        its owner."""
+        its owner row (slab by slab with a space axis)."""
         candidates = view.split_pending & view.alive
         cand_objs = stable_topk(candidates.to(torch.int32), n_split_objs)
         free_all = _free_slots(view.alive)
@@ -265,7 +380,11 @@ def make_sharded_engine_step(params: EngineParams, config, mesh: DeviceMesh, mes
         labels = {}
         if mine:
             objs = torch.tensor([cands[e] - lo for e in mine], device=dev)
-            lab = connected_component_labels(occupancy(local(view))[objs]).to(torch.int32)
+            occ = occupancy(local(view))[objs]
+            if split_x:
+                lab = slab_labels(mesh, slab, occ)
+            else:
+                lab = connected_component_labels(occ).to(torch.int32)
             labels = {e: lab[k:k + 1] for k, e in enumerate(mine)}
         for e in valid:
             obj = cand_objs[e]
@@ -279,6 +398,16 @@ def make_sharded_engine_step(params: EngineParams, config, mesh: DeviceMesh, mes
                                             new.alive & ~view.alive)
             view = new
         return phys, view
+
+    def remesh_and_probe(sub, idx_own):
+        """The meshes and probes of the own sub-pool ``sub``."""
+        resp = params.voxel_response[idx_own]
+        if split_x:
+            return slab_meshes_and_probes(mesh, slab, sub, resp, tc.mesh_merge_levels,
+                                          mesh_vert_cap, mesh_tri_cap, params.material_table)
+        return (remesh_objects(sub, tc.mesh_merge_levels, mesh_vert_cap, mesh_tri_cap,
+                               params.material_table),
+                extract_probes(sub, resp))
 
     def sync_dirty(phys, view, meshes, probes):
         """The inertia/COM sync, remesh and probe refresh of up to
@@ -296,7 +425,8 @@ def make_sharded_engine_step(params: EngineParams, config, mesh: DeviceMesh, mes
         mine = (idx >= lo) & (idx < hi)
         sub = gather_objects(local(view), torch.clamp(idx - lo, 0, o_loc - 1))
         rows, origin = voxel_body_rows(phys, sub, params.type_density,
-                                       torch.ones(k, dtype=torch.bool, device=dev))
+                                       torch.ones(k, dtype=torch.bool, device=dev),
+                                       x0, row_sum if split_x else None)
         bufs = [torch.where(mine.reshape((k,) + (1,) * (r.ndim - 1)), r,
                             torch.zeros((), dtype=r.dtype, device=dev)) for r in (*rows, origin)]
         got = comm.all_gather_rows(bufs)
@@ -311,10 +441,8 @@ def make_sharded_engine_step(params: EngineParams, config, mesh: DeviceMesh, mes
             jt = torch.tensor(own, device=dev)
             li = idx[jt] - lo
             sub = gather_objects(sub, jt)._replace(origin=origin[jt])
-            new_mesh = remesh_objects(sub, tc.mesh_merge_levels, mesh_vert_cap, mesh_tri_cap,
-                                      params.material_table)
+            new_mesh, new_probes = remesh_and_probe(sub, idx[jt])
             meshes = CompactMesh(*(_put(old, li, new) for old, new in zip(meshes, new_mesh)))
-            new_probes = extract_probes(sub, params.voxel_response[idx[jt]])
             probes = VoxelProbes(*(_put(old, li, new) for old, new in zip(probes, new_probes)))
         return phys, view, meshes, probes
 
@@ -328,16 +456,23 @@ def make_sharded_engine_step(params: EngineParams, config, mesh: DeviceMesh, mes
         if enable_voxel_contacts:
             probes_all = VoxelProbes(*comm.all_gather_rows(list(sim.probes)))
             collidables = params.phys_params.collidables
+            grid_slab_arg = None
+            if split_x:  # the cells' x+1 corners: the right halo plane, once a step
+                right = exchange_halo_x(view.sdf, mesh, fill=0, left=0, right=1)[1]
+                grid_slab_arg = (x0, right, lambda t: row_combine(mesh, t))
 
             def extra(bodies, contacts):
                 vc = voxel_contacts(view, probes_all, collidables, bodies.position,
-                                    bodies.orientation, max_contacts, shard=(lo, hi))
+                                    bodies.orientation, max_contacts, shard=(lo, hi),
+                                    slab=grid_slab_arg)
                 return merge_contact_buffers(contacts, merged_contacts(vc), max_contacts)
 
         phys = physics_step(phys, params.phys_params, dt, n_substeps, solver_cfg, max_contacts,
                             tc.solver_mode, extra)
         if dev.type == "cuda":
             phys = broadcast_tree(comm, phys, 0)
+            if split_x:
+                phys = broadcast_tree(comm, phys, 0, "space")
         if absorb:
             view = absorption(phys, view)
         if enable_fracturing:
@@ -350,4 +485,5 @@ def make_sharded_engine_step(params: EngineParams, config, mesh: DeviceMesh, mes
                         rng=sim.rng)
 
     step.host_syncs = 0
+    step.event_bytes = 0
     return step

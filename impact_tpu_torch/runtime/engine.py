@@ -62,7 +62,14 @@ from ..voxel.interaction import (
     fracture_object,
     split_off_disconnected_regions,
 )
-from ..voxel.mesh import CompactMesh, bake_mesh_materials, compact_mesh, surface_nets
+from ..voxel.mesh import (
+    CompactMesh,
+    bake_mesh_materials,
+    compact_mesh,
+    compact_mesh_slab,
+    surface_nets,
+    surface_nets_blocks,
+)
 from ..voxel.object import VoxelObjectPool, occupancy
 
 # objects meshed per batched Surface Nets call in the remesh sync (bounds
@@ -165,13 +172,15 @@ def _put(t, idx, rows):
 BODY_SYNC_FIELDS = ("kind", "mass", "inv_mass", "inertia_body", "inv_inertia_body", "position")
 
 
-def voxel_body_rows(phys: PhysicsState, pool: VoxelObjectPool, type_density, sync_mask):
+def voxel_body_rows(phys: PhysicsState, pool: VoxelObjectPool, type_density, sync_mask,
+                    x0: int = 0, reduce=None):
     """(the rows of BODY_SYNC_FIELDS of the objects' bodies, the objects'
     grid origins) after the sync of the masked objects: mass and inertia
     from the grids, each body origin at its object's COM (the position
     shifts by R·Δcom and the grid origin compensates; ref:
-    object/inertia.rs property transfer)."""
-    mass, com, inertia = inertial_properties(pool, type_density)
+    object/inertia.rs property transfer). A pool of slabs sums its
+    inertia over the slabs with ``reduce`` (``inertial_properties``)."""
+    mass, com, inertia = inertial_properties(pool, type_density, x0, reduce)
     b = phys.bodies
     bidx = pool.body_index
     sm = sync_mask & pool.alive & (mass > 1e-9)
@@ -269,16 +278,46 @@ def impact_point_local(phys: PhysicsState, contact, body):
                                phys.solver_cache.position[contact] - b.position[body])
 
 
+class MeshSlab(NamedTuple):
+    """A sub-pool of slabs to mesh as whole grids (``remesh_objects``):
+    the slab's first x plane, its place among ``count`` slabs, the two x
+    planes right of it (sdf and vtype, [K,2,G,G]; unread at the last slab),
+    and the slabs' ``gather`` and ``combine`` (``compact_mesh_slab``)."""
+
+    x0: int
+    index: int
+    count: int
+    right_sdf: torch.Tensor
+    right_vtype: torch.Tensor
+    gather: object
+    combine: object
+
+
 def remesh_objects(sub: VoxelObjectPool, merge_levels: int, vert_cap: int, tri_cap: int,
-                   material_table) -> CompactMesh:
+                   material_table, slab: MeshSlab | None = None) -> CompactMesh:
     """Surface Nets + compaction + material bake of a gathered sub-pool, in
-    batches of REMESH_CHUNK objects."""
+    batches of REMESH_CHUNK objects. With ``slab``, the sub-pool holds
+    slabs and every slab of its objects gets the objects' whole meshes: it
+    meshes its cells and the quads whose lower cell it holds (reading the
+    right planes) and the slabs' compacted pieces are combined
+    (``compact_mesh_slab``)."""
     world = sdf_world(sub.sdf, sub.voxel_extent)
+    vtype = sub.vtype
+    if slab is not None and slab.index < slab.count - 1:
+        ext = sub.voxel_extent
+        world = torch.cat([world, sdf_world(slab.right_sdf, ext)], dim=1)
+        vtype = torch.cat([vtype, slab.right_vtype], dim=1)
     parts = []
     for lo in range(0, world.shape[0], REMESH_CHUNK):
-        full = surface_nets(world[lo:lo + REMESH_CHUNK], sub.vtype[lo:lo + REMESH_CHUNK],
-                            merge_levels)
-        parts.append(bake_mesh_materials(compact_mesh(full, vert_cap, tri_cap), material_table))
+        sdf_b, vt_b = world[lo:lo + REMESH_CHUNK], vtype[lo:lo + REMESH_CHUNK]
+        if slab is None:
+            mesh = compact_mesh(surface_nets(sdf_b, vt_b, merge_levels), vert_cap, tri_cap)
+        else:
+            verts, blocks = surface_nets_blocks(sdf_b, vt_b, merge_levels, slab.x0)
+            n_own = sub.sdf.shape[1] - (1 if slab.index == slab.count - 1 else 0)
+            mesh = compact_mesh_slab(verts, blocks, n_own, slab.index, vert_cap, tri_cap,
+                                     slab.gather, slab.combine)
+        parts.append(bake_mesh_materials(mesh, material_table))
     return CompactMesh(*(torch.cat(f) for f in zip(*parts)))
 
 

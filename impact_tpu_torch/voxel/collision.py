@@ -42,30 +42,39 @@ class VoxelProbes(NamedTuple):
     response: torch.Tensor  # f32[O,P,3] per-object contact response
 
 
-def _blocks(x, o, b):
-    """[O,G,G,G,...] → [O,B,B,B,64,...] (4³ blocks, voxel-major inside)."""
+def _blocks(x, o, b, bx=None):
+    """[O,G,G,G,...] → [O,B,B,B,64,...] (4³ blocks, voxel-major inside); a
+    slab [O,gx,G,G,...] → [O,bx,B,B,64,...]."""
+    bx = b if bx is None else bx
     tail = x.shape[4:]
-    x = x.reshape(o, b, PROBE_BLOCK, b, PROBE_BLOCK, b, PROBE_BLOCK, *tail)
+    x = x.reshape(o, bx, PROBE_BLOCK, b, PROBE_BLOCK, b, PROBE_BLOCK, *tail)
     perm = (0, 1, 3, 5, 2, 4, 6) + tuple(range(7, 7 + len(tail)))
-    return x.permute(perm).reshape(o, b, b, b, PROBE_BLOCK ** 3, *tail)
+    return x.permute(perm).reshape(o, bx, b, b, PROBE_BLOCK ** 3, *tail)
 
 
-def extract_probes(pool: VoxelObjectPool, response_params) -> VoxelProbes:
+def extract_probes(pool: VoxelObjectPool, response_params, x0: int = 0,
+                   halo=None) -> VoxelProbes:
     """One probe per 4³ block: the surface voxel with the fewest occupied
     face neighbours (corners beat face centres), ties broken by |sdf| and
-    then by the lowest index in the block."""
+    then by the lowest index in the block.
+
+    On a pool of slabs [O,gx,G,G] (x planes [x0, x0+gx), gx a multiple of
+    4) the probes of the slab's blocks, [O, gx/4·(G/4)², ...]: x-major, so
+    the slabs' probes side by side are the whole grid's. ``halo``: the
+    occupancy planes just left and right of the slab (``adjacency_masks``)."""
     o, g = pool.n_objects, pool.grid_size
     b = g // PROBE_BLOCK
+    bx = pool.sdf.shape[-3] // PROBE_BLOCK
     occ = occupancy(pool)
-    adj = adjacency_masks(occ)
+    adj = adjacency_masks(occ, halo)
     n_neighbors = sum(a.to(torch.int32) for a in adj.values()).to(torch.float32)
-    score = torch.where(surface_mask(occ), n_neighbors * 10.0 + pool.sdf.to(torch.float32).abs(),
-                        float("inf"))
-    score_b = _blocks(score, o, b)
+    score = torch.where(surface_mask(occ, halo),
+                        n_neighbors * 10.0 + pool.sdf.to(torch.float32).abs(), float("inf"))
+    score_b = _blocks(score, o, b, bx)
     best_score, best = torch.min(score_b, dim=-1)
-    pos_b = _blocks(voxel_positions_local(pool), o, b)
-    probe_pos = torch.gather(pos_b, -2, best[..., None, None].expand(o, b, b, b, 1, 3))[..., 0, :]
-    p = b * b * b
+    pos_b = _blocks(voxel_positions_local(pool, x0), o, b, bx)
+    probe_pos = torch.gather(pos_b, -2, best[..., None, None].expand(o, bx, b, b, 1, 3))[..., 0, :]
+    p = bx * b * b
     return VoxelProbes(
         active=(torch.isfinite(best_score) & pool.alive[:, None, None, None]).reshape(o, p),
         pos_local=probe_pos.reshape(o, p, 3),
@@ -75,12 +84,14 @@ def extract_probes(pool: VoxelObjectPool, response_params) -> VoxelProbes:
 
 def pack_cell_corners_i8(sdf_i8):
     """[..., G,G,G] i8 → [..., (G-1)³, 2] i32 packed cell-corner words:
-    word0 holds corners (dx,dy,0) at byte dx+2·dy, word1 corners (dx,dy,1)."""
-    g = sdf_i8.shape[-1]
+    word0 holds corners (dx,dy,0) at byte dx+2·dy, word1 corners (dx,dy,1).
+    Any [..., X,Y,Z] → [..., (X-1)(Y-1)(Z-1), 2] (a slab with its right halo
+    plane gives its own cells)."""
+    nx, ny, nz = sdf_i8.shape[-3:]
     u = sdf_i8.view(torch.uint8).to(torch.int64)
 
     def corner(dx, dy, dz):
-        return u[..., dx:g - 1 + dx, dy:g - 1 + dy, dz:g - 1 + dz]
+        return u[..., dx:nx - 1 + dx, dy:ny - 1 + dy, dz:nz - 1 + dz]
 
     def word(dz):
         w = (corner(0, 0, dz) | (corner(1, 0, dz) << 8) | (corner(0, 1, dz) << 16)
@@ -88,7 +99,7 @@ def pack_cell_corners_i8(sdf_i8):
         return torch.where(w >= 1 << 31, w - (1 << 32), w).to(torch.int32)
 
     w = torch.stack([word(0), word(1)], dim=-1)
-    return w.reshape(*sdf_i8.shape[:-3], (g - 1) ** 3, 2)
+    return w.reshape(*sdf_i8.shape[:-3], (nx - 1) * (ny - 1) * (nz - 1), 2)
 
 
 def unpack_byte_i8(word, k: int):
@@ -118,17 +129,21 @@ def _trilinear_from_corners(c000, c100, c010, c110, c001, c101, c011, c111, f):
     return value, grad
 
 
-def sample_packed_sdf_pairs(packed_flat, obj_idx, pts_grid, g: int):
+def sample_packed_sdf_pairs(packed_flat, obj_idx, pts_grid, g: int, x0: int = 0,
+                            gx: int | None = None):
     """(value, unit gradient) of the trilinear interpolant from packed corner
     words. ``packed_flat`` [O·(G-1)³, 2] i32, ``obj_idx`` [...] object per
     sample, ``pts_grid`` [...,3] grid-space points. Cell starts clamp to
-    [0, G-2]."""
-    c3 = (g - 1) ** 3
+    [0, G-2]. With ``gx``: the words of slabs' cells [x0, x0+gx) ×
+    [0, G-1)², [O·gx·(G-1)², 2]; samples whose cell lies outside read a
+    clamped cell (``sample_cell_x`` says which are the slab's)."""
     q = pts_grid - 0.5
     q0f = torch.floor(q)
     f = q - q0f
     cell = torch.clamp(q0f.to(torch.int64), 0, g - 2)
-    flat = obj_idx * c3 + (cell[..., 0] * (g - 1) + cell[..., 1]) * (g - 1) + cell[..., 2]
+    nx = g - 1 if gx is None else gx
+    cx = cell[..., 0] if gx is None else torch.clamp(cell[..., 0] - x0, 0, gx - 1)
+    flat = obj_idx * (nx * (g - 1) ** 2) + (cx * (g - 1) + cell[..., 1]) * (g - 1) + cell[..., 2]
     w = packed_flat[flat]
     w0, w1 = w[..., 0], w[..., 1]
     return _trilinear_from_corners(
@@ -137,23 +152,35 @@ def sample_packed_sdf_pairs(packed_flat, obj_idx, pts_grid, g: int):
         unpack_byte_i8(w1, 2), unpack_byte_i8(w1, 3), f)
 
 
-def sample_sdf_trilinear_with_gradient(sdf, obj_idx, pts_grid):
+def sample_sdf_trilinear_with_gradient(sdf, obj_idx, pts_grid, x0: int = 0):
     """(value, unit gradient) of the trilinear interpolant of f32 grids
-    ``sdf`` [O,G,G,G] at grid-space points of object ``obj_idx``."""
+    ``sdf`` [O,G,G,G] at grid-space points of object ``obj_idx``. With
+    ``x0``: ``sdf`` holds slabs with their right halo plane, x planes
+    [x0, x0+gx] of [O,G,G,G] grids; samples whose lower corner plane
+    lies outside the slab read clamped planes (``sample_cell_x``)."""
     g = sdf.shape[-1]
+    nx = sdf.shape[-3]
     q = pts_grid - 0.5
     q0f = torch.floor(q)
     f = q - q0f
     q0 = q0f.to(torch.int64)
 
     def at(dx, dy, dz):
-        i = torch.clamp(q0[..., 0] + dx, 0, g - 1)
+        i = torch.clamp(torch.clamp(q0[..., 0] + dx, 0, g - 1) - x0, 0, nx - 1)
         j = torch.clamp(q0[..., 1] + dy, 0, g - 1)
         k = torch.clamp(q0[..., 2] + dz, 0, g - 1)
         return sdf[obj_idx, i, j, k].to(torch.float32)
 
     return _trilinear_from_corners(at(0, 0, 0), at(1, 0, 0), at(0, 1, 0), at(1, 1, 0),
                                    at(0, 0, 1), at(1, 0, 1), at(0, 1, 1), at(1, 1, 1), f)
+
+
+def sample_cell_x(pts_grid, g: int, encoded: bool):
+    """The x plane of each sample's lower corners, as the samplers clamp it:
+    [0, G-2] for packed words, [0, G-1] for f32 grids. A sample belongs to
+    the slab that holds that plane."""
+    q0 = torch.floor(pts_grid[..., 0] - 0.5).to(torch.int64)
+    return torch.clamp(q0, 0, g - 2 if encoded else g - 1)
 
 
 def bounding_radii(pool: VoxelObjectPool):
@@ -315,8 +342,8 @@ def separating_contacts_for_interlocked(pos, normal, depth, active, com_a, com_b
 
 def voxel_contacts(pool: VoxelObjectPool, probes: VoxelProbes, collidables: CollidablePools,
                    body_position, body_orientation, max_contacts: int,
-                   max_pairs: int | None = None, shard: tuple[int, int] | None = None
-                   ) -> ContactBuffer:
+                   max_pairs: int | None = None, shard: tuple[int, int] | None = None,
+                   slab: tuple | None = None) -> ContactBuffer:
     """Probe contacts against planes, spheres and the broad-phase pairs of
     voxel objects → a compacted ContactBuffer with keys ≥ VOXEL_KEY_BASE.
 
@@ -325,7 +352,15 @@ def voxel_contacts(pool: VoxelObjectPool, probes: VoxelProbes, collidables: Coll
     contacts of those slots are emitted: their plane and sphere contacts,
     and the pairs whose sampled object B is one of them. Every value is
     computed as on the whole pool, so the shards' buffers merged by key
-    equal the whole pool's."""
+    equal the whole pool's.
+
+    ``slab=(x0, right, reduce)``: the grids are slabs [.., gx, G, G] of x
+    planes [x0, x0+gx), ``right`` their right halo planes [.., 1, G, G] and
+    ``reduce`` sums a tensor over the object's slabs. Each slab samples the
+    pair samples whose lower corner plane it holds and leaves the others
+    0; the one sum then gives every slab the whole sample set, equal to
+    the whole grids' bit for bit (one term of each sum is not 0), so the
+    interlock test and the emitted buffer are the whole pool's."""
     o, p = probes.active.shape
     dev = probes.active.device
     if max_pairs is None:
@@ -390,9 +425,14 @@ def voxel_contacts(pool: VoxelObjectPool, probes: VoxelProbes, collidables: Coll
     q_inv = quat.conjugate(q_b)
     encoded = is_encoded(pool.sdf)
     g = pool.grid_size
+    x0, gx = 0, None
+    grids = pool.sdf
+    if slab is not None:
+        x0, gx = slab[0], pool.sdf.shape[-3]
+        grids = torch.cat([pool.sdf, slab[1]], dim=-3)
     if encoded:
         sdf_unit = pool.voxel_extent * QUANTIZATION_STEP_SIZE
-        packed_flat = pack_cell_corners_i8(pool.sdf).reshape(-1, 2)  # the shard's grids
+        packed_flat = pack_cell_corners_i8(grids).reshape(-1, 2)  # the shard's grids
     else:
         sdf_unit = torch.ones_like(pool.voxel_extent)
 
@@ -424,9 +464,15 @@ def voxel_contacts(pool: VoxelObjectPool, probes: VoxelProbes, collidables: Coll
         # are not emitted
         obj_b = torch.clamp(obj_b - shard[0], 0, shard[1] - shard[0] - 1)
     if encoded:
-        d_ab, g_local = sample_packed_sdf_pairs(packed_flat, obj_b, pts, g)
+        d_ab, g_local = sample_packed_sdf_pairs(packed_flat, obj_b, pts, g, x0, gx)
     else:
-        d_ab, g_local = sample_sdf_trilinear_with_gradient(pool.sdf, obj_b, pts)
+        d_ab, g_local = sample_sdf_trilinear_with_gradient(grids, obj_b, pts, x0)
+    if slab is not None:
+        cx = sample_cell_x(pts, g, encoded)
+        here = (cx >= x0) & (cx < x0 + gx)
+        vals = torch.where(here[..., None], torch.cat([d_ab[..., None], g_local], dim=-1), 0.0)
+        d_ab, g_local = slab[2](vals).split([1, 3], dim=-1)
+        d_ab = d_ab[..., 0]
     d_ab = d_ab * sdf_unit[pair_b][:, None]
     n_ab = quat.rotate(q_b[pair_b][:, None, :], g_local)
     dep = 0.5 * pool.voxel_extent[pair_a][:, None] - d_ab

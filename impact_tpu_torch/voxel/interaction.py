@@ -112,11 +112,13 @@ def _absorber_overlap_mask(pool: VoxelObjectPool, absorbers: AbsorberPools, body
 
 
 def _apply_absorption_dense(pool: VoxelObjectPool, absorbers: AbsorberPools, body_position,
-                            body_orientation) -> VoxelObjectPool:
-    """Per-voxel absorption over every object of the (sub-)pool."""
+                            body_orientation, x0: int = 0) -> VoxelObjectPool:
+    """Per-voxel absorption over every object of the (sub-)pool; on a pool of
+    slabs [O,gx,G,G] (x planes [x0, x0+gx)), of the slabs (``mesh_dirty``
+    and ``split_pending`` then mark the objects whose slab changed)."""
     bi = pool.body_index
     pos_world = (quat.rotate(body_orientation[bi][:, None, None, None, :],
-                             voxel_positions_local(pool))
+                             voxel_positions_local(pool, x0))
                  + body_position[bi][:, None, None, None, :])
     d_abs = _absorber_sdf_at(absorbers, body_position, body_orientation, pos_world)
     if is_encoded(pool.sdf):
@@ -329,6 +331,52 @@ def connected_component_labels_two_level(occ):
             break
     final = torch.gather(table.reshape(nb, n + 1), 1, labels.flatten(1).long())
     return torch.where(occ, final.reshape(nb, g, g, g), -1)
+
+
+def connected_component_labels_slab(occ, x0: int, left_plane, gather):
+    """The whole grids' labels (``connected_component_labels``) of slabs
+    ``occ`` [B,gx,G,G] of x planes [x0, x0+gx), every slab of the grids
+    calling this with its own. ``left_plane(t)``: the left neighbour's last
+    x plane of ``t`` [B,gx,G,G] ([B,1,G,G], −1 at the first slab);
+    ``gather(t)``: [S,...] the slabs' ``t`` in slab order.
+
+    Each slab labels its voxels with the labels kernel (the slab's own
+    linear index, offset by x0·G² into the grid's: the layout is x-major),
+    takes the label pairs of occupied neighbours across its left face (at
+    most G² a face), and every slab resolves the gathered pairs with the
+    same pointer-jumped min table over the labels they name; each label
+    then becomes the minimum of its set, the minimum linear index of its
+    component in the grid."""
+    nb, _, g, _ = occ.shape
+    n = g ** 3
+    local = connected_component_labels_batched(occ.contiguous())
+    lab = torch.where(local >= 0, local + x0 * g * g, -1)
+    left = left_plane(lab)[:, 0].reshape(nb, -1)
+    first = lab[:, 0].reshape(nb, -1)
+    both = (left >= 0) & (first >= 0)
+    pairs = torch.stack([torch.where(both, left, -1), torch.where(both, first, -1)], dim=-1)
+    pairs = gather(pairs).transpose(0, 1).reshape(nb, -1, 2)  # [B, S·G², 2]
+    off = (torch.arange(nb, device=occ.device, dtype=torch.int64) * n)[:, None]
+    ok = pairs[..., 0] >= 0
+    pa = (pairs[..., 0].long() + off)[ok]
+    pb = (pairs[..., 1].long() + off)[ok]
+    if pa.numel() == 0:
+        return lab
+    nodes, inv = torch.unique(torch.cat([pa, pb]), return_inverse=True)
+    ia, ib = inv[:pa.numel()], inv[pa.numel():]
+    parent = torch.arange(nodes.numel(), device=occ.device)
+    while True:  # nodes sort as their labels, so the least index is the least label
+        m = torch.minimum(parent[ia], parent[ib])
+        new = parent.scatter_reduce(0, ia, m, "amin").scatter_reduce(0, ib, m, "amin")
+        new = new[new]  # pointer jumping
+        if torch.equal(new, parent):
+            break
+        parent = new
+    key = torch.where(lab >= 0, lab.long() + off[:, :, None, None], -1)
+    pos = torch.clamp(torch.searchsorted(nodes, key.flatten()), max=nodes.numel() - 1)
+    hit = (nodes[pos] == key.flatten()).reshape(key.shape)
+    root = (nodes[parent[pos]].reshape(key.shape) - off[:, :, None, None]).to(torch.int32)
+    return torch.where(hit, root, lab)
 
 
 def _set_row(t, i, value, cond):

@@ -11,6 +11,7 @@ order — and with it compaction order — is the same in both packages.
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
@@ -66,20 +67,44 @@ def surface_nets(sdf, vtype, merge_levels: int = 0) -> SurfaceNetsMesh:
         return SurfaceNetsMesh(*(f[0] for f in surface_nets(sdf[None], vtype[None],
                                                              merge_levels)))
     nb = sdf.shape[0]
+    verts, blocks = surface_nets_blocks(sdf, vtype, merge_levels)
+    return SurfaceNetsMesh(
+        **{k: v.reshape(nb, -1, *v.shape[4:]) for k, v in verts.items()},
+        tri_active=torch.cat([emit.reshape(nb, -1) for emit, _ in blocks], dim=1),
+        tri_indices=torch.cat([idx.reshape(nb, -1, 3) for _, idx in blocks], dim=1),
+    )
+
+
+def surface_nets_blocks(sdf, vtype, merge_levels: int = 0, x0: int = 0):
+    """The fields of ``surface_nets`` before flattening: (the vertex fields
+    of ``SurfaceNetsMesh`` per cell, [B,Cx,C,C,...], and the triangle
+    blocks in the mesh's order, a list of (active [B,X,Y,Z], cell-slot
+    indices [B,X,Y,Z,3]), each block a grid of sign-changing lattice edges
+    (or merged quads) in x-major order).
+
+    ``sdf`` [B,Nx,G,G] may be a slab: x planes [x0, x0+Nx) of a larger
+    grid. Vertex positions are then in the whole grid's units, cell slots
+    and block grids local: the edges of a block are those at x planes
+    [x0+1, x0+Nx-2] (each quad's cells x−1 and x inside the slab), and
+    with ``x0`` a multiple of 2^merge_levels its merged blocks are the
+    whole grid's."""
+    nb = sdf.shape[0]
     g = sdf.shape[-1]
     gc = g - 1
+    gcx = sdf.shape[-3] - 1
+    dims = (gcx, gc, gc)
     dev = sdf.device
 
     def cut(grid, off):
-        return grid[:, off[0]:off[0] + gc, off[1]:off[1] + gc, off[2]:off[2] + gc]
+        return grid[:, off[0]:off[0] + gcx, off[1]:off[1] + gc, off[2]:off[2] + gc]
 
     corners = torch.stack([cut(sdf, o) for o in _CORNER_OFFSETS], dim=-1)
     inside = corners < 0.0
     n_inside = inside.sum(dim=-1)
     cell_active = (n_inside > 0) & (n_inside < 8)
 
-    crossings_sum = torch.zeros((nb, gc, gc, gc, 3), dtype=torch.float32, device=dev)
-    crossings_cnt = torch.zeros((nb, gc, gc, gc), dtype=torch.float32, device=dev)
+    crossings_sum = torch.zeros((nb, *dims, 3), dtype=torch.float32, device=dev)
+    crossings_cnt = torch.zeros((nb, *dims), dtype=torch.float32, device=dev)
     offsets = _corner_offsets(dev)
     for (a, b) in _EDGES:
         da, db = corners[..., a], corners[..., b]
@@ -92,7 +117,8 @@ def surface_nets(sdf, vtype, merge_levels: int = 0) -> SurfaceNetsMesh:
         crossings_cnt = crossings_cnt + crossing
     centroid = crossings_sum / torch.clamp(crossings_cnt, min=1.0)[..., None]
     ar = torch.arange(gc, dtype=torch.float32, device=dev)
-    cell_ijk = torch.stack(torch.meshgrid(ar, ar, ar, indexing="ij"), dim=-1)
+    ar_x = torch.arange(x0, x0 + gcx, dtype=torch.float32, device=dev)
+    cell_ijk = torch.stack(torch.meshgrid(ar_x, ar, ar, indexing="ij"), dim=-1)
     vert_pos = cell_ijk + centroid + 0.5
 
     gx = (corners * _corner_sign(0, dev)).sum(dim=-1)
@@ -120,16 +146,15 @@ def surface_nets(sdf, vtype, merge_levels: int = 0) -> SurfaceNetsMesh:
     vert_blend = w2 / torch.clamp(w1 + w2, min=1e-9)
     vert_cweight = w_corner / torch.clamp(w_corner.sum(dim=-1, keepdim=True), min=1e-9)
 
-    c = gc * gc * gc
-    cell_linear = torch.arange(c, dtype=torch.int64, device=dev).reshape(1, gc, gc, gc)
-    cell_linear = cell_linear.expand(nb, gc, gc, gc)
+    c = gcx * gc * gc
+    cell_linear = torch.arange(c, dtype=torch.int64, device=dev).reshape(1, *dims)
+    cell_linear = cell_linear.expand(nb, *dims)
 
-    tris_idx = []
-    tris_act = []
+    blocks = []
     for axis in range(3):
-        d0 = sdf[:, 1:gc, 1:gc, 1:gc]
-        shifted = [slice(1, gc)] * 3
-        shifted[axis] = slice(2, gc + 1)
+        d0 = sdf[:, 1:gcx, 1:gc, 1:gc]
+        shifted = [slice(1, n) for n in dims]
+        shifted[axis] = slice(2, dims[axis] + 1)
         d1 = sdf[(slice(None), *shifted)]
         crossing = (d0 < 0.0) != (d1 < 0.0)
         flip = d0 < 0.0
@@ -144,7 +169,7 @@ def surface_nets(sdf, vtype, merge_levels: int = 0) -> SurfaceNetsMesh:
                 offs.append(off)
 
         def at(grid, off):
-            return grid[(slice(None), *(slice(1 + off[a], gc + off[a]) for a in range(3)))]
+            return grid[(slice(None), *(slice(1 + off[a], dims[a] + off[a]) for a in range(3)))]
 
         quad = {
             "emit": crossing,
@@ -195,23 +220,13 @@ def surface_nets(sdf, vtype, merge_levels: int = 0) -> SurfaceNetsMesh:
                 torch.stack([q["c00"], q["c10"], q["c11"]], dim=-1),
                 torch.stack([q["c00"], q["c11"], q["c10"]], dim=-1),
             )
-            tris_idx.append(t1.reshape(nb, -1, 3))
-            tris_idx.append(t2.reshape(nb, -1, 3))
-            tris_act.append(q["emit"].reshape(nb, -1))
-            tris_act.append(q["emit"].reshape(nb, -1))
+            blocks.append((q["emit"], t1))
+            blocks.append((q["emit"], t2))
 
-    return SurfaceNetsMesh(
-        vert_active=cell_active.reshape(nb, -1),
-        vert_pos=vert_pos.reshape(nb, -1, 3),
-        vert_normal=normal.reshape(nb, -1, 3),
-        vert_type=vert_type.reshape(nb, -1),
-        vert_type2=vert_type2.reshape(nb, -1),
-        vert_blend=vert_blend.reshape(nb, -1),
-        vert_ctype=corner_types.reshape(nb, -1, 8),
-        vert_cweight=vert_cweight.reshape(nb, -1, 8),
-        tri_active=torch.cat(tris_act, dim=1),
-        tri_indices=torch.cat(tris_idx, dim=1),
-    )
+    verts = dict(vert_active=cell_active, vert_pos=vert_pos, vert_normal=normal,
+                 vert_type=vert_type, vert_type2=vert_type2, vert_blend=vert_blend,
+                 vert_ctype=corner_types, vert_cweight=vert_cweight)
+    return verts, blocks
 
 
 def _merge_quads(child, axis_u, axis_v, eps: float = 1e-3):
@@ -389,4 +404,140 @@ def bake_mesh_materials(mesh, material_table):
         tri_f0=m[..., :, 3:6].reshape(lead_t + (9,)),
         tri_rough=m[..., :, 6],
         tri_emissive=m[..., :, 7:10].reshape(lead_t + (9,)),
+    )
+
+
+def _words(t):
+    """A 32-bit tensor [B,N,...] as i32 words [B,N,W] (bools as 0/1)."""
+    if t.dtype == torch.bool:
+        t = t.to(torch.int32)
+    elif t.dtype == torch.float32:
+        t = t.view(torch.int32)
+    return t.to(torch.int32).reshape(t.shape[0], t.shape[1], -1)
+
+
+def _place_rows(words, dest, n_rows: int):
+    """[B,N,W] words at rows ``dest`` [B,N] of a zero [B,n_rows,W] buffer;
+    a ``dest`` of ``n_rows`` is dropped."""
+    nb, _, w = words.shape
+    out = torch.zeros((nb, n_rows + 1, w), dtype=torch.int32, device=words.device)
+    out.scatter_(1, dest[..., None].expand(-1, -1, w), words)
+    return out[:, :n_rows]
+
+
+_VERT_WORDS = (("vert_active", torch.bool, ()), ("vert_pos", torch.float32, (3,)),
+               ("vert_normal", torch.float32, (3,)), ("vert_ctype", torch.int32, (8,)),
+               ("vert_cweight", torch.float32, (8,)), ("vert_type", torch.int32, ()),
+               ("vert_type2", torch.int32, ()), ("vert_blend", torch.float32, ()))
+
+
+def compact_mesh_slab(verts, blocks, n_own: int, index: int, vert_cap: int, tri_cap: int,
+                      gather, combine) -> CompactMesh:
+    """``compact_mesh`` of a grid meshed in slabs of x planes: every slab of
+    the grid calls this with its ``surface_nets_blocks`` (of the slab and the
+    two planes right of it, where it has a right neighbour), and each gets
+    the whole grid's CompactMesh, equal to ``compact_mesh(surface_nets(...))``
+    of the whole grid bit for bit.
+
+    ``n_own``: the slab's own cell planes (its cells past them are its right
+    neighbour's first plane); ``index``: the slab's place. ``gather(t)``:
+    [S,...] the slabs' ``t`` in slab order; ``combine(t)``: the sum of the
+    slabs' i32 ``t``, of which at most one is not 0 in each element. Each
+    slab numbers its vertices and triangles in the whole grid's order
+    (active first, then inactive, as the stable compaction sorts them) from
+    the slabs' counts, writes the rows it holds below the caps and leaves
+    the others 0; one sum of the capped rows then gives every slab the
+    whole buffer."""
+    nb = verts["vert_active"].shape[0]
+    plane = verts["vert_active"].shape[2] * verts["vert_active"].shape[3]
+    dev = verts["vert_active"].device
+    act = verts["vert_active"].reshape(nb, -1)
+    n_mine = n_own * plane
+    mine = act[:, :n_mine]
+    emits = [e.reshape(nb, -1) for e, _ in blocks]
+    k = len(emits)
+    local = torch.stack([mine.sum(1), torch.full((nb,), n_mine, device=dev)]
+                        + [e.sum(1) for e in emits]
+                        + [torch.full((nb,), e.shape[1], device=dev) for e in emits], dim=1)
+    counts = gather(local)  # [S, B, 2 + 2K]
+    before = counts[:index].sum(0)  # the slabs left of this one
+    whole = counts.sum(0)
+
+    # vertices: the whole grid's slot of each cell the slab sees
+    def slot(a, n_act_before, n_in_before, n_act_total):
+        rank_a = torch.cumsum(a.to(torch.int64), dim=1) - a.to(torch.int64)
+        rank_i = torch.cumsum((~a).to(torch.int64), dim=1) - (~a).to(torch.int64)
+        return torch.where(a, n_act_before[:, None] + rank_a,
+                           n_act_total[:, None] + n_in_before[:, None] + rank_i)
+
+    a_tot = whole[:, 0]
+    new_of_old = slot(mine, before[:, 0], before[:, 1] - before[:, 0], a_tot)
+    if act.shape[1] > n_mine:  # the right neighbour's first plane
+        nxt = counts[:index + 1].sum(0)
+        new_of_old = torch.cat([new_of_old, slot(act[:, n_mine:], nxt[:, 0],
+                                                 nxt[:, 1] - nxt[:, 0], a_tot)], dim=1)
+    n_cells = int(whole[0, 1])
+    v_rows = min(vert_cap, n_cells)
+    own_slot = new_of_old[:, :n_mine]
+    dest = torch.where(own_slot < v_rows, own_slot, v_rows)
+    fields = [verts[name].reshape(nb, -1, *shape)[:, :n_mine] for name, _, shape in _VERT_WORDS]
+    vwords = combine(_place_rows(torch.cat([_words(f) for f in fields], dim=2), dest, v_rows))
+    out, at = {}, 0
+    for name, dtype, shape in _VERT_WORDS:
+        w = math.prod(shape)
+        col = vwords[:, :, at:at + w].contiguous()
+        at += w
+        if dtype == torch.bool:
+            col = col != 0
+        elif dtype == torch.float32:
+            col = col.view(torch.float32)
+        out[name] = col.reshape(nb, v_rows, *shape)
+
+    # triangles: block by block, the slabs' parts of a block side by side
+    t_act_tot = whole[:, 2:2 + k].sum(1)
+    sizes, sizes_before = whole[:, 2 + k:], before[:, 2 + k:]
+    acts, acts_before = whole[:, 2:2 + k], before[:, 2:2 + k]
+    n_tris = int(sizes[0].sum())
+    t_rows = min(tri_cap, n_tris)
+    words, dests = [], []
+    for j, (e, (_, idx)) in enumerate(zip(emits, blocks)):
+        a_prev = acts[:, :j].sum(1) + acts_before[:, j]
+        i_prev = (sizes[:, :j] - acts[:, :j]).sum(1) + sizes_before[:, j] - acts_before[:, j]
+        t_slot = slot(e, a_prev, i_prev, t_act_tot)
+        dests.append(torch.where(t_slot < t_rows, t_slot, t_rows))
+        tidx = torch.gather(new_of_old, 1, idx.reshape(nb, -1)).reshape(nb, -1, 3)
+        words.append(torch.cat([e.to(torch.int32)[..., None], tidx.to(torch.int32)], dim=2))
+    twords = combine(_place_rows(torch.cat(words, dim=1), torch.cat(dests, dim=1), t_rows))
+    tact = twords[:, :, 0] != 0
+    tidx = twords[:, :, 1:].to(torch.int64)
+    tact = tact & torch.all(tidx < vert_cap, dim=-1)
+    tidx = torch.clamp(tidx, 0, vert_cap - 1)
+
+    vpos, vnrm = out["vert_pos"], out["vert_normal"]
+    flat = tidx.reshape(nb, -1)
+    n_t = tidx.shape[1]
+
+    def corners(vert_field):
+        return torch.gather(vert_field, 1, flat).reshape(nb, -1, 3)
+
+    z9 = torch.zeros((nb, n_t, 9), dtype=torch.float32, device=dev)
+    return CompactMesh(
+        vert_active=out["vert_active"],
+        vert_pos=vpos,
+        vert_normal=vnrm,
+        vert_ctype=out["vert_ctype"],
+        vert_cweight=out["vert_cweight"],
+        tri_active=tact,
+        tri_indices=tidx,
+        tri_pos=_take_rows(vpos, flat).reshape(nb, -1, 9),
+        tri_normal=_take_rows(vnrm, flat).reshape(nb, -1, 9),
+        tri_type=corners(out["vert_type"]),
+        tri_type2=corners(out["vert_type2"]),
+        tri_blend=corners(out["vert_blend"]),
+        tri_albedo=z9,
+        tri_f0=z9.clone(),
+        tri_rough=torch.zeros((nb, n_t, 3), dtype=torch.float32, device=dev),
+        tri_emissive=z9.clone(),
+        n_dropped_verts=a_tot - out["vert_active"].sum(dim=1),
+        n_dropped_tris=t_act_tot - tact.sum(dim=1),
     )

@@ -41,10 +41,12 @@ class VoxelObjectPool(NamedTuple):
         return self.sdf.shape[-1]
 
 
-def grid_coords(grid_size: int, device=None):
-    """Voxel centers in grid units: [G,G,G,3] of (i+0.5, j+0.5, k+0.5)."""
+def grid_coords(grid_size: int, device=None, x0: int = 0, gx: int | None = None):
+    """Voxel centers in grid units: [G,G,G,3] of (i+0.5, j+0.5, k+0.5); with
+    ``x0``/``gx`` only the slab of x planes [x0, x0+gx), [gx,G,G,3]."""
     r = torch.arange(grid_size, dtype=torch.float32, device=device) + 0.5
-    i, j, k = torch.meshgrid(r, r, r, indexing="ij")
+    rx = r if gx is None else r[x0:x0 + gx]
+    i, j, k = torch.meshgrid(rx, r, r, indexing="ij")
     return torch.stack([i, j, k], dim=-1)
 
 
@@ -102,27 +104,35 @@ def _shift(occ, axis: int, step: int):
     return torch.cat([pad, occ.narrow(axis, 0, n - 1)], dim=axis)
 
 
-def adjacency_masks(occ):
+def adjacency_masks(occ, halo=None):
     """Per-voxel face adjacency of [..., G,G,G] occupancy (ref: lib.rs
     VoxelFlags HAS_ADJACENT_*): ``{x,y,z}_{dn,up}`` is True where the
-    neighbour at −1 / +1 along that axis is occupied."""
+    neighbour at −1 / +1 along that axis is occupied. ``halo``: the
+    occupancy planes [..., 1, G, G] just left and right of a slab of x
+    planes (empty past the grid), read by the x neighbours of its faces."""
     out = {}
     for axis, name in ((-3, "x"), (-2, "y"), (-1, "z")):
         out[f"{name}_dn"] = _shift(occ, axis, -1)
         out[f"{name}_up"] = _shift(occ, axis, 1)
+    if halo is not None:
+        n = occ.shape[-3]
+        out["x_dn"] = torch.cat([halo[0], occ.narrow(-3, 0, n - 1)], dim=-3)
+        out["x_up"] = torch.cat([occ.narrow(-3, 1, n - 1), halo[1]], dim=-3)
     return out
 
 
-def surface_mask(occ):
-    """Occupied voxels with at least one empty face neighbour."""
-    adj = adjacency_masks(occ)
+def surface_mask(occ, halo=None):
+    """Occupied voxels with at least one empty face neighbour (``halo`` as
+    ``adjacency_masks``)."""
+    adj = adjacency_masks(occ, halo)
     covered = adj["x_dn"] & adj["x_up"] & adj["y_dn"] & adj["y_up"] & adj["z_dn"] & adj["z_up"]
     return occ & ~covered
 
 
-def voxel_positions_local(pool: VoxelObjectPool):
-    """[O,G,G,G,3] voxel centers in each object's body frame."""
-    coords = grid_coords(pool.grid_size, pool.sdf.device)
+def voxel_positions_local(pool: VoxelObjectPool, x0: int = 0):
+    """[O,G,G,G,3] voxel centers in each object's body frame; on a pool of
+    slabs [O,gx,G,G] (x planes [x0, x0+gx)), [O,gx,G,G,3]."""
+    coords = grid_coords(pool.grid_size, pool.sdf.device, x0, pool.sdf.shape[-3])
     return (
         coords[None] * pool.voxel_extent[:, None, None, None, None]
         + pool.origin[:, None, None, None, :]

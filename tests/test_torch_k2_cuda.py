@@ -138,7 +138,8 @@ def test_routing_at_64_reaches_labels_kernel(cuda_device, monkeypatch):
     k2.LAUNCHES.reset()
     got = connected_component_labels(occ)
     torch.cuda.synchronize()
-    assert dict(k2.LAUNCHES) == {"k2_labels": 1, "k2_ccl": 0, "k2_ccl_wide": 0}
+    assert dict(k2.LAUNCHES) == {"k2_labels": 1, "k2_ccl": 0, "k2_ccl_wide": 0,
+                                  "k2_labels_slab": 0}
     assert torch.equal(got.cpu(), k2.connected_component_labels_batched(occ).cpu())
 
 
@@ -160,7 +161,8 @@ def test_labels_kernel_matches_plain(cuda_device, g):
     again = k2.connected_component_labels_batched(occ)
     ref = k2.connected_component_labels_plain(occ)
     torch.cuda.synchronize()
-    assert dict(k2.LAUNCHES) == {"k2_labels": 2, "k2_ccl": 0, "k2_ccl_wide": 0}
+    assert dict(k2.LAUNCHES) == {"k2_labels": 2, "k2_ccl": 0, "k2_ccl_wide": 0,
+                                  "k2_labels_slab": 0}
     assert got.dtype == torch.int32 and got.shape == occ.shape
     assert torch.equal(got, ref)
     assert torch.equal(again, got)

@@ -178,3 +178,44 @@ def test_parallel_entry_points_default_to_the_card(monkeypatch):
     assert seen == {"n": 8, "device": "cuda", "backend": None}
     for f in (make_device_mesh, World.__init__):
         assert inspect.signature(f).parameters["device"].default == "cuda", f.__qualname__
+
+
+# the modules the space axis through the sharded step changed or added
+SPACE_AXIS_MODULES = (
+    "impact_tpu_torch.parallel.step", "impact_tpu_torch.parallel.halo",
+    "impact_tpu_torch.parallel.mesh", "impact_tpu_torch.parallel.comm",
+    "impact_tpu_torch.parallel.jobs", "impact_tpu_torch.parallel.dryrun",
+    "impact_tpu_torch.voxel.object", "impact_tpu_torch.voxel.inertia",
+    "impact_tpu_torch.voxel.collision", "impact_tpu_torch.voxel.mesh",
+    "impact_tpu_torch.voxel.interaction", "impact_tpu_torch.runtime.engine",
+    "impact_tpu_torch.ops.ccl_pallas", "impact_tpu_torch._build")
+
+
+def test_space_axis_modules_import_with_jax_blocked():
+    code = (
+        "import sys, importlib\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['impact_tpu'] = None\n"
+        f"sys.path.insert(0, {str(ROOT)!r})\n"
+        f"for m in {SPACE_AXIS_MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "assert 'jax' not in {k.split('.')[0] for k, v in sys.modules.items() if v is not None}\n"
+        "print('ok')\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          cwd=str(ROOT), timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("ok")
+
+
+def test_dryrun_command_defaults_to_the_card(monkeypatch):
+    """``python -m impact_tpu_torch.parallel.dryrun`` with no flags: 8 ranks
+    on ``cuda``, the transport picked by the rule."""
+    from impact_tpu_torch.parallel import dryrun
+
+    seen = {}
+    monkeypatch.setattr(dryrun, "dryrun_multichip",
+                        lambda n, device, backend: seen.update(n=n, device=device,
+                                                               backend=backend))
+    assert dryrun.main([]) == 0
+    assert seen == dict(n=8, device="cuda", backend=None)

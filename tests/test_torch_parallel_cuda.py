@@ -15,17 +15,23 @@ they run on the GPU host:
 * (c) The 1024-slot pod step: local dims, device peak, collective sizes.
 * (d) The halo min filter on a 2×2 mesh, closed boundary.
 * (e) The jacobi solve at 1024 bodies × 4096 slots under C·N·4 bytes.
+* (f) The space axis: the labels kernel on slabs [B,gx,G,G] (gx < G, and
+  gx = G unchanged) against its plain version, and the 1024-slot pod on a
+  4×2 mesh of 8 ranks sharing the card.
 """
 
 import pytest
 import torch
 from chip_smoke import (
     PARALLEL_RANKS,
+    SPACE_RANKS,
+    labels_plain,
     parallel_events,
     parallel_halo,
     parallel_pod,
     parallel_quick_start,
     parallel_solver_memory,
+    parallel_space_pod,
 )
 
 from impact_tpu_torch import _build
@@ -44,6 +50,14 @@ def card():
 def world(card, tmp_path_factory):
     w = World(PARALLEL_RANKS, device=card, backend="gloo",
               store_dir=tmp_path_factory.mktemp("world"))
+    yield w
+    w.close()
+
+
+@pytest.fixture(scope="module")
+def world8(card, tmp_path_factory):
+    w = World(SPACE_RANKS, device=card, backend="gloo",
+              store_dir=tmp_path_factory.mktemp("world8"))
     yield w
     w.close()
 
@@ -77,3 +91,32 @@ def test_halo_min_filter_on_the_card(card, world):
 def test_jacobi_solve_allocates_no_incidence(card):
     row = parallel_solver_memory(card)
     assert row["peak_bytes"] < row["bar_bytes"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gx,g", [(8, 16), (4, 16), (16, 64), (13, 40), (1, 9), (16, 16)])
+def test_slab_labels_kernel_equals_plain_version(card, gx, g):
+    """The labels kernel's slab entry (``k2_ccl_labels_slab``) on [3,gx,G,G]
+    slabs (random fills, a slab full, a slab empty) equals the plain sweep
+    of the same slabs; gx = G takes the cubic entry, as before."""
+    import numpy as np
+
+    from impact_tpu_torch.ops import ccl_pallas as k2
+
+    rng = np.random.default_rng(gx * 100 + g)
+    occ = np.stack([rng.uniform(size=(gx, g, g)) < 0.45, np.ones((gx, g, g), bool),
+                    np.zeros((gx, g, g), bool)])
+    occ = torch.tensor(occ, device=card)
+    k2.LAUNCHES.reset()
+    got = k2.connected_component_labels_batched(occ)
+    torch.cuda.synchronize()
+    assert torch.equal(got, labels_plain(occ))
+    want = dict(k2_labels=1, k2_labels_slab=0) if gx == g else dict(k2_labels=0,
+                                                                    k2_labels_slab=1)
+    assert {k: k2.LAUNCHES[k] for k in want} == want
+
+
+@pytest.mark.cuda
+def test_pod_step_on_4x2(world8):
+    rows = parallel_space_pod(world8)
+    assert len(rows) == SPACE_RANKS and any(r["halos"] for r in rows)

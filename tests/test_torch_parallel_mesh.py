@@ -95,10 +95,15 @@ def test_placements_match_reference_shardings():
 
 def test_indivisible_pool_and_unported_axes_raise(world):
     """A pool of 6 slots on 4 ranks raises ValueError (sharding it, and the
-    sharded step), as do a space axis through the step and chunked mode."""
+    sharded step), as do slabs that break the slab constraints on a 1×4
+    mesh (G = 18, a slab of 6 planes, merge levels 3 at slabs of 4) and
+    chunked mode."""
     errors = world.run(jobs.guards_job)[0]
-    assert set(errors) == {"shard", "step", "space", "chunked"}, errors
-    assert "does not divide" in errors["shard"] and "ROADMAP.md" in errors["space"]
+    assert set(errors) == {"shard", "step", "slab_divide", "slab_probe", "slab_merge",
+                           "chunked"}, errors
+    assert "does not divide" in errors["shard"]
+    assert all("slab constraint" in errors[k] for k in ("slab_divide", "slab_probe",
+                                                         "slab_merge"))
     assert "ROADMAP.md" in errors["chunked"]
 
 
@@ -121,5 +126,5 @@ def test_dryrun_multichip_on_cpu_ranks(tmp_path, capsys):
 
     report = dryrun_multichip(8, device="cpu", store_dir=tmp_path)
     assert report["finite"] and report["halo_equal"]
-    assert report["mesh"] == (8, 1) and report["halo_mesh"] == (4, 2)
+    assert report["mesh"] == (4, 2) and report["halo_mesh"] == (4, 2)
     assert "dryrun_multichip OK: 8 ranks" in capsys.readouterr().out

@@ -205,9 +205,13 @@ def test_pod_step_at_1024_slots(world):
 
 def test_space_axis_and_chunked_mode_raise(world):
     """The sharded step refuses what it does not shard: a pool that does
-    not divide over the objects axis, a space axis larger than 1 and
-    chunked mode (each names the ROADMAP.md item that ports it)."""
+    not divide over the objects axis, slabs it cannot split along x (G not
+    a multiple of the space axis, a slab not a multiple of the probe block
+    or of 2**mesh_merge_levels; each names the slab constraint) and chunked
+    mode (naming the ROADMAP.md item that ports it)."""
     errors = world.run(jobs.guards_job)[0]
     assert "do not divide" in errors["step"]
-    assert "space axis" in errors["space"] and "ROADMAP.md" in errors["space"]
+    assert "slab constraint" in errors["slab_divide"] and "does not divide" in errors["slab_divide"]
+    assert "slab constraint" in errors["slab_probe"] and "probe block" in errors["slab_probe"]
+    assert "slab constraint" in errors["slab_merge"] and "mesh_merge_levels" in errors["slab_merge"]
     assert "chunked" in errors["chunked"] and "ROADMAP.md" in errors["chunked"]
