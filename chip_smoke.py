@@ -137,8 +137,17 @@ then drives these paths through the port's entry points:
    held against its plain version and timed, the merged slab labels
    against the whole grid's, the 1024-slot pod on 4×2 (local dims, halo
    transfers, no grid- or slab-shaped collective, the largest collective,
-   memory over the state) and the dry run on 2×2. Ranks sharing a card
-   say nothing about a multi-card speed.
+   memory over the state) and the dry run on 2×2; (g) the contact solve
+   with the bodies split over the ``objects`` axis of a 4×2 mesh and the
+   contacts replicated (``parallel.solver.sharded_solve_contacts``) on
+   the same 8 ranks: jacobi at 1024 bodies × 2048 slots (one velocity and
+   one correction iteration, cold and warm-started) and × 4096 (the
+   default iterations), ``scan`` at 128 × 256, each against the
+   single-process solve on the card within 1e-5 (bitwise equality
+   reported), every scan launch of the ranks held against the plain
+   loop, the device peak per rank under C·N·4 bytes, the collectives
+   body-row gathers only. Ranks sharing a card say nothing about a
+   multi-card speed.
 
 Kernel launch counts are zeroed just before each path and read just after
 it. Every phase prints one flushed line with its seconds; any failure exits
@@ -287,6 +296,15 @@ PARALLEL_BEFORE_EVENT, PARALLEL_EVENT_STEPS = 3, 200
 PARALLEL_POS_ATOL, PARALLEL_MOMENTUM_ATOL, PARALLEL_SDF_ATOL = 1e-5, 1e-4, 1e-6
 # (f), the space axis: its ranks sharing the card and the tumbler's steps
 SPACE_RANKS, SPACE_STEPS = 8, 5
+# (g), the body-sharded contact solve on (f)'s ranks, on a 4x2 mesh: (mode,
+# bodies, contact slots, (velocity, correction) iterations or None for the
+# default 8 and 3, warm-started) of tests/test_parallel.py:205-242 (seed 5),
+# check (e)'s size at the default iterations, the scan at 128 x 256, and the
+# first warm-started; each solve timed this many times after a warm-up; the
+# bar against the single-process solve on the card
+SOLVE_CELLS = (("jacobi", 1024, 2048, (1, 1), False), ("jacobi", 1024, 4096, None, False),
+               ("scan", 128, 256, None, False), ("jacobi", 1024, 2048, (1, 1), True))
+SOLVE_SEED, SOLVE_REPS, SOLVE_TOL = 5, 3, 1e-5
 API_KERNELS = {"k1_raster_attributes": "k1_attr_kernel", "k1_raster_depth": "k1_depth_kernel",
                "scan_velocity_iterations": "scan_velocity_kernel",
                "scan_position_correction": "scan_correction_kernel"}
@@ -1107,7 +1125,8 @@ def main(argv=None) -> int:
                          "shading, gizmos, the chunked rebake, the scene graph)")
     ap.add_argument("--parallel-only", action="store_true",
                     help="run only the parallel phase (the engine step sharded over the "
-                         "voxel-object pool, the halo exchange, the pod-scale checks)")
+                         "voxel-object pool, the halo exchange, the pod-scale checks, the "
+                         "body-sharded contact solve)")
     args = ap.parse_args(argv)
     k1_only, ccl_only = args.k1_only, args.ccl_only
     t_all = time.perf_counter()
@@ -3433,6 +3452,7 @@ def parallel_solver_memory(dev):
     bytes (no [C, N] incidence), finite velocities."""
     import torch
 
+    from impact_tpu_torch.parallel.jobs import solver_scene
     from impact_tpu_torch.physics import solver
     from impact_tpu_torch.render.pipeline import fp32_render
 
@@ -3449,6 +3469,136 @@ def parallel_solver_memory(dev):
     if peak >= c * n * 4 or not bool(torch.isfinite(out.velocity).all()):
         raise AssertionError(f"parallel (e): peak {peak} B")
     return dict(peak_bytes=peak, bar_bytes=c * n * 4)
+
+
+def solve_collectives_ok(records, n, n_contacts, mode, cfg):
+    """The sharded solve's collectives, as ``parallel/solver.py`` makes
+    them: objects-axis gathers of body rows only (every part N rows, none
+    with the contact count), in count and width: jacobi, one velocity
+    gather [N, 6] a velocity iteration, the inverse masses and inertias
+    [N, 10] once and positions and orientations [N, 7] each correction
+    iteration, the written-back positions [N, 3] once; scan, one gather
+    of [N, 23] words. Returns a reason it is not so, or None."""
+    if mode == "scan":
+        want = [23]
+    else:
+        want = ([6] * 4 * max(cfg.n_iterations, 1)
+                + ([10] + [7] * cfg.n_positional_correction_iterations
+                   if cfg.n_positional_correction_iterations else []) + [3])
+    got = []
+    for r in records:
+        parts = [tuple(shape) for shape, _ in r["parts"]]
+        if r["op"] != "all_gather" or r["axis"] != "objects":
+            return f"a {r['op']} along {r['axis']}"
+        if any(p[0] != n or n_contacts in p for p in parts):
+            return f"a gather of {parts}"
+        got.append(r["bytes"] // (4 * n))
+    return None if got == want else f"gathers of {got} words a body, not {want}"
+
+
+def parallel_sharded_solve(dev, world):
+    """(g) The contact solve with the bodies split over the objects axis and
+    the contacts replicated (``parallel.solver.sharded_solve_contacts``) on
+    the world's ranks on a 4x2 mesh, each of SOLVE_CELLS against the
+    single-process ``solve_contacts`` on the card: gathered bodies and
+    every rank's cache within SOLVE_TOL (bitwise equality reported), every
+    scan launch of the ranks equal to ``scan_iterations_plain`` on its
+    inputs, each rank's device peak over its inputs under C·N·4 B (the
+    [C, N] incidence check (e) forbids), the collectives as
+    ``solve_collectives_ok`` sets out. Returns (rows, scan launches summed
+    over the ranks)."""
+    import numpy as np
+    import torch
+
+    from impact_tpu_torch.parallel import jobs
+    from impact_tpu_torch.physics import scan_solver, solver
+    from impact_tpu_torch.render.pipeline import fp32_render
+
+    rows, n_scan = [], 0
+    for mode, n, c, iterations, warm in SOLVE_CELLS:
+        what = f"parallel (g) {mode} {n} x {c}" + (" warm" if warm else "")
+        b, prep, cfg = jobs.solver_scene(n, c, dev, SOLVE_SEED, warm)
+        cfg = jobs.solver_config(cfg, iterations)
+        world.submit(jobs.solve_job, n, c, mode, iterations, SOLVE_SEED, warm, SOLVE_REPS)
+        with fp32_render():
+            solver.solve_contacts(b, prep, cfg, mode=mode)
+            single_ms = []
+            for _ in range(SOLVE_REPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                want_b, want_c = solver.solve_contacts(b, prep, cfg, mode=mode)
+                torch.cuda.synchronize()
+                single_ms.append((time.perf_counter() - t0) * 1e3)
+        res = [r for r in world.collect() if r is not None]
+        want = {f: getattr(want_b, f).cpu().numpy() for f in want_b._fields}
+        cache = {f: getattr(want_c, f).cpu().numpy() for f in want_c._fields}
+        got = res[0]["bodies"]
+        unequal = [f for f in want if not np.array_equal(got[f], want[f])]
+        unequal += sorted({f"cache/{f}" for r in res for f in cache
+                           if not np.array_equal(r["cache"][f], cache[f])})
+        err = 0.0
+        for key, g, w_ in ([(f, got[f], want[f]) for f in want]
+                           + [(f"cache/{f}", r["cache"][f], cache[f]) for r in res
+                              for f in cache]):
+            if g.dtype.kind == "f":
+                d = np.abs(g.astype(np.float64) - w_.astype(np.float64))
+                err = max(err, float(d.max()))
+                if not np.all(d <= SOLVE_TOL + SOLVE_TOL * np.abs(w_)):
+                    raise AssertionError(f"{what}: {key} off by {float(d.max()):.3g}, past "
+                                         f"atol and rtol {SOLVE_TOL}")
+            elif not np.array_equal(g, w_):
+                raise AssertionError(f"{what}: {key} differs")
+        if not np.isfinite(got["velocity"]).all():
+            raise AssertionError(f"{what}: non-finite velocities")
+        for r in res:
+            why = solve_collectives_ok(r["records"], n, c, mode, cfg)
+            if why:
+                raise AssertionError(f"{what}: rank {r['rank']}: {why}")
+            if n == 1024 and c == 4096 and r["peak_extra_bytes"] >= c * n * 4:
+                raise AssertionError(f"{what}: rank {r['rank']} peak {r['peak_extra_bytes']} B "
+                                     f"over its inputs, bar C*N*4 = {c * n * 4} B")
+        launches = sum(sum(r["launches"].values()) for r in res)
+        if mode == "scan":
+            if launches != 2 * SOLVE_REPS * len(res):
+                raise AssertionError(f"{what}: scan launches {[r['launches'] for r in res]}")
+            held = {}
+            for r in res:
+                ins = r["scan"]["inputs"]
+                key = tuple(x.tobytes() for x in ins["tensors"])
+                if key not in held:
+                    v, w, pos, ori, im, ii, acc = (torch.as_tensor(x, device=dev)
+                                                   for x in ins["tensors"])
+                    sprep = type(prep)(**{k: torch.as_tensor(x, device=dev)
+                                          for k, x in ins["prep"].items()})
+                    held[key] = [x.cpu().numpy() for x in scan_solver.scan_iterations_plain(
+                        v, w, pos, ori, im, ii, sprep, acc, *ins["scalars"])]
+                for name, g, w_ in zip(("v", "w", "impulses", "pos", "ori"),
+                                       r["scan"]["outputs"], held[key]):
+                    if not np.array_equal(g, w_):
+                        raise AssertionError(f"{what}: rank {r['rank']}'s scan launch: {name} "
+                                             f"differs from the plain loop")
+            n_scan += launches
+        elif launches:
+            raise AssertionError(f"{what}: scan launches under jacobi")
+        ms = [float(np.median(r["ms"])) for r in res]
+        recs = res[0]["records"]
+        row = dict(mode=mode, bodies=n, contacts=c, warm=warm,
+                   iterations=(cfg.n_iterations, cfg.n_positional_correction_iterations),
+                   ms_per_rank=ms, single_ms=float(np.median(single_ms)),
+                   collectives=len(recs), collective_bytes=sum(x["bytes"] for x in recs),
+                   largest_collective=max(x["bytes"] for x in recs),
+                   staged_bytes=res[0]["staged_bytes"],
+                   peak_extra_bytes=[r["peak_extra_bytes"] for r in res],
+                   bitwise_equal=not unequal, unequal=unequal, max_abs_err=err,
+                   scan_launches=launches if mode == "scan" else 0, ranks=len(res))
+        log(f"{what}: ms per rank (median of {SOLVE_REPS}) {min(ms):.3f}-{max(ms):.3f} against "
+            f"{row['single_ms']:.3f} single-process; {row['collectives']} collectives, "
+            f"{row['collective_bytes']} B (largest {row['largest_collective']} B), staged "
+            f"{row['staged_bytes']} B; peak over inputs per rank {row['peak_extra_bytes']} B; "
+            f"bitwise equal {row['bitwise_equal']} "
+            f"{unequal}, max abs err {err:.3g}; scan launches {row['scan_launches']}")
+        rows.append(row)
+    return rows, n_scan
 
 
 def space_rows(res):
@@ -3664,9 +3814,9 @@ def parallel_space_dryrun(world):
 
 def parallel_phase(dev, record, kernels):
     """The engine step sharded over the voxel-object pool
-    (``impact_tpu_torch/parallel``): checks (a)-(e) of the docstring's item
+    (``impact_tpu_torch/parallel``): checks (a)-(g) of the docstring's item
     15, (b)-(d) on PARALLEL_RANKS ranks sharing the card over host-staged
-    gloo."""
+    gloo, (f) and (g) on SPACE_RANKS."""
     import tempfile
 
     from impact_tpu_torch.parallel.world import World
@@ -3702,7 +3852,13 @@ def parallel_phase(dev, record, kernels):
                 rows["f_pod"] = parallel_space_pod(world)
             with Phase("parallel (f): the dry run on 2x2"):
                 rows["f_dryrun"] = parallel_space_dryrun(world)
-        rows["f_seconds"] = time.perf_counter() - t_space
+            t_solve = time.perf_counter()
+            with Phase("parallel (g): the contact solve with the bodies split over the objects "
+                       "axis of a 4x2 mesh, the contacts replicated, against the single-process "
+                       "solve"):
+                rows["g"], launches_g = parallel_sharded_solve(dev, world)
+            rows["g_seconds"] = time.perf_counter() - t_solve
+        rows["f_seconds"] = time.perf_counter() - t_space - rows["g_seconds"]
         log(f"parallel (f): {rows['f_seconds']:.2f} s on {SPACE_RANKS} ranks sharing the card over "
             f"host-staged gloo (their times say nothing about a multi-card speed); launches "
             f"{launches_f} (tumbler), {launches_fe} (events)")
@@ -3712,6 +3868,11 @@ def parallel_phase(dev, record, kernels):
     log(f"parallel phase: {phase_s:.2f} s; launches {launches} ((a) in this process, (b) summed "
         f"over the ranks)")
     record["parallel"] = dict(rows, seconds=phase_s, launches=launches)
+    log(f"parallel (g): {rows['g_seconds']:.2f} s; scan launches {launches_g} (summed over the "
+        f"ranks, each held against the plain loop)")
+    if launches_g <= 0:
+        raise AssertionError("parallel (g): the scan kernels were not launched")
+    record["parallel"]["sharded_solve_scan_launches"] = launches_g
     errs = {"scan_solver": scan_err, "k2_labels": labels_err}
     for name, n in launches.items():
         if n <= 0:
@@ -3721,6 +3882,8 @@ def parallel_phase(dev, record, kernels):
             entry = dict(name=name, route="cuda", max_abs_err=errs[name])
             kernels.append(entry)
         entry["parallel_launches"] = n
+        if name == "scan_solver":
+            entry["sharded_solve_launches"] = launches_g
     # the labels kernel's slab entry: launched only on this phase's (f) path
     n_slab = launches_fe.get("k2_labels_slab", 0)
     if n_slab <= 0 or n_slab != len(slab_timing["launches_ms"]):
@@ -3732,44 +3895,6 @@ def parallel_phase(dev, record, kernels):
         ms=slab_timing["ms"], plain_ms=slab_timing["plain_ms"],
         bound_ms=slab_timing["bound_ms"], bound_by=slab_timing["bound_by"], library_ms=None))
     record["parallel"]["k2_labels_slab"] = slab_timing
-
-
-def solver_scene(n_bodies, n_contacts, dev, seed=11):
-    """tests/test_parallel.py:142-187's random contact scene on the card:
-    bodies, the prepared contacts and the solver config."""
-    import numpy as np
-    import torch
-
-    from impact_tpu_torch.physics.collision import ContactBuffer
-    from impact_tpu_torch.physics.solver import empty_solver_cache, prepare_contacts
-    from impact_tpu_torch.physics.state import KIND_DYNAMIC, empty_body_state
-    from impact_tpu_torch.utils.config import ConstraintSolverConfig
-
-    rng = np.random.default_rng(seed)
-
-    def t(x, dtype=torch.float32):
-        return torch.as_tensor(np.asarray(x), dtype=dtype, device=dev)
-
-    b = empty_body_state(n_bodies, dev)
-    b = b._replace(
-        kind=torch.full((n_bodies,), KIND_DYNAMIC, dtype=b.kind.dtype, device=dev),
-        inv_mass=t(rng.uniform(0.2, 2.0, n_bodies)),
-        inv_inertia_body=torch.eye(3, device=dev).expand(n_bodies, 3, 3).contiguous(),
-        position=t(rng.normal(size=(n_bodies, 3))),
-        momentum=t(rng.normal(size=(n_bodies, 3))))
-    ia = rng.integers(0, n_bodies, n_contacts)
-    ib = (ia + 1 + rng.integers(0, n_bodies - 1, n_contacts)) % n_bodies
-    nrm = rng.normal(size=(n_contacts, 3))
-    nrm /= np.linalg.norm(nrm, axis=-1, keepdims=True)
-    buf = ContactBuffer(
-        active=t(rng.uniform(size=n_contacts) < 0.9, torch.bool),
-        key=torch.arange(n_contacts, dtype=torch.int64, device=dev),
-        body_a=t(ia, torch.int64), body_b=t(ib, torch.int64),
-        position=t(rng.normal(size=(n_contacts, 3))), normal=t(nrm),
-        depth=t(rng.uniform(0.0, 0.05, n_contacts)),
-        response=t(np.tile([[0.3, 0.6, 0.4]], (n_contacts, 1))))
-    cfg = ConstraintSolverConfig()
-    return b, prepare_contacts(b, buf, empty_solver_cache(n_contacts, dev), cfg), cfg
 
 
 def finish(t_all, record, kernels, kind, count) -> int:

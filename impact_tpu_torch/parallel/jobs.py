@@ -23,21 +23,28 @@ from ..models import fracturing, voxel_box_tumbler
 from ..models.bench import bench_chunked_config, bench_chunked_fill_scene
 from ..ops import ccl_pallas as k2
 from ..physics import scan_solver
+from ..physics.collision import ContactBuffer
+from ..physics.solver import empty_solver_cache, prepare_contacts
+from ..physics.state import KIND_DYNAMIC, empty_body_state
 from ..render.pipeline import fp32_render
 from ..runtime import engine
 from ..runtime.checkpoint import load_checkpoint
 from ..runtime.setup import compile_scene
-from ..utils.config import EngineConfig
+from ..utils.config import ConstraintSolverConfig, EngineConfig
 from ..voxel import inertia, interaction
+from ..voxel.chunk_mesh import empty_chunk_mesh_pool
 from ..voxel.object import VoxelObjectPool
+from . import solver as psolver
 from .halo import make_sharded_min_filter_x
 from .mesh import (
     OBJECTS_SPACE,
+    gather_bodies,
     gather_sim_state,
     gather_tensor,
     grid_slab,
     leaves_with_path,
     make_device_mesh,
+    shard_bodies,
     shard_sim_state,
     shard_tensor,
 )
@@ -45,6 +52,7 @@ from .step import make_sharded_engine_step, ordered_sum, slab_labels, slab_meshe
 
 POD_OBJECTS = 1024  # tests/test_parallel.py:245's pool
 POD_SMALL_OBJECTS = 64  # the pod's config at a pool the CPU ranks step in seconds
+SOLVE_MESH = (4, 2)  # the body-sharded solve's mesh (tests/test_parallel.py:205-242)
 
 
 def small_config() -> EngineConfig:
@@ -348,11 +356,14 @@ def dryrun_job(ctx, n_devices: int):
     n_obj, n_space = dryrun_mesh(n_devices)
     t0 = time.perf_counter()
     out = step_job(ctx, "dryrun", n_obj, 1, n_space_axis=n_space)
+    step_s = time.perf_counter() - t0
+    # every rank makes every mesh, those outside it too: a process group
+    # that only some ranks create puts their group count out of step, and
+    # the next mesh over every rank never meets
+    mesh = _mesh(ctx, n_obj, n_space)
     if out is None:  # a rank outside the mesh
         return None
-    step_s = time.perf_counter() - t0
     sdf = torch.as_tensor(out.pop("state")["voxels/sdf"]) if ctx.rank == 0 else None
-    mesh = _mesh(ctx, n_obj, n_space)
     shape = list(out["local_dims"]["voxels/sdf"])
     shape[0] *= n_obj
     shape[1] *= n_space
@@ -455,4 +466,161 @@ def guards_job(ctx):
         expect(name, lambda c=bad: make_sharded_engine_step(build.params, c, meshes[1], *caps))
     cfg.tpu.chunked_remesh = True
     expect("chunked", lambda: make_sharded_engine_step(build.params, cfg, meshes[0], *caps))
+    return errors
+
+
+def solver_scene(n_bodies: int, n_contacts: int, device, seed: int = 11, warm: bool = False):
+    """``tests/test_parallel.py:142-187``'s random contact scene from numpy
+    with ``seed``: (whole bodies, the prepared contacts, the default
+    ConstraintSolverConfig) on ``device``. With ``warm``, the contacts are
+    prepared against a cache that holds every slot's key, normal and
+    tangent with random impulses, so the solve warm-starts."""
+    rng = np.random.default_rng(seed)
+
+    def t(x, dtype=torch.float32):
+        return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
+
+    b = empty_body_state(n_bodies, device)
+    b = b._replace(
+        kind=torch.full((n_bodies,), KIND_DYNAMIC, dtype=b.kind.dtype, device=device),
+        inv_mass=t(rng.uniform(0.2, 2.0, n_bodies)),
+        inv_inertia_body=torch.eye(3, device=device).expand(n_bodies, 3, 3).contiguous(),
+        position=t(rng.normal(size=(n_bodies, 3))),
+        momentum=t(rng.normal(size=(n_bodies, 3))))
+    ia = rng.integers(0, n_bodies, n_contacts)
+    ib = (ia + 1 + rng.integers(0, n_bodies - 1, n_contacts)) % n_bodies
+    nrm = rng.normal(size=(n_contacts, 3))
+    nrm /= np.linalg.norm(nrm, axis=-1, keepdims=True)
+    buf = ContactBuffer(
+        active=t(rng.uniform(size=n_contacts) < 0.9, torch.bool),
+        key=torch.arange(n_contacts, dtype=torch.int64, device=device),
+        body_a=t(ia, torch.int64), body_b=t(ib, torch.int64),
+        position=t(rng.normal(size=(n_contacts, 3))), normal=t(nrm),
+        depth=t(rng.uniform(0.0, 0.05, n_contacts)),
+        response=t(np.tile([[0.3, 0.6, 0.4]], (n_contacts, 1))))
+    cfg = ConstraintSolverConfig()
+    cache = empty_solver_cache(n_contacts, device)
+    if warm:
+        cold = prepare_contacts(b, buf, cache, cfg)
+        cache = cache._replace(key=buf.key, normal=cold.normal, tangent=cold.tangent,
+                               impulses=t(rng.uniform(0.0, 0.05, (n_contacts, 3))),
+                               active=buf.active)
+    return b, prepare_contacts(b, buf, cache, cfg), cfg
+
+
+def solver_config(cfg, iterations):
+    """``cfg`` with (velocity, correction) ``iterations``; None keeps its own."""
+    if iterations is not None:
+        cfg.n_iterations, cfg.n_positional_correction_iterations = iterations
+    return cfg
+
+
+def tree_arrays(tree) -> dict:
+    return {f: t.detach().cpu().numpy() for f, t in tree._asdict().items()}
+
+
+def solve_job(ctx, n_bodies: int, n_contacts: int, mode: str, iterations=None, seed: int = 11,
+              warm: bool = False, reps: int = 1):
+    """The body-sharded contact solve (``solver.sharded_solve_contacts``) of
+    ``solver_scene(n_bodies, n_contacts, seed, warm)`` on the SOLVE_MESH:
+    the contacts prepared whole on every rank, the bodies sharded, one
+    warm-up solve, then ``reps`` timed ones. Returns, per rank: the solve's
+    ms (each timed one), the collectives of the last one, host staging, the
+    device peak of the last one over its inputs (on the card), the scan
+    launches of the timed ones, with ``mode="scan"`` the last call of
+    ``scan_iterations`` (inputs and outputs), the whole cache, and on the
+    first rank the gathered bodies."""
+    mesh = _mesh(ctx, *SOLVE_MESH)
+    if mesh is None:
+        return None
+    dev = ctx.device
+    whole, prep, cfg = solver_scene(n_bodies, n_contacts, dev, seed, warm)
+    cfg = solver_config(cfg, iterations)
+    local = shard_bodies(mesh, whole)
+    comm = mesh.comm
+    scan_calls = []
+    run_scan = psolver.scan_iterations
+
+    def rec_scan(*args):
+        out = run_scan(*args)
+        scan_calls[:] = [(args, out)]
+        return out
+
+    def solve():
+        with fp32_render():  # float32 matmuls on the card
+            return psolver.sharded_solve_contacts(mesh, local, prep, cfg, mode)
+
+    solve()
+    ms, peak = [], None
+    scan_solver.LAUNCHES.reset()
+    psolver.scan_iterations = rec_scan
+    try:
+        for i in range(reps):
+            comm.clear()
+            _sync(dev)
+            if dev.type == "cuda" and i == reps - 1:
+                torch.cuda.reset_peak_memory_stats(dev)
+                base = torch.cuda.memory_allocated(dev)
+            t0 = time.perf_counter()
+            out, cache = solve()
+            _sync(dev)
+            ms.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        psolver.scan_iterations = run_scan
+    if dev.type == "cuda":
+        peak = torch.cuda.max_memory_allocated(dev) - base
+    records = [r._asdict() for r in comm.records]
+    staged = comm.staged_bytes
+    gathered = gather_bodies(mesh, out)
+    scan = None
+    if scan_calls:
+        args, res = scan_calls[0]
+        v, w, pos, ori, inv_mass, inv_inertia, sprep, acc, n_it, n_corr, factor = args
+        scan = dict(inputs=dict(tensors=[x.cpu().numpy() for x in (v, w, pos, ori, inv_mass,
+                                                                   inv_inertia, acc)],
+                                prep=tree_arrays(sprep), scalars=(n_it, n_corr, factor)),
+                    outputs=[x.cpu().numpy() for x in res])
+    return dict(rank=ctx.rank, coordinate=mesh.coordinate, ms=ms, records=records,
+                staged_bytes=staged, peak_extra_bytes=peak,
+                launches=dict(scan_solver.LAUNCHES), scan=scan, local_rows=out.n,
+                cache=tree_arrays(cache),
+                bodies=tree_arrays(gathered) if ctx.rank == 0 else None)
+
+
+def solve_guard_job(ctx, n_bodies: int):
+    """The ValueError of shard_bodies for N bodies that do not divide over
+    the SOLVE_MESH's objects axis, or None if it shards."""
+    mesh = _mesh(ctx, *SOLVE_MESH)
+    if mesh is None:
+        return None
+    try:
+        shard_bodies(mesh, empty_body_state(n_bodies, ctx.device))
+    except ValueError as e:
+        return str(e)
+    return None
+
+
+def chunked_refusal_job(ctx):
+    """The dry run's dense state with its meshes replaced by an empty chunk
+    pool (a chunked state's ``meshes``, whose overflow counters are 0-d):
+    the ValueErrors of ``shard_sim_state`` and of the sharded step with
+    ``tpu.chunked_remesh`` on a 2×2 mesh."""
+    mesh = _mesh(ctx, 2, 2)
+    if mesh is None:
+        return None
+    world, cfg = scene("dryrun", 2)
+    build = compile_scene(world, cfg, device=ctx.device)
+    sim = build.sim._replace(meshes=empty_chunk_mesh_pool(
+        16, 64, cfg.tpu.max_voxel_objects, cfg.tpu.voxel_grid_size, device=ctx.device))
+    errors = {}
+    try:
+        shard_sim_state(mesh, sim)
+    except ValueError as e:
+        errors["shard"] = str(e)
+    cfg.tpu.chunked_remesh = True
+    try:
+        make_sharded_engine_step(build.params, cfg, mesh, build.info["mesh_vert_cap"],
+                                 build.info["mesh_tri_cap"])
+    except ValueError as e:
+        errors["step"] = str(e)
     return errors

@@ -178,7 +178,10 @@ def sim_state_shardings(mesh: DeviceMesh, sim):
     return map_with_path(placement_for_path, sim)
 
 
-def _block(t, dim: int, n: int, i: int, what: str):
+def _block(t, dim: int, n: int, i: int, what: str, axis: str):
+    if t.dim() <= dim:
+        raise ValueError(f"{what}: placed on the {axis} axis along dim {dim}, but it has rank "
+                         f"{t.dim()}")
     size = t.shape[dim]
     if size % n:
         raise ValueError(f"{what}: dim {dim} of {size} does not divide over {n} ranks")
@@ -187,17 +190,23 @@ def _block(t, dim: int, n: int, i: int, what: str):
 
 
 def shard_tensor(mesh: DeviceMesh, t, placements, what: str = "tensor"):
-    """This rank's block of the whole tensor ``t`` under ``placements``."""
+    """This rank's block of the whole tensor ``t`` under ``placements``.
+    Raises ValueError if a sharded dim does not divide over its axis, or if
+    ``t`` lacks it (a 0-d leaf placed on an axis: the reference's
+    ``device_put`` refuses it alike)."""
     for axis, p in zip(mesh.axis_names, placements):
         if isinstance(p, Shard):
-            t = _block(t, p.dim, mesh.size(axis), mesh.comm.coordinate(axis), what)
+            t = _block(t, p.dim, mesh.size(axis), mesh.comm.coordinate(axis), what, axis)
     return t.clone()
 
 
 def shard_sim_state(mesh: DeviceMesh, sim):
     """This rank's shard of a whole SimState (every rank holds the whole
-    state, e.g. from the same ``compile_scene``). Raises ValueError if a
-    sharded dim does not divide evenly over its axis."""
+    state, e.g. from the same ``compile_scene``). Raises ValueError, naming
+    the leaf, if a sharded dim does not divide evenly over its axis or a
+    leaf lacks it: a chunked state's 0-d overflow counters
+    (``meshes/n_dropped_verts``, ...) under the ``meshes/`` rule, as the
+    reference's ``shard_sim_state`` refuses them."""
     shardings = sim_state_shardings(mesh, sim)
     flat = dict(leaves_with_path(shardings))
 
@@ -228,6 +237,34 @@ def gather_sim_state(mesh: DeviceMesh, sim):
         return gather_tensor(mesh, leaf, flat[path])
 
     return map_with_path(gather, sim)
+
+
+def body_shardings(mesh: DeviceMesh, bodies):
+    """The placements of each leaf of a BodyState split over the ``objects``
+    axis (``tests/test_parallel.py:220-229``'s rule): ``OBJECTS`` for a leaf
+    with a leading dim of N, ``REPLICATED`` for any other."""
+    n = bodies.n
+
+    def placement(path, leaf):
+        return OBJECTS if getattr(leaf, "ndim", 0) >= 1 and leaf.shape[0] == n else REPLICATED
+
+    return map_with_path(placement, bodies)
+
+
+def shard_bodies(mesh: DeviceMesh, bodies):
+    """This rank's block of N/n_objects rows of every [N] leaf of a whole
+    BodyState (replicated over ``space``). Raises ValueError if N does not
+    divide over the ``objects`` axis."""
+    flat = dict(leaves_with_path(body_shardings(mesh, bodies)))
+    return map_with_path(lambda path, leaf: shard_tensor(mesh, leaf, flat[path], path)
+                         if flat[path] != REPLICATED else leaf, bodies)
+
+
+def gather_bodies(mesh: DeviceMesh, local):
+    """The whole BodyState from the ranks' blocks, on every rank."""
+    flat = dict(leaves_with_path(body_shardings(mesh, local)))
+    return map_with_path(lambda path, leaf: gather_tensor(mesh, leaf, flat[path])
+                         if flat[path] != REPLICATED else leaf, local)
 
 
 def replicate(mesh: DeviceMesh, tree):

@@ -201,8 +201,9 @@ def make_sharded_engine_step(params: EngineParams, config, mesh: DeviceMesh, mes
     the events' grid moves."""
     tc = config.tpu
     if tc.chunked_remesh:
-        raise ValueError("chunked mode (tpu.chunked_remesh) under sharding is ROADMAP.md "
-                         "Queue 1, item 1")
+        raise ValueError("chunked mode (tpu.chunked_remesh) is refused under sharding, as the "
+                         "reference refuses it (ROADMAP.md, Queue 3: chunked states under "
+                         "sharding)")
     comm = mesh.comm
     n_ranks, me = mesh.size("objects"), comm.coordinate("objects")
     (dt, n_substeps, solver_cfg, max_contacts, o_max, remesh_budget, impact_cfg, n_seeds,

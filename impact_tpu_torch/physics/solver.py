@@ -7,9 +7,12 @@ same velocities, and the under-relaxed deltas accumulate per body. The
 accumulation keeps the reference's two paths: below
 SEGMENT_ACCUMULATION_MIN_BODIES bodies a one-hot incidence product
 (``torch.matmul`` in float32, TF32 off), at or above it a sort by body once
-per solve and per-body differences of a prefix sum. The warm start scatters
-with ``index_add``, whose float sums on CUDA run in atomic order, so results
-are held to a tolerance, not to equality. The sequential ``scan`` mode
+per solve and per-body differences of a prefix sum; given a row range
+(the body-sharded solve of ``parallel/solver.py``), the warm start and
+the accumulation give those bodies' rows only, each summed as in the
+whole solve. The warm start scatters with ``index_add``, whose float sums
+on CUDA run in atomic order, so results are held to a tolerance, not to
+equality. The sequential ``scan`` mode
 (Gauss-Seidel, the default) walks the slots in order in
 ``physics/scan_solver.py``: one CUDA kernel per loop on the card, a plain
 loop over slots on the CPU.
@@ -158,27 +161,67 @@ def _momentum_change(prep: PreparedContacts, imp):
             + imp[..., 2:3] * prep.bitangent)
 
 
-def _accumulator(prep: PreparedContacts, n: int, inv_mass, inv_inertia):
-    """[C,3] world momentum changes → per-body (dv [N,3], dw [N,3])."""
+def _local_rows(idx, rows):
+    """Body indices → row indices of the range ``rows`` = (lo, hi): a body
+    outside it goes to the spare row hi − lo."""
+    lo, hi = rows
+    return torch.where((idx >= lo) & (idx < hi), idx - lo, hi - lo)
+
+
+def _with_spare_row(t):
+    return torch.cat([t, torch.zeros_like(t[:1])])
+
+
+def warm_start(prep: PreparedContacts, v, w, inv_mass, inv_inertia, rows=None):
+    """The warm start: the cached impulses scatter-added into the velocities
+    → (acc, v, w). With ``rows`` = (lo, hi), ``v``, ``w``, ``inv_mass`` and
+    ``inv_inertia`` are the rows of bodies [lo, hi) and only they receive,
+    each its contacts' terms in contact order, as in the whole scatter."""
+    act3 = prep.active[:, None]
+    acc = prep.warm_impulses * act3
+    dp = _momentum_change(prep, acc) * act3
+    ia, ib = prep.body_a, prep.body_b
+    if rows is not None:
+        ia, ib = _local_rows(ia, rows), _local_rows(ib, rows)
+        v, w, inv_mass, inv_inertia = map(_with_spare_row, (v, w, inv_mass, inv_inertia))
+    v = v.index_add(0, ia, inv_mass[ia, None] * dp)
+    v = v.index_add(0, ib, -inv_mass[ib, None] * dp)
+    w = w.index_add(0, ia, torch.einsum("cij,cj->ci", inv_inertia[ia], cross(prep.disp_a, dp)))
+    w = w.index_add(0, ib, -torch.einsum("cij,cj->ci", inv_inertia[ib],
+                                         cross(prep.disp_b, dp)))
+    if rows is not None:
+        v, w = v[:-1], w[:-1]
+    return acc, v, w
+
+
+def _accumulator(prep: PreparedContacts, n: int, inv_mass, inv_inertia, rows=None):
+    """[C,3] world momentum changes → per-body (dv [N,3], dw [N,3]). With
+    ``rows`` = (lo, hi), the rows of bodies [lo, hi) of N only: ``inv_mass``
+    and ``inv_inertia`` are those rows', and each row sums what it sums in
+    the whole accumulation, in the same order."""
     ia, ib, act = prep.body_a, prep.body_b, prep.active
+    lo, hi = (0, n) if rows is None else rows
     if n < SEGMENT_ACCUMULATION_MIN_BODIES:
-        # one-hot incidence products, built once per solve
+        # one-hot incidence products, built once per solve; a row range
+        # slices the whole product (a product over a block of columns may
+        # sum in another order)
         body_ids = torch.arange(n, device=ia.device)
         oh_a = ((ia[:, None] == body_ids[None, :]) & act[:, None]).float()  # [C,N]
         oh_b = ((ib[:, None] == body_ids[None, :]) & act[:, None]).float()
 
         def accumulate(dp):
-            lin = oh_a.T @ dp - oh_b.T @ dp
-            ang = oh_a.T @ cross(prep.disp_a, dp) - oh_b.T @ cross(prep.disp_b, dp)
+            lin = (oh_a.T @ dp - oh_b.T @ dp)[lo:hi]
+            ang = (oh_a.T @ cross(prep.disp_a, dp) - oh_b.T @ cross(prep.disp_b, dp))[lo:hi]
             return inv_mass[:, None] * lin, torch.einsum("nij,nj->ni", inv_inertia, ang)
 
         return accumulate
 
     # 2C sided (body, ±Δp) entries sorted by body once per solve; each call
-    # reduces with a prefix sum and per-body boundary differences
+    # reduces with a prefix sum over all of them and per-body boundary
+    # differences (a row range reads its rows' boundaries)
     sid = torch.cat([torch.where(act, ia, n), torch.where(act, ib, n)])
     sid_sorted, order = torch.sort(sid, stable=True)
-    body_ids = torch.arange(n, device=ia.device)
+    body_ids = torch.arange(lo, hi, device=ia.device)
     seg_start = torch.searchsorted(sid_sorted, body_ids, side="left")
     seg_end = torch.searchsorted(sid_sorted, body_ids, side="right")
 
@@ -193,91 +236,118 @@ def _accumulator(prep: PreparedContacts, n: int, inv_mass, inv_inertia):
     return accumulate
 
 
+def _whole(tensors):
+    return tensors
+
+
+def jacobi_sweeps(prep: PreparedContacts, config, relaxation: float, n: int, v, w, acc, pos,
+                  ori, inv_mass, inv_inertia, rows=None, gather=_whole):
+    """The jacobi mode's velocity iterations and positional correction →
+    (v, w, acc, pos, ori). Every contact computes its impulse from the same
+    velocities, and the under-relaxed deltas accumulate per body.
+
+    With ``rows`` = (lo, hi) of N bodies, the body tensors are the rows of
+    bodies [lo, hi) and only they are updated; ``gather`` (a list of such
+    rows → the same tensors whole) gives the whole velocities each
+    iteration, the whole inverse masses and inertias once before the
+    correction and the whole positions and orientations each correction
+    iteration. The contacts and impulses are whole in any case."""
+    ia, ib, act = prep.body_a, prep.body_b, prep.active
+    act3 = act[:, None]
+    accumulate = _accumulator(prep, n, inv_mass, inv_inertia, rows)
+    for _ in range(max(config.n_iterations, 1) * 4):
+        v_all, w_all = gather([v, w])
+        rel = ((v_all[ia] + cross(w_all[ia], prep.disp_a))
+               - (v_all[ib] + cross(w_all[ib], prep.disp_b)))
+        imp = torch.stack([
+            -prep.eff_mass[:, 0] * ((prep.normal * rel).sum(dim=-1) - prep.target_sep_vel),
+            -prep.eff_mass[:, 1] * (prep.tangent * rel).sum(dim=-1),
+            -prep.eff_mass[:, 2] * (prep.bitangent * rel).sum(dim=-1),
+        ], dim=-1)
+        new_acc = _clamp_impulses(acc + relaxation * imp, prep.friction_coef)
+        dv, dw = accumulate(_momentum_change(prep, torch.where(act3, new_acc - acc, 0.0)))
+        v, w = v + dv, w + dw
+        acc = torch.where(act3, new_acc, acc)
+
+    # positional correction: parallel pseudo-impulses, same accumulation
+    corr = config.positional_correction_factor
+    if config.n_positional_correction_iterations > 0:
+        im_all, ii_all = gather([inv_mass, inv_inertia])
+    for _ in range(config.n_positional_correction_iterations):
+        pos_all, ori_all = gather([pos, ori])
+        pa = pos_all[ia] + quat.rotate(ori_all[ia], prep.local_a)
+        pb = pos_all[ib] + quat.rotate(ori_all[ib], prep.local_b)
+        depth = (prep.normal * (pb - pa)).sum(dim=-1)
+        em = _effective_mass(im_all[ia], im_all[ib], ii_all[ia], ii_all[ib],
+                             pb - pos_all[ia], pb - pos_all[ib], prep.normal)
+        pseudo = em * corr * depth * (act & (depth > 0.0)) * relaxation
+        dpos, dw = accumulate(pseudo[:, None] * prep.normal)
+        pos = pos + dpos
+        ori = quat.integrate_angular_velocity(ori, dw, 1.0)
+    return v, w, acc, pos, ori
+
+
 def solve_contacts(bodies: BodyState, prep: PreparedContacts, config, mode: str = "scan",
                    jacobi_relaxation: float = JACOBI_RELAXATION):
     """Velocity iterations + positional correction → (bodies, cache)
     (ref: solver.rs:296 compute_and_apply_constrained_state). ``scan``
     solves the slots in order (Gauss-Seidel), ``jacobi`` all at once with
     under-relaxation."""
-    if mode not in ("scan", "jacobi"):
-        raise ValueError(f"solver mode must be 'scan' or 'jacobi', not {mode!r}")
+    check_mode(mode)
     v, w = compute_velocities(bodies)
     inv_inertia = world_inv_inertia(bodies)
     inv_mass = bodies.inv_mass
-    ia, ib, act = prep.body_a, prep.body_b, prep.active
-    act3 = act[:, None]
-
-    # warm start (scatter-add)
-    acc = prep.warm_impulses * act3
-    dp = _momentum_change(prep, acc) * act3
-    v = v.index_add(0, ia, inv_mass[ia, None] * dp)
-    v = v.index_add(0, ib, -inv_mass[ib, None] * dp)
-    w = w.index_add(0, ia, torch.einsum("cij,cj->ci", inv_inertia[ia], cross(prep.disp_a, dp)))
-    w = w.index_add(0, ib, -torch.einsum("cij,cj->ci", inv_inertia[ib],
-                                         cross(prep.disp_b, dp)))
-
+    acc, v, w = warm_start(prep, v, w, inv_mass, inv_inertia)
     if mode == "scan":
         v, w, acc, pos, ori = scan_iterations(
             v, w, bodies.position, bodies.orientation, inv_mass, inv_inertia, prep, acc,
             config.n_iterations, config.n_positional_correction_iterations,
             config.positional_correction_factor)
-        return _finalize(bodies, prep, v, w, acc, pos, ori)
-
-    accumulate = _accumulator(prep, bodies.n, inv_mass, inv_inertia)
-    for _ in range(max(config.n_iterations, 1) * 4):
-        rel = (v[ia] + cross(w[ia], prep.disp_a)) - (v[ib] + cross(w[ib], prep.disp_b))
-        imp = torch.stack([
-            -prep.eff_mass[:, 0] * ((prep.normal * rel).sum(dim=-1) - prep.target_sep_vel),
-            -prep.eff_mass[:, 1] * (prep.tangent * rel).sum(dim=-1),
-            -prep.eff_mass[:, 2] * (prep.bitangent * rel).sum(dim=-1),
-        ], dim=-1)
-        new_acc = _clamp_impulses(acc + jacobi_relaxation * imp, prep.friction_coef)
-        dv, dw = accumulate(_momentum_change(prep, torch.where(act3, new_acc - acc, 0.0)))
-        v, w = v + dv, w + dw
-        acc = torch.where(act3, new_acc, acc)
-
-    # positional correction: parallel pseudo-impulses, same accumulation
-    pos, ori = bodies.position, bodies.orientation
-    corr = config.positional_correction_factor
-    for _ in range(config.n_positional_correction_iterations):
-        pa = pos[ia] + quat.rotate(ori[ia], prep.local_a)
-        pb = pos[ib] + quat.rotate(ori[ib], prep.local_b)
-        depth = (prep.normal * (pb - pa)).sum(dim=-1)
-        em = _effective_mass(inv_mass[ia], inv_mass[ib], inv_inertia[ia], inv_inertia[ib],
-                             pb - pos[ia], pb - pos[ib], prep.normal)
-        pseudo = em * corr * depth * (act & (depth > 0.0)) * jacobi_relaxation
-        dpos, dw = accumulate(pseudo[:, None] * prep.normal)
-        pos = pos + dpos
-        ori = quat.integrate_angular_velocity(ori, dw, 1.0)
-    return _finalize(bodies, prep, v, w, acc, pos, ori)
+    else:
+        v, w, acc, pos, ori = jacobi_sweeps(prep, config, jacobi_relaxation, bodies.n, v, w,
+                                            acc, bodies.position, bodies.orientation,
+                                            inv_mass, inv_inertia)
+    bodies = write_back(bodies, participants(bodies.n, prep.body_a, prep.body_b, prep.active),
+                        v, w, pos, ori)
+    return bodies, solver_cache(prep, acc, bodies.position)
 
 
-def _participants(n, ia, ib, act):
+def check_mode(mode: str):
+    if mode not in ("scan", "jacobi"):
+        raise ValueError(f"solver mode must be 'scan' or 'jacobi', not {mode!r}")
+
+
+def participants(n, ia, ib, act):
+    """bool [N, 1]: the bodies in at least one active constraint."""
     part = torch.zeros(n + 1, dtype=torch.bool, device=ia.device)
     part[torch.where(act, ia, n)] = True
     part[torch.where(act, ib, n)] = True
     return part[:n, None]
 
 
-def _finalize(bodies: BodyState, prep: PreparedContacts, v, w, acc, pos, ori):
-    # only bodies in ≥1 active constraint are written back (the reference's
-    # ConstrainedBodyManager holds exactly those)
-    pm = _participants(bodies.n, prep.body_a, prep.body_b, prep.active)
+def write_back(bodies: BodyState, pm, v, w, pos, ori) -> BodyState:
+    """The solved state of the bodies marked in ``pm`` (only bodies in ≥1
+    active constraint are written back: the reference's
+    ConstrainedBodyManager holds exactly those)."""
     bodies = bodies._replace(position=torch.where(pm, pos, bodies.position),
                              orientation=torch.where(pm, ori, bodies.orientation))
     synced = synchronize_momenta(bodies, v, w)
-    bodies = bodies._replace(
+    return bodies._replace(
         momentum=torch.where(pm, synced.momentum, bodies.momentum),
         angular_momentum=torch.where(pm, synced.angular_momentum, bodies.angular_momentum),
         velocity=torch.where(pm, synced.velocity, bodies.velocity),
         angular_velocity=torch.where(pm, synced.angular_velocity, bodies.angular_velocity),
     )
-    cache = SolverCache(
+
+
+def solver_cache(prep: PreparedContacts, acc, position) -> SolverCache:
+    """The solve's cache; ``position``: every body's position after the
+    write-back."""
+    return SolverCache(
         key=prep.key, impulses=acc, normal=prep.normal, tangent=prep.tangent,
         active=prep.active, body_a=prep.body_a, body_b=prep.body_b,
-        position=bodies.position[prep.body_b] + prep.disp_b,
+        position=position[prep.body_b] + prep.disp_b,
     )
-    return bodies, cache
 
 
 # --- spherical joints (ref: constraint/spherical_joint.rs) ---------------------
@@ -358,7 +428,7 @@ def solve_joints(bodies: BodyState, joints: JointPools, config) -> BodyState:
         ori = ori.index_copy(0, ia, quat.integrate_angular_velocity(ori[ia], dwa * act3, 1.0))
         ori = ori.index_copy(0, ib, quat.integrate_angular_velocity(ori[ib], dwb * act3, 1.0))
 
-    pm = _participants(bodies.n, ia, ib, act)
+    pm = participants(bodies.n, ia, ib, act)
     bodies = bodies._replace(position=torch.where(pm, pos, bodies.position),
                              orientation=torch.where(pm, ori, bodies.orientation))
     synced = synchronize_momenta(bodies, v, w)

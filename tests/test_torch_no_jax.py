@@ -219,3 +219,56 @@ def test_dryrun_command_defaults_to_the_card(monkeypatch):
                                                                backend=backend))
     assert dryrun.main([]) == 0
     assert seen == dict(n=8, device="cuda", backend=None)
+
+
+def test_sharded_solve_imports_with_jax_blocked():
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['impact_tpu'] = None\n"
+        f"sys.path.insert(0, {str(ROOT)!r})\n"
+        "import impact_tpu_torch.parallel.solver as s\n"
+        "from impact_tpu_torch.parallel import sharded_solve_contacts, shard_bodies\n"
+        "assert s.sharded_solve_contacts is sharded_solve_contacts\n"
+        "assert 'jax' not in {k.split('.')[0] for k, v in sys.modules.items() if v is not None}\n"
+        "print('ok')\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          cwd=str(ROOT), timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("ok")
+
+
+def test_sharded_solve_runs_on_the_mesh_device():
+    """``sharded_solve_contacts`` takes no device: its tensors go to the
+    mesh's, which ``make_device_mesh`` puts on ``cuda`` unless told
+    otherwise. On a one-rank mesh on the meta device, jacobi solves there
+    and scan raises (the scan solver runs on cuda or cpu tensors): nothing
+    falls back to the CPU."""
+    import inspect
+    import types
+
+    import torch
+
+    from impact_tpu_torch.parallel import make_device_mesh, sharded_solve_contacts
+    from impact_tpu_torch.parallel.jobs import solver_scene
+
+    assert "device" not in inspect.signature(sharded_solve_contacts).parameters
+    assert inspect.signature(make_device_mesh).parameters["device"].default == "cuda"
+
+    class OneRank:
+        def size(self, axis):
+            return 1
+
+        def coordinate(self, axis):
+            return 0
+
+        def all_gather_rows(self, tensors, axis="objects"):
+            return list(tensors)
+
+    mesh = types.SimpleNamespace(device=torch.device("meta"), comm=OneRank())
+    bodies, prep, cfg = solver_scene(8, 16, "cpu", 5)
+    out, cache = sharded_solve_contacts(mesh, bodies, prep, cfg, "jacobi")
+    assert out.velocity.device.type == cache.impulses.device.type == "meta"
+    with pytest.raises(ValueError, match="not meta"):
+        sharded_solve_contacts(mesh, bodies, prep, cfg, "scan")

@@ -18,6 +18,9 @@ they run on the GPU host:
 * (f) The space axis: the labels kernel on slabs [B,gx,G,G] (gx < G, and
   gx = G unchanged) against its plain version, and the 1024-slot pod on a
   4×2 mesh of 8 ranks sharing the card.
+* (g) The contact solve with the bodies split over the objects axis of a
+  4×2 mesh on those 8 ranks, against the single-process solve on the card;
+  every scan launch of the ranks equal to the plain loop.
 """
 
 import pytest
@@ -30,6 +33,7 @@ from chip_smoke import (
     parallel_halo,
     parallel_pod,
     parallel_quick_start,
+    parallel_sharded_solve,
     parallel_solver_memory,
     parallel_space_pod,
 )
@@ -120,3 +124,11 @@ def test_slab_labels_kernel_equals_plain_version(card, gx, g):
 def test_pod_step_on_4x2(world8):
     rows = parallel_space_pod(world8)
     assert len(rows) == SPACE_RANKS and any(r["halos"] for r in rows)
+
+
+@pytest.mark.cuda
+def test_body_sharded_solve_on_4x2(card, world8):
+    rows, scan_launches = parallel_sharded_solve(card, world8)
+    assert scan_launches > 0
+    assert all(r["ranks"] == SPACE_RANKS for r in rows)
+    assert all(r["bitwise_equal"] for r in rows if not r["warm"])

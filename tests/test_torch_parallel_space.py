@@ -366,3 +366,12 @@ def test_dryrun_on_2x2(world):
     assert r["mesh"] == (2, 2) and r["halo_mesh"] == (2, 2)
     assert jobs.dryrun_mesh(4) == (2, 2) and jobs.dryrun_mesh(8) == (4, 2)
     assert jobs.dryrun_mesh(2) == (2, 1) and jobs.dryrun_mesh(3) == (3, 1)
+
+
+def test_a_mesh_over_every_rank_meets_after_the_dry_run(world):
+    """The dry run's job builds each of its meshes on every rank, those
+    outside it too, so a mesh over all 8 ranks built after it meets: a
+    process group that only some ranks create puts their group counts out
+    of step, and the next mesh's rendezvous never completes."""
+    assert world.run(jobs.dryrun_job, 4)[4:] == [None] * 4
+    assert world.run(jobs.solve_guard_job, 1024, timeout=60) == [None] * 8
