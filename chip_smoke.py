@@ -147,7 +147,20 @@ then drives these paths through the port's entry points:
    reported), every scan launch of the ranks held against the plain
    loop, the device peak per rank under C·N·4 bytes, the collectives
    body-row gathers only. Ranks sharing a card say nothing about a
-   multi-card speed.
+   multi-card speed;
+16. the reference's public surface that the port gained last
+   (``surface_phase``): the committed image fixtures
+   (``tests/data/surface_images``: a baseline 4:2:0 and a progressive
+   4:4:4 JPEG at 256², an 8-bit and a 16-bit greyscale PNG) decoded by the
+   port (the card has no PIL) equal to PIL's decodes committed beside
+   them, each decode timed; the textured box with the JPEG as its colour
+   texture through K1, every launch held against K1's plain version, at
+   0.95 against the plain tile raster's frame; ``split_off_disconnected_region``
+   on a 32³ two-component grid, its labels launch held against the plain
+   version and the pool equal to the CPU's; and ``rasterize(method="chunk")``
+   against ``method="tiled"`` at 480x270 on the bench scene's triangles
+   (depth within 2e-3, coverage equal on more than 0.99 of the pixels),
+   both timed.
 
 Kernel launch counts are zeroed just before each path and read just after
 it. Every phase prints one flushed line with its seconds; any failure exits
@@ -177,7 +190,7 @@ of the record), so two trees can be timed in turns in one call.
 phases; ``--scene-physics-only`` only the scene physics phase; ``--api-only``
 only the API phase; ``--generation-only`` only the generation phase;
 ``--parity-only`` only the parity phase; ``--parallel-only`` only the
-parallel phase.
+parallel phase; ``--surface-only`` only the surface phase.
 """
 
 from __future__ import annotations
@@ -1123,6 +1136,10 @@ def main(argv=None) -> int:
     ap.add_argument("--parity-only", action="store_true",
                     help="run only the parity phase (the reference tester's scenes, bf16 "
                          "shading, gizmos, the chunked rebake, the scene graph)")
+    ap.add_argument("--surface-only", action="store_true",
+                    help="run only the surface phase (image fixtures decoded, the JPEG-textured "
+                         "box through K1, a single-region split through the labels kernel, "
+                         "the brute-force chunk raster)")
     ap.add_argument("--parallel-only", action="store_true",
                     help="run only the parallel phase (the engine step sharded over the "
                          "voxel-object pool, the halo exchange, the pod-scale checks, the "
@@ -1219,6 +1236,10 @@ def main(argv=None) -> int:
     if args.parallel_only:
         kernels = []
         parallel_phase(dev, record, kernels)
+        return finish(t_all, record, kernels, kind, count)
+    if args.surface_only:
+        kernels = []
+        surface_phase(dev, record, kernels)
         return finish(t_all, record, kernels, kind, count)
 
     with Phase("K2 vs plain version, G=32: random fills, serpentine, empty, full"):
@@ -1600,6 +1621,7 @@ def main(argv=None) -> int:
     generation_phase(dev, record, kernels)
     parity_phase(dev, record, kernels)
     parallel_phase(dev, record, kernels)
+    surface_phase(dev, record, kernels)
     return finish(t_all, record, kernels, kind, count)
 
 
@@ -1948,18 +1970,22 @@ def textured_box_textures():
                 height=value_noise(32, cells=4, seed=9))
 
 
-def textured_box_scene():
+def textured_box_scene(colour_source=None):
     """tests/test_textured_materials.py's scene as a port world: a box mesh
     entity with a checkerboard colour, a noise normal map and a parallax
     height map (32² textures, registered with ``register_texture``), lit by
-    ambient and a directional light."""
+    ambient and a directional light. ``colour_source`` (an image file's
+    path) replaces the checkerboard as the colour texture."""
     import math
 
     from impact_tpu_torch.ecs import World
     from impact_tpu_torch.ecs import components as C
     from impact_tpu_torch.runtime.setup import register_texture
 
-    ids = {k: register_texture(f"textured-box-{k}", v) for k, v in textured_box_textures().items()}
+    textures = textured_box_textures()
+    if colour_source is not None:
+        textures["checker"] = str(colour_source)
+    ids = {k: register_texture(f"textured-box-{k}", v) for k, v in textures.items()}
     w = World()
     w.create_entity(C.ReferenceFrame(position=(0.0, 0.0, 0.0), orientation=(0.0, 1.0, 0.0, 0.0)),
                     C.PerspectiveCamera(vertical_field_of_view=math.radians(50),
@@ -3895,6 +3921,219 @@ def parallel_phase(dev, record, kernels):
         ms=slab_timing["ms"], plain_ms=slab_timing["plain_ms"],
         bound_ms=slab_timing["bound_ms"], bound_by=slab_timing["bound_by"], library_ms=None))
     record["parallel"]["k2_labels_slab"] = slab_timing
+
+
+SURFACE_FIXTURES = ("base420.jpg", "prog444.jpg", "grey8.png", "grey16.png")
+SURFACE_DECODE_REPS = 3
+
+
+def surface_phase(dev, record, kernels):
+    """The last-ported names of the reference's public surface, on the card:
+    (a) the committed image fixtures (tests/data/surface_images; the card
+    has no PIL) decoded by the port equal to PIL's decodes committed beside
+    them, each decode timed; (b) the textured box with the baseline JPEG as
+    its colour texture, compiled and rendered through K1 with every launch
+    held against K1's plain version, scored against the plain tile raster's
+    frame; (c) ``split_off_disconnected_region`` on a 32^3 two-component
+    grid, its labels launch held against the plain version and the pool
+    equal to the CPU's; (d) ``rasterize(method="chunk")`` against
+    ``method="tiled"`` at 480x270 on the bench scene's triangles, at the
+    raster bars (depth within 2e-3, coverage equal on > 0.99 of pixels)."""
+    import numpy as np
+    import torch
+
+    from impact_tpu_torch.apps import snapshot_tester as st
+    from impact_tpu_torch.devtools import cuda_time_ms
+    from impact_tpu_torch.models.bench import bench_config, bench_scene
+    from impact_tpu_torch.ops import ccl_pallas as k2
+    from impact_tpu_torch.render import raster as rasterlib
+    from impact_tpu_torch.render import raster_pallas as rp
+    from impact_tpu_torch.render.camera import projection_matrix, view_matrix
+    from impact_tpu_torch.render.pipeline import project_corners
+    from impact_tpu_torch.runtime import HeadlessRuntime, compile_scene
+    from impact_tpu_torch.utils.config import EngineConfig
+    from impact_tpu_torch.utils.image import load_image, rgb_hybrid_compare
+    from impact_tpu_torch.voxel.interaction import split_off_disconnected_region
+    from impact_tpu_torch.voxel.object import empty_voxel_object_pool
+
+    t_phase = time.perf_counter()
+    rows = record["surface"] = {}
+    fixtures = os.path.join(HERE, "tests", "data", "surface_images")
+    with Phase("surface (a): the image fixtures decoded by the port, equal to PIL's decodes"):
+        decode_ms = {}
+        for name in SURFACE_FIXTURES:
+            with open(os.path.join(fixtures, name), "rb") as f:
+                data = f.read()
+            want = load_image(os.path.join(fixtures, f"{name}.rgb.png"))
+            times = []
+            for _ in range(SURFACE_DECODE_REPS):
+                t0 = time.perf_counter()
+                got = load_image(data, mode="RGB")
+                times.append((time.perf_counter() - t0) * 1e3)
+            if got.shape != want.shape or not np.array_equal(got, want):
+                raise AssertionError(f"{name}: the port's decode differs from PIL's at "
+                                     f"{int((got != want).sum())} samples")
+            decode_ms[name] = min(times)
+            log(f"surface decode {name} ({len(data)} B, {got.shape[1]}x{got.shape[0]}): equal to "
+                f"PIL's decode; {decode_ms[name]:.2f} ms (fastest of {SURFACE_DECODE_REPS})")
+        rows["decode_ms"] = decode_ms
+
+    k1_names = {"k1_raster_attributes": "k1_attr_kernel", "k1_raster_depth": "k1_depth_kernel"}
+    with Phase("surface (b): the JPEG-textured box through K1, every launch held, against the "
+               "plain tile raster's frame"):
+        cfg = textured_box_config(EngineConfig())
+        rt = HeadlessRuntime(compile_scene(textured_box_scene(os.path.join(fixtures,
+                                                                           "base420.jpg")),
+                                           cfg, device=dev), cfg, enable_fracturing=False)
+        held = dict(depth=0, attributes=0, max_abs_err=0.0)
+        views = []
+        run_depth, run_attr = rp.raster_depth, rp.raster_attributes
+        hold_depth, hold_attr = held_k1(held)
+
+        def rec_depth(b):
+            views.append(("k1_raster_depth", b, 0))
+            return hold_depth(b)
+
+        def rec_attr(b, n_attr):
+            views.append(("k1_raster_attributes", b, n_attr))
+            return hold_attr(b, n_attr)
+
+        rp.raster_depth, rp.raster_attributes = rec_depth, rec_attr
+        rp.LAUNCHES.reset()
+        try:
+            img = rt.render().cpu().numpy()
+        finally:
+            rp.raster_depth, rp.raster_attributes = run_depth, run_attr
+        k1_launches = dict(rp.LAUNCHES)
+        if k1_launches["k1_raster_attributes"] <= 0:
+            raise AssertionError(f"the JPEG-textured box did not go through K1: {k1_launches}")
+        if held["depth"] + held["attributes"] != sum(k1_launches.values()):
+            raise AssertionError(f"held {held} of the launches {k1_launches}")
+        if not rt.render_config.textured:
+            raise AssertionError("the JPEG texture did not turn the textured path on")
+        t0 = time.perf_counter()
+        rt.render()
+        torch.cuda.synchronize()
+        frame_ms = (time.perf_counter() - t0) * 1e3
+        parity = rgb_hybrid_compare(img, st.render_again(rt, "raster"))
+        face_std = float(img[28:68, 44:84].astype("float32").std(axis=(0, 1)).max())
+        log(f"surface JPEG box: K1 launches {k1_launches}, each equal to the plain version "
+            f"(max abs err {held['max_abs_err']:.3g}); frame {frame_ms:.2f} ms; vs the plain "
+            f"tile raster's frame {parity:.4f} (bar {PARITY_BAR}); face colour spread "
+            f"{face_std:.1f}")
+        if parity < PARITY_BAR or face_std <= 8.0:
+            raise AssertionError(f"JPEG box: parity {parity:.4f}, face spread {face_std}")
+        k1_rows = {}
+        for name, b, n_attr in views:
+            call = ((lambda b=b, n=n_attr: rp.raster_attributes(b, n)) if n_attr
+                    else (lambda b=b: rp.raster_depth(b)))
+            plain = ((lambda b=b, n=n_attr: rp.raster_attributes_plain(b, n)) if n_attr
+                     else (lambda b=b: rp.raster_depth_plain(b)))
+            bnd, by = rp.bound_ms(b, n_attr)
+            k1_rows.setdefault(name, []).append(dict(
+                ms=kernel_ms(call, k1_names[name]), plain_ms=cuda_time_ms(plain, reps=3),
+                bound_ms=bnd, bound_by=by))
+        rows["jpeg_box"] = dict(parity=parity, face_std=face_std, frame_ms=frame_ms,
+                                launches=k1_launches, k1=k1_rows)
+
+    with Phase("surface (c): split_off_disconnected_region on a 32^3 two-component grid, "
+               "through the labels kernel"):
+        g = 32
+        pool = empty_voxel_object_pool(4, g, device=dev)
+        sdf = pool.sdf.clone()
+        occ = torch.zeros((g, g, g), dtype=torch.bool, device=dev)
+        occ[2:14, 2:14, 2:14] = True
+        occ[20:27, 18:30, 19:26] = True
+        sdf[0] = torch.where(occ, -0.3, 0.7)
+        pool = pool._replace(sdf=sdf, alive=torch.tensor([True, False, False, False], device=dev),
+                             voxel_extent=torch.full((4,), 0.25, device=dev))
+        k2.LAUNCHES.reset()
+        out, did, disc = split_off_disconnected_region(pool, 0, 2)
+        torch.cuda.synchronize()
+        split_launches = dict(k2.LAUNCHES)
+        if split_launches["k2_labels"] < 1:
+            raise AssertionError(f"the split did not label through the labels kernel: "
+                                 f"{split_launches}")
+        cpu = split_off_disconnected_region(type(pool)(*(x.cpu() for x in pool)), 0, 2)
+        for name, a, b in zip(pool._fields, out, cpu[0]):
+            if not torch.equal(a.cpu(), b):
+                raise AssertionError(f"split on the card: pool.{name} differs from the CPU's")
+        if not (bool(did) and bool(disc)) or (bool(did), bool(disc)) != (bool(cpu[1]),
+                                                                        bool(cpu[2])):
+            raise AssertionError(f"split flags {bool(did)}, {bool(disc)}; CPU {bool(cpu[1])}, "
+                                 f"{bool(cpu[2])}")
+        batch = occ[None].contiguous()
+        got = k2.connected_component_labels_batched(batch)
+        if not torch.equal(got, k2.connected_component_labels_plain(batch)):
+            raise AssertionError("the split's labels launch differs from the plain version")
+        moved = int((out.sdf[2] < 0).sum())
+        labels_ms = cuda_time_ms(lambda: k2.connected_component_labels_batched(batch), reps=20)
+        labels_plain_ms = cuda_time_ms(lambda: k2.connected_component_labels_plain(batch), reps=3)
+        bnd, by = k2.labels_bound_ms(batch)
+        log(f"surface split: launches {split_launches}; moved {moved} of {int(occ.sum())} voxels "
+            f"to slot 2; pool equal to the CPU's; labels launch equal to the plain version, "
+            f"{labels_ms:.4f} ms per call, plain {labels_plain_ms:.4f} ms, bound {bnd:.6f} ms "
+            f"({by})")
+        rows["split"] = dict(launches=split_launches, moved=moved, labels_ms=labels_ms,
+                             labels_plain_ms=labels_plain_ms, bound_ms=bnd, bound_by=by)
+
+    with Phase("surface (d): rasterize(method='chunk') against method='tiled', 480x270, the "
+               "bench scene's triangles"):
+        c = bench_config(480, 270)
+        r = HeadlessRuntime(compile_scene(bench_scene(), c, device=dev), c)
+        scene = r.scene()
+        cam = r.params.camera
+        vp = projection_matrix(cam, 480, 270, None) @ view_matrix(cam)
+        clip = project_corners(scene.tri_pos, vp)
+        act = scene.tri_active
+
+        def chunk():
+            return rasterlib.rasterize(clip, act, 270, 480, method="chunk")[0]
+
+        def tiled():
+            return rasterlib.rasterize(clip, act, 270, 480, method="tiled", fit_k=True)[0]
+
+        a, b = chunk(), tiled()
+        cover = ((a.depth < 1.0) == (b.depth < 1.0)).float().mean().item()
+        both = (a.depth < 1.0) & (b.depth < 1.0)
+        derr = (a.depth - b.depth).abs()[both].max().item() if bool(both.any()) else 0.0
+        same_id = (a.tri_id == b.tri_id)[both].float().mean().item() if bool(both.any()) else 1.0
+        chunk_ms = cuda_time_ms(chunk, reps=2, warmup=1)
+        tiled_ms = cuda_time_ms(tiled, reps=5, warmup=1)
+        log(f"surface chunk raster at 480x270: {int(act.sum())} active triangles of "
+            f"{act.shape[0]}; coverage agrees on {cover:.6f} of pixels, depth within "
+            f"{derr:.3g}, same triangle on {same_id:.6f} of covered pixels; chunk "
+            f"{chunk_ms:.2f} ms, tiled {tiled_ms:.2f} ms")
+        if cover <= 0.99 or derr > 2e-3 or not bool(both.any()):
+            raise AssertionError(f"chunk vs tiled raster: coverage {cover}, depth err {derr}")
+        rows["chunk_raster"] = dict(coverage_agree=cover, depth_err=derr, same_id=same_id,
+                                    chunk_ms=chunk_ms, tiled_ms=tiled_ms,
+                                    triangles=int(act.sum()))
+
+    for name, k1 in k1_rows.items():
+        entry = next((k for k in kernels if k["name"] == name), None)
+        if entry is not None:
+            entry["surface_launches"] = k1_launches[name]
+            continue
+        n = len(k1)
+        kernels.append(dict(
+            name=name, route="cuda", source="impact_tpu_torch/csrc/raster.cu",
+            replaces="impact_tpu/render/raster_pallas.py:781", launches=k1_launches[name],
+            max_abs_err=held["max_abs_err"], ms=sum(x["ms"] for x in k1) / n,
+            plain_ms=sum(x["plain_ms"] for x in k1) / n,
+            bound_ms=sum(x["bound_ms"] for x in k1) / n, bound_by=k1[0]["bound_by"],
+            library_ms=None))
+    entry = next((k for k in kernels if k["name"] == "k2_labels"), None)
+    if entry is not None:
+        entry["surface_launches"] = split_launches["k2_labels"]
+    else:
+        kernels.append(dict(
+            name="k2_labels", route="cuda", source="impact_tpu_torch/csrc/ccl.cu",
+            replaces="impact_tpu/ops/ccl_pallas.py:45", launches=split_launches["k2_labels"],
+            max_abs_err=0.0, ms=labels_ms, plain_ms=labels_plain_ms, bound_ms=bnd, bound_by=by,
+            library_ms=None))
+    rows["phase_s"] = time.perf_counter() - t_phase
+    log(f"surface phase: {rows['phase_s']:.2f} s")
 
 
 def finish(t_all, record, kernels, kind, count) -> int:

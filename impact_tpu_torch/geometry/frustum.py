@@ -22,3 +22,12 @@ def sphere_inside_frustum(normals, displacements, centers, radii):
     """True for spheres not entirely outside any plane. centers [...,3]."""
     sd = torch.einsum("pk,...k->...p", normals, centers) - displacements
     return torch.all(sd >= -radii[..., None], dim=-1)
+
+
+def aabb_inside_frustum(normals, displacements, lo, hi):
+    """Conservative AABB-vs-frustum: each box's corner furthest along each
+    plane's normal (the p-vertex) against every plane. lo/hi [...,3]
+    broadcast against the 6 planes."""
+    corner = torch.where(normals > 0, hi[..., None, :], lo[..., None, :])
+    sd = (normals * corner).sum(dim=-1) - displacements
+    return torch.all(sd >= 0.0, dim=-1)

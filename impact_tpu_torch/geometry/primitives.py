@@ -7,6 +7,11 @@ from __future__ import annotations
 import torch
 
 
+def plane_signed_distance(normal, displacement, p):
+    """Signed distance of point(s) to plane(s): positive on the normal side."""
+    return (normal * p).sum(dim=-1) - displacement
+
+
 def closest_point_on_segment(a, b, p, eps=1e-12):
     """Closest point to ``p`` on segment a→b, and its clamped parameter t."""
     ab = b - a
@@ -39,3 +44,15 @@ def segment_segment_closest_points(p1, q1, p2, q2, eps=1e-9):
     s = torch.where(t != t_clamped,
                     torch.clamp((t_clamped * b - c) / torch.clamp(a, min=eps), 0.0, 1.0), s)
     return p1 + s[..., None] * d1, p2 + t_clamped[..., None] * d2
+
+
+def sphere_sdf(center, radius, p):
+    return torch.linalg.vector_norm(p - center, dim=-1) - radius
+
+
+def box_sdf(half_extents, p):
+    """SDF of an axis-aligned box centred at the origin (exact)."""
+    q = p.abs() - half_extents
+    outside = torch.linalg.vector_norm(torch.clamp(q, min=0.0), dim=-1)
+    inside = torch.clamp(q.amax(dim=-1), max=0.0)
+    return outside + inside

@@ -39,3 +39,19 @@ def orthographic_projection_matrix(left, right, bottom, top, near, far, device=N
     m[2, 3] = -near / (far - near)
     m[3, 3] = 1.0
     return m
+
+
+def project_points(proj, points_view):
+    """View-space points [...,3] through a projection matrix → (NDC [...,3]:
+    x, y in [-1,1], depth in [0,1]; clip-space w [...])."""
+    hp = torch.cat([points_view, torch.ones_like(points_view[..., :1])], -1)
+    clip = torch.einsum("ij,...j->...i", proj, hp)
+    w = clip[..., 3]
+    ndc = clip[..., :3] / torch.where(w.abs() < 1e-12, torch.full_like(w, 1e-12), w)[..., None]
+    return ndc, w
+
+
+def view_z_from_depth(depth, near, far):
+    """Invert the perspective depth mapping: depth ∈ [0,1] → view-space −z."""
+    depth = torch.as_tensor(depth)
+    return far * near / torch.clamp(far - depth * (far - near), min=1e-12)

@@ -9,6 +9,8 @@ from __future__ import annotations
 
 import torch
 
+IDENTITY = torch.tensor([0.0, 0.0, 0.0, 1.0])  # (x, y, z, w), on the CPU
+
 
 def identity(batch_shape=(), dtype=torch.float32, device=None):
     q = torch.zeros((*batch_shape, 4), dtype=dtype, device=device)
@@ -40,6 +42,9 @@ def conjugate(q):
     return q * torch.tensor([-1.0, -1.0, -1.0, 1.0], dtype=q.dtype, device=q.device)
 
 
+inverse = conjugate  # unit quaternions only
+
+
 def cross(a, b):
     """Cross product over the last axis, broadcasting the leading axes."""
     a, b = torch.broadcast_tensors(a, b)
@@ -63,6 +68,18 @@ def from_axis_angle(axis, angle):
     """Unit quaternion rotating by ``angle`` (radians) about unit ``axis``."""
     half = 0.5 * angle
     return torch.cat([axis * torch.sin(half)[..., None], torch.cos(half)[..., None]], dim=-1)
+
+
+
+def to_axis_angle(q, eps=1e-12):
+    """Inverse of :func:`from_axis_angle`: (axis [...,3], angle [...]);
+    the x axis where the rotation is the identity."""
+    w = torch.clamp(q[..., 3], -1.0, 1.0)
+    angle = 2.0 * torch.arccos(w)
+    s = torch.sqrt(torch.clamp(1.0 - w * w, min=0.0))
+    x_axis = torch.tensor([1.0, 0.0, 0.0], dtype=q.dtype, device=q.device).expand(q[..., :3].shape)
+    axis = torch.where(s[..., None] > eps, q[..., :3] / torch.clamp(s[..., None], min=eps), x_axis)
+    return axis, angle
 
 
 def integrate_angular_velocity(q, omega, dt):
@@ -113,3 +130,18 @@ def from_rotation_matrix(m):
     use2 = (m11 >= m22)[..., None]
     q = torch.where(use0, c0, torch.where(use1, c1, torch.where(use2, c2, c3)))
     return normalize(q)
+
+
+def slerp(q0, q1, t):
+    """Spherical linear interpolation (shortest arc)."""
+    d = (q0 * q1).sum(dim=-1, keepdim=True)
+    q1 = torch.where(d < 0, -q1, q1)
+    d = d.abs()
+    theta = torch.arccos(torch.clamp(d, -1.0, 1.0))
+    sin_theta = torch.sin(theta)
+    small = sin_theta < 1e-5
+    t = torch.as_tensor(t, dtype=q0.dtype, device=q0.device)
+    inv = 1.0 / torch.clamp(sin_theta, min=1e-12)
+    w0 = torch.where(small, 1.0 - t, torch.sin((1.0 - t) * theta) * inv)
+    w1 = torch.where(small, t, torch.sin(t * theta) * inv)
+    return normalize(w0 * q0 + w1 * q1)

@@ -29,6 +29,11 @@ def iso_apply(iso: Isometry, p):
     return quat.rotate(iso.rotation, p) + iso.translation
 
 
+
+def iso_apply_vector(iso: Isometry, v):
+    return quat.rotate(iso.rotation, v)
+
+
 def iso_inverse(iso: Isometry) -> Isometry:
     rinv = quat.conjugate(iso.rotation)
     return Isometry(-quat.rotate(rinv, iso.translation), rinv)
@@ -44,6 +49,17 @@ def iso_compose(a: Isometry, b: Isometry) -> Isometry:
 
 def sim_apply(sim: Similarity, p):
     return quat.rotate(sim.rotation, p * sim.scaling[..., None]) + sim.translation
+
+
+
+def sim_apply_vector(sim: Similarity, v):
+    return quat.rotate(sim.rotation, v * sim.scaling[..., None])
+
+
+def sim_inverse(sim: Similarity) -> Similarity:
+    rinv = quat.conjugate(sim.rotation)
+    sinv = 1.0 / sim.scaling
+    return Similarity(-quat.rotate(rinv, sim.translation) * sinv[..., None], rinv, sinv)
 
 
 def sim_compose(a: Similarity, b: Similarity) -> Similarity:
@@ -70,3 +86,9 @@ def iso_to_matrix(iso: Isometry):
     ones = torch.ones(iso.translation.shape[:-1], dtype=iso.translation.dtype,
                       device=iso.translation.device)
     return sim_to_matrix(Similarity(iso.translation, iso.rotation, ones))
+
+
+def sim_from_iso(iso: Isometry) -> Similarity:
+    return Similarity(iso.translation, iso.rotation,
+                      torch.ones(iso.translation.shape[:-1], dtype=iso.translation.dtype,
+                                 device=iso.translation.device))

@@ -70,6 +70,15 @@ def _load():
     return lib
 
 
+def available() -> bool:
+    """Whether the native library builds (or is built) and loads."""
+    try:
+        _load()
+        return True
+    except Exception:
+        return False
+
+
 def delaunay_tetrahedralize(points) -> np.ndarray:
     """3D Delaunay tetrahedralization: points [N,3] → [T,4] int32
     tetrahedron vertex indices."""

@@ -226,6 +226,32 @@ def connected_component_labels_batched(occ):
     return out
 
 
+def ccl_propagate_sweeps(occ, labels, n_sweeps: int = 16):
+    """Up to ``n_sweeps`` 6-neighbour min sweeps of one label grid (the
+    reference's name for a call of its sweep kernel): ``occ`` bool
+    [G,G,G], ``labels`` i32 [G,G,G] with ``big`` = G³ on empty voxels.
+    Launches the sweep kernel ``k2_ccl_sweeps`` (K2-wide past
+    ``k2_fits_shared``) on CUDA tensors, through ``ccl_sweeps``; the plain
+    sweeps on CPU tensors. A grid stops at its fixpoint, which further
+    sweeps would not change."""
+    out, _ = ccl_sweeps(occ[None].contiguous(), labels[None].to(torch.int32).contiguous(),
+                        n_sweeps)
+    return out[0]
+
+
+def connected_component_labels_pallas(occ, max_iters: int | None = None, n_sweeps: int = 16):
+    """Labels of one grid [G,G,G] (the reference's name for its kernel's
+    fixpoint loop): i32, −1 where empty. With ``max_iters`` None, the labels
+    kernel ``k2_ccl_labels`` (through ``connected_component_labels_batched``)
+    on CUDA tensors and its plain fixpoint on CPU tensors; with a bound, at
+    most ``max_iters`` × ``n_sweeps`` sweeps of the sweep kernel
+    (``ccl_propagate_sweeps``), the labels reached by then."""
+    if max_iters is None:
+        return connected_component_labels_batched(occ[None].contiguous())[0]
+    labels = ccl_propagate_sweeps(occ, initial_labels(occ), max_iters * n_sweeps)
+    return torch.where(occ, labels, -1)
+
+
 def bound_ms(occ, sweeps) -> tuple:
     """Least time an H100 (3.35 TB/s HBM; 67 T/s non-tensor operations, the
     data sheet's float32 rate, taken for integer min on the same cores) could take

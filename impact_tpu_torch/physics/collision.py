@@ -49,6 +49,28 @@ class CollidablePools(NamedTuple):
     cap_mask: torch.Tensor  # bool[Nc]
 
 
+def empty_collidable_pools(n_spheres=64, n_planes=8, n_capsules=16, device=None) -> CollidablePools:
+    """Pools with every slot masked off; planes face +y and are static."""
+    def z(*shape, dtype=torch.float32):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    def one(n):
+        return torch.ones(n, dtype=torch.float32, device=device)
+
+    up = torch.tensor([[0.0, 1.0, 0.0]], device=device).repeat(n_planes, 1)
+    return CollidablePools(
+        sph_body=z(n_spheres, dtype=torch.int64), sph_center=z(n_spheres, 3),
+        sph_radius=one(n_spheres), sph_kind=z(n_spheres, dtype=torch.int32),
+        sph_response=z(n_spheres, 3), sph_mask=z(n_spheres, dtype=torch.bool),
+        pln_body=z(n_planes, dtype=torch.int64), pln_normal=up, pln_disp=z(n_planes),
+        pln_kind=torch.ones(n_planes, dtype=torch.int32, device=device),
+        pln_response=z(n_planes, 3), pln_mask=z(n_planes, dtype=torch.bool),
+        cap_body=z(n_capsules, dtype=torch.int64), cap_start=z(n_capsules, 3),
+        cap_end=z(n_capsules, 3), cap_radius=one(n_capsules),
+        cap_kind=z(n_capsules, dtype=torch.int32), cap_response=z(n_capsules, 3),
+        cap_mask=z(n_capsules, dtype=torch.bool))
+
+
 class WorldCollidables(NamedTuple):
     """World-space collidable geometry for one substep."""
 

@@ -7,18 +7,20 @@ coefficients in the body frame per unit dynamic pressure q = ½ρ|v|², built
 once on the host in float64 numpy from the shape's surface mesh with a
 Newtonian flat-plate model (the same code as the reference's, so the tables
 are equal bit for bit) and cached on disk under a sha1 of the mesh and the
-resolution. The engine samples the tables per body in
-``forces.sample_drag_load`` (the reference's ``sample_drag_load`` of one
-table is that function with the table shared).
+resolution. ``sample_drag_load`` samples one table, as the reference's
+does; the engine samples the tables per body in ``forces.sample_drag_load``;
+both read through ``bilinear_lookup``.
 """
 
 from __future__ import annotations
 
 import hashlib
+import math
 import pathlib
 from typing import NamedTuple
 
 import numpy as np
+import torch
 
 
 class DragLoadMap(NamedTuple):
@@ -91,3 +93,33 @@ def get_or_build_drag_load_map(vertices, triangles, center_of_mass=(0.0, 0.0, 0.
         path.parent.mkdir(parents=True, exist_ok=True)
         np.savez_compressed(path, table=m.table)
     return m
+
+
+def bilinear_lookup(entry, n_theta: int, n_phi: int, direction_body):
+    """The bilinear equirectangular lookup of a [T,P,6] map at unit
+    incoming-flow directions [...,3] in the body frame, the map read through
+    ``entry(theta_index, phi_index)``. Returns (force_coef [...,3],
+    torque_coef [...,3])."""
+    d = direction_body
+    theta = torch.arccos(torch.clamp(d[..., 1], -1.0, 1.0))
+    phi = torch.remainder(torch.atan2(d[..., 2], d[..., 0]), 2.0 * math.pi)
+    ft = theta / math.pi * n_theta - 0.5
+    fp = phi / (2.0 * math.pi) * n_phi
+    t0 = torch.clamp(torch.floor(ft).long(), 0, n_theta - 1)
+    t1 = torch.clamp(t0 + 1, 0, n_theta - 1)
+    wt = torch.clamp(ft - t0, 0.0, 1.0)[..., None]
+    p0 = torch.remainder(torch.floor(fp).long(), n_phi)
+    p1 = torch.remainder(p0 + 1, n_phi)
+    wp = (fp - torch.floor(fp))[..., None]
+    out = (entry(t0, p0) * (1 - wt) * (1 - wp) + entry(t0, p1) * (1 - wt) * wp
+           + entry(t1, p0) * wt * (1 - wp) + entry(t1, p1) * wt * wp)
+    return out[..., 0:3], out[..., 3:6]
+
+
+def sample_drag_load(map_table, direction_body):
+    """Bilinear equirectangular lookup in one map ``map_table`` f32[T,P,6]
+    at unit incoming-flow directions [...,3] in the body frame. Returns
+    (force_coef [...,3], torque_coef [...,3]); ``physics/forces.py`` has
+    the per-body form the engine step uses."""
+    return bilinear_lookup(lambda t, p: map_table[t, p], map_table.shape[0], map_table.shape[1],
+                           direction_body)

@@ -16,6 +16,7 @@ import torch
 
 from ..math import quaternion as quat
 from ..math.quaternion import cross
+from .drag_map import bilinear_lookup
 from .state import BodyState, compute_velocities, reset_forces_and_torques
 
 
@@ -91,22 +92,9 @@ def sample_drag_load(tables, direction_body):
     """Bilinear equirectangular lookup per body (ref: DragLoadMap). ``tables``
     f32[N,T,P,6], ``direction_body`` [N,3] unit incoming-flow direction.
     Returns (force_coef [N,3], torque_coef [N,3])."""
-    n_theta, n_phi = tables.shape[1], tables.shape[2]
-    d = direction_body
-    theta = torch.arccos(torch.clamp(d[..., 1], -1.0, 1.0))
-    phi = torch.remainder(torch.atan2(d[..., 2], d[..., 0]), 2.0 * math.pi)
-    ft = theta / math.pi * n_theta - 0.5
-    fp = phi / (2.0 * math.pi) * n_phi
-    t0 = torch.clamp(torch.floor(ft).long(), 0, n_theta - 1)
-    t1 = torch.clamp(t0 + 1, 0, n_theta - 1)
-    wt = torch.clamp(ft - t0, 0.0, 1.0)[..., None]
-    p0 = torch.remainder(torch.floor(fp).long(), n_phi)
-    p1 = torch.remainder(p0 + 1, n_phi)
-    wp = (fp - torch.floor(fp))[..., None]
     b = torch.arange(tables.shape[0], device=tables.device)
-    out = (tables[b, t0, p0] * (1 - wt) * (1 - wp) + tables[b, t0, p1] * (1 - wt) * wp
-           + tables[b, t1, p0] * wt * (1 - wp) + tables[b, t1, p1] * wt * wp)
-    return out[..., 0:3], out[..., 3:6]
+    return bilinear_lookup(lambda t, p: tables[b, t, p], tables.shape[1], tables.shape[2],
+                           direction_body)
 
 
 def apply_forces_and_torques(bodies: BodyState, pools: ForcePools) -> BodyState:

@@ -1,5 +1,5 @@
 """Analytic inertial properties of primitive shapes (port of
-``impact_tpu/physics/inertia.py:14-80``; ref: impact_physics/src/inertia.rs).
+``impact_tpu/physics/inertia.py``; ref: impact_physics/src/inertia.rs).
 
 Tensors are about the centre of mass in the body frame, batched over
 leading axes. Masses take plain floats or tensors: with floats they are
@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 
@@ -29,6 +30,15 @@ def box_inertia(mass, extents):
     diag = torch.stack([ex2[..., 1] + ex2[..., 2], ex2[..., 0] + ex2[..., 2],
                         ex2[..., 0] + ex2[..., 1]], dim=-1)
     return _diag(diag * torch.as_tensor(mass / 12.0)[..., None])
+
+
+def cylinder_inertia(mass, radius, length, axis=1):
+    """Solid cylinder along local ``axis``."""
+    i_axis = 0.5 * mass * radius ** 2
+    i_perp = mass * (3.0 * radius ** 2 + length ** 2) / 12.0
+    d = [torch.as_tensor(i_perp)] * 3
+    d[axis] = torch.as_tensor(i_axis)
+    return _diag(torch.stack(torch.broadcast_tensors(*d), dim=-1))
 
 
 def capsule_inertia(mass, radius, segment_length, axis=1):
@@ -59,3 +69,50 @@ def box_mass(density, extents):
 def capsule_mass(density, radius, segment_length):
     return density * (math.pi * radius ** 2 * segment_length
                       + (4.0 / 3.0) * math.pi * radius ** 3)
+
+
+def translated_inertia(inertia, mass, offset):
+    """Parallel-axis theorem: the inertia about a point displaced by
+    ``offset`` [...,3] from the centre of mass."""
+    mass = torch.as_tensor(mass, dtype=inertia.dtype, device=inertia.device)
+    d2 = (offset * offset).sum(dim=-1)[..., None, None]
+    outer = offset[..., :, None] * offset[..., None, :]
+    eye = torch.eye(3, dtype=inertia.dtype, device=inertia.device)
+    return inertia + mass[..., None, None] * (d2 * eye - outer)
+
+
+def rotated_inertia(inertia, rotation_matrix):
+    """The inertia tensor in a rotated frame: R·I·Rᵀ."""
+    return torch.einsum("...ij,...jk,...lk->...il", rotation_matrix, inertia, rotation_matrix)
+
+
+def mesh_inertial_properties(vertices, triangles, mass_density=1.0, device=None):
+    """(mass, centre of mass [3], inertia [3,3] about it) of a closed,
+    consistently wound triangle mesh of uniform density (ref: inertia.rs:69
+    of_uniform_triangle_mesh): signed tetrahedra about the origin, summed in
+    float64 numpy on the host, as the reference sums them; float32 tensors
+    out."""
+    v = np.asarray(vertices, np.float64)
+    t = np.asarray(triangles, np.int64)
+    a, b, c = v[t[:, 0]], v[t[:, 1]], v[t[:, 2]]
+    vol6 = np.einsum("ij,ij->i", a, np.cross(b, c))  # 6 × signed volume
+    volume = vol6.sum() / 6.0
+    com = ((a + b + c) / 4.0 * vol6[:, None]).sum(axis=0) / (6.0 * volume)
+
+    def moment(i, j):
+        return (vol6 / 120.0 * (
+            2.0 * (a[:, i] * a[:, j] + b[:, i] * b[:, j] + c[:, i] * c[:, j])
+            + a[:, i] * b[:, j] + b[:, i] * a[:, j] + a[:, i] * c[:, j] + c[:, i] * a[:, j]
+            + b[:, i] * c[:, j] + c[:, i] * b[:, j])).sum()
+
+    xx, yy, zz = moment(0, 0), moment(1, 1), moment(2, 2)
+    xy, xz, yz = moment(0, 1), moment(0, 2), moment(1, 2)
+    inertia_origin = np.array([[yy + zz, -xy, -xz], [-xy, xx + zz, -yz], [-xz, -yz, xx + yy]])
+    mass = mass_density * volume
+    shift = (com @ com) * np.eye(3) - np.outer(com, com)
+    inertia_com = mass_density * inertia_origin - mass * shift
+
+    def f32(x):
+        return torch.as_tensor(np.asarray(x, np.float32), device=device)
+
+    return f32(mass), f32(com), f32(inertia_com)

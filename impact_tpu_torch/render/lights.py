@@ -227,6 +227,31 @@ def omni_shadow_visibility(light_pos, shadow_quads, shadow_vps, world_pos, sourc
 MAX_SHADOW_MAP_CASCADES = 4  # ref: lib.rs:340
 
 
+
+def uni_shadow_visibility(shadow_depth, shadow_vp, world_pos):
+    """Visibility from one orthographic depth map [S,S] with light
+    view-projection ``shadow_vp`` at world points [...,3]: the 4-tap
+    bilinear PCF, 1 outside the map."""
+    hp = torch.cat([world_pos, torch.ones_like(world_pos[..., :1])], -1)
+    ndc = torch.einsum("ij,...j->...i", shadow_vp, hp)[..., :3]  # ortho: w == 1
+    uv = torch.stack([ndc[..., 0] * 0.5 + 0.5, 0.5 - ndc[..., 1] * 0.5], -1)
+    in_map = torch.all((uv >= 0.0) & (uv <= 1.0), dim=-1)
+    s = shadow_depth.shape[0]
+    base = uv * s - 0.5
+    b0 = torch.floor(base)
+    f = base - b0
+    b0 = b0.to(torch.int64)
+    vis = torch.zeros_like(ndc[..., 2])
+    for dy in (0, 1):
+        for dx in (0, 1):
+            px = torch.clamp(b0[..., 0] + dx, 0, s - 1)
+            py = torch.clamp(b0[..., 1] + dy, 0, s - 1)
+            wx = f[..., 0] if dx else 1.0 - f[..., 0]
+            wy = f[..., 1] if dy else 1.0 - f[..., 1]
+            vis = vis + wx * wy * (ndc[..., 2] - 2e-3 <= shadow_depth[py, px]).to(vis.dtype)
+    return torch.where(in_map, vis, torch.ones_like(vis))
+
+
 def cascade_partition_depths(near, far, n_cascades: int, blend: float = 0.75):
     """[C + 1] view-space split depths: a blend of the linear and the
     logarithmic partition (PSSM)."""

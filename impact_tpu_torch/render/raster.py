@@ -235,12 +235,29 @@ def _tile_chunks(b: _Binned, k, tile, tiles_per_chunk, budget, fit_k):
         s0 += tc
 
 
-def rasterize(clip_pos, tri_active, height: int, width: int, cull_backfaces: bool = True,
-              k_per_tile: int | None = None, big_budget: int = 32,
-              tiles_per_chunk: int | None = None, tile: int = 32, *, fit_k: bool = False):
-    """Tile-binned depth raster of T triangle slots ([T,3,4] clip positions).
-    Returns (RasterTarget over CLIPPED slots, clip2, bary2)."""
+def clear_target(height: int, width: int, device=None) -> RasterTarget:
+    """A cleared target: depth 1.0, no triangle (ref: clearing_pass.rs:20
+    CLEAR_DEPTH = 1.0)."""
+    return RasterTarget(
+        depth=torch.ones((height, width), dtype=torch.float32, device=device),
+        tri_id=torch.full((height, width), NO_TRI, dtype=torch.int64, device=device))
+
+
+def rasterize(clip_pos, tri_active, height: int, width: int, chunk: int = 256,
+              cull_backfaces: bool = True, method: str = "tiled", k_per_tile: int | None = None,
+              big_budget: int = 32, tiles_per_chunk: int | None = None, *, tile: int = 32,
+              fit_k: bool = False):
+    """Depth raster of T triangle slots ([T,3,4] clip positions) into an
+    H×W target. Returns (RasterTarget over CLIPPED slots, clip2, bary2);
+    feed clip2/bary2 to :func:`resolve_barycentrics`. ``method`` "tiled"
+    (the default) bins triangles into ``tile``-pixel screen tiles; "chunk"
+    is the reference's brute-force oracle, every triangle against every
+    pixel, ``chunk`` triangles at a time."""
     clip2, bary2, act2 = clip_triangles_near(clip_pos, tri_active)
+    if method == "chunk":
+        return _rasterize_chunks(clip2, act2, height, width, chunk, cull_backfaces), clip2, bary2
+    if method != "tiled":
+        raise ValueError(f"unknown raster method {method!r} (tiled | chunk)")
     t2 = clip2.shape[0]
     b = _bin_small_and_big(clip2, act2, height, width, tile, big_budget, cull_backfaces)
     n_tiles = b.th * b.tw
@@ -258,6 +275,80 @@ def rasterize(clip_pos, tri_active, height: int, width: int, cull_backfaces: boo
     depth = _untile(depth_t, b.th, b.tw, tile, height, width)
     tri_id = _untile(tri_t, b.th, b.tw, tile, height, width)
     return RasterTarget(depth=depth, tri_id=tri_id), clip2, bary2
+
+
+def _rasterize_chunks(clip2, act2, height: int, width: int, chunk: int,
+                      cull_backfaces: bool) -> RasterTarget:
+    """The reference's ``_rasterize_clipped``: per chunk of clipped slots,
+    [chunk,H,W] edge functions and depths, the chunk's nearest covering slot
+    per pixel (the first on a tie), kept where nearer than the target so far
+    (an earlier chunk wins a tie). So each pixel takes the nearest covering
+    slot, the lowest on a tie, which is what chunks of only the slots that
+    can cover (active, valid, front-facing) give too: they are gathered
+    first, in slot order (one host read)."""
+    dev = clip2.device
+    sx, sy, z, valid = _screen_coords(clip2, height, width)
+    area = _edge(sx[:, 0], sy[:, 0], sx[:, 1], sy[:, 1], sx[:, 2], sy[:, 2])
+    act = act2 & valid.all(dim=-1)
+    act = act & ((area < -1e-12) if cull_backfaces else (area.abs() > 1e-12))
+    slots = torch.nonzero(act).flatten()
+    px = (torch.arange(width, dtype=torch.float32, device=dev) + 0.5)[None, None, :]
+    py = (torch.arange(height, dtype=torch.float32, device=dev) + 0.5)[None, :, None]
+    target = clear_target(height, width, dev)
+    depth_buf, tri_buf = target.depth, target.tri_id
+    inf = torch.tensor(float("inf"), device=dev)
+    for s0 in range(0, slots.shape[0], chunk):
+        ids = slots[s0:s0 + chunk]
+        ax, ay, az = (v[ids, 0, None, None] for v in (sx, sy, z))
+        bx, by, bz = (v[ids, 1, None, None] for v in (sx, sy, z))
+        cx, cy, cz = (v[ids, 2, None, None] for v in (sx, sy, z))
+        inv_area = (1.0 / area[ids])[:, None, None]
+        b0 = _edge(bx, by, cx, cy, px, py) * inv_area
+        b1 = _edge(cx, cy, ax, ay, px, py) * inv_area
+        b2 = _edge(ax, ay, bx, by, px, py) * inv_area
+        zpix = b0 * az + b1 * bz + b2 * cz
+        covered = (b0 >= 0) & (b1 >= 0) & (b2 >= 0) & (zpix >= 0.0) & (zpix <= 1.0)
+        zpix = torch.where(covered, zpix, inf)
+        best = torch.argmin(zpix, dim=0)
+        best_z = torch.gather(zpix, 0, best[None])[0]
+        closer = best_z < depth_buf
+        depth_buf = torch.where(closer, best_z, depth_buf)
+        tri_buf = torch.where(closer, ids[best], tri_buf)
+    return RasterTarget(depth=depth_buf, tri_id=tri_buf)
+
+
+def resolve_barycentrics(clip2, bary2, target: RasterTarget, n_orig_tris: int):
+    """Per-pixel perspective-correct barycentrics w.r.t. the ORIGINAL
+    triangles of a :func:`rasterize` target. Returns (bary [H,W,3], tri
+    [H,W] original-slot ids, valid [H,W])."""
+    h, w = target.depth.shape
+    dev = target.depth.device
+    tri = torch.clamp(target.tri_id, min=0)
+    cp = clip2[tri]  # [H,W,3,4]
+    inv_w = 1.0 / torch.clamp(cp[..., 3], min=1e-8)
+    sx = (cp[..., 0] * inv_w * 0.5 + 0.5) * w
+    sy = (0.5 - cp[..., 1] * inv_w * 0.5) * h
+    px = (torch.arange(w, dtype=torch.float32, device=dev) + 0.5)[None, :].expand(h, w)
+    py = (torch.arange(h, dtype=torch.float32, device=dev) + 0.5)[:, None].expand(h, w)
+    ax, ay, bx, by, cx, cy = sx[..., 0], sy[..., 0], sx[..., 1], sy[..., 1], sx[..., 2], sy[..., 2]
+    area = _edge(ax, ay, bx, by, cx, cy)
+    inv_area = 1.0 / torch.where(area.abs() > 1e-12, area, torch.ones_like(area))
+    b0 = _edge(bx, by, cx, cy, px, py) * inv_area
+    b1 = _edge(cx, cy, ax, ay, px, py) * inv_area
+    b2 = 1.0 - b0 - b1
+    pb = torch.stack([b0, b1, b2], dim=-1) * inv_w
+    pb = pb / torch.clamp(pb.sum(dim=-1, keepdim=True), min=1e-12)
+    orig_bary = torch.einsum("hwi,hwij->hwj", pb, bary2[tri])
+    return orig_bary, tri % n_orig_tris, target.tri_id >= 0
+
+
+def interpolate_attribute(attr_per_vertex, tri_indices, tri, bary, valid, fill=0.0):
+    """A per-vertex attribute [V,K] interpolated over resolved pixels:
+    ``tri_indices`` [T,3] vertex slots, ``tri`` [H,W], ``bary`` [H,W,3]."""
+    vals = attr_per_vertex[tri_indices[tri]]  # [H,W,3,K]
+    out = torch.einsum("hwv,hwvk->hwk", bary, vals)
+    return torch.where(valid[..., None], out, torch.as_tensor(fill, dtype=out.dtype,
+                                                              device=out.device))
 
 
 def rasterize_attributes(clip_pos, tri_active, tri_indices, vert_attrs, height: int,

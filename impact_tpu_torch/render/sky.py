@@ -45,3 +45,28 @@ def procedural_sky(view_dir, zenith_luminance=(3000.0, 4500.0, 9000.0),
         disk = torch.clamp((c - sun_cos_radius) / max(1.0 - sun_cos_radius, 1e-9), 0.0, 1.0)
         lum = lum + vec(sun_luminance) * disk[..., None]
     return lum
+
+
+def sample_sky_cubemap(cubemap, view_dir):
+    """A [6,S,S,3] cubemap at world directions [...,3]: the nearest texel,
+    faces laid out as ``lights.CUBE_FACE_DIRS`` (+x, −x, +y, −y, +z, −z)."""
+    v = view_dir
+    av = v.abs()
+    face = torch.where(
+        (av[..., 0] >= av[..., 1]) & (av[..., 0] >= av[..., 2]),
+        torch.where(v[..., 0] >= 0, 0, 1),
+        torch.where(av[..., 1] >= av[..., 2], torch.where(v[..., 1] >= 0, 2, 3),
+                    torch.where(v[..., 2] >= 0, 4, 5)))
+    x, y, z = v[..., 0], v[..., 1], v[..., 2]
+
+    def pick(*per_face):
+        return torch.gather(torch.stack(per_face, -1), -1, face[..., None])[..., 0]
+
+    ax = pick(x, -x, y, -y, z, -z)
+    u = pick(-z, z, x, x, x, -x)
+    w = pick(-y, -y, z, -z, -y, -y)
+    inv = 1.0 / torch.clamp(ax, min=1e-9)
+    s = cubemap.shape[1]
+    iu = torch.clamp(((u * inv * 0.5 + 0.5) * s).to(torch.int64), 0, s - 1)
+    iv = torch.clamp(((w * inv * 0.5 + 0.5) * s).to(torch.int64), 0, s - 1)
+    return cubemap[face, iv, iu]

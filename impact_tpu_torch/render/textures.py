@@ -409,12 +409,14 @@ def resize_lanczos(channel, size: int):
 
 
 def load_image_layer(path_or_bytes, resolution: int | None = None, srgb: bool = True):
-    """One PNG (path or bytes) → a float [H,W,3] layer in linear colour
-    (ref: import.rs:174 and processing.rs' sRGB decode). ``resolution``
-    resizes with the Lanczos filter after linearization, clipped at 0."""
-    from ..utils.image import load_png
+    """One image file (a path or its bytes: JPEG, or PNG of any kind) → a
+    float [H,W,3] layer in linear colour (ref: import.rs:174 and
+    processing.rs' sRGB decode), read through ``load_image(..., mode="RGB")``
+    as the reference reads it. ``resolution`` resizes with the Lanczos
+    filter after linearization, clipped at 0."""
+    from ..utils.image import load_image
 
-    arr = load_png(path_or_bytes).astype(np.float32) / 255.0
+    arr = load_image(path_or_bytes, mode="RGB").astype(np.float32) / 255.0
     if srgb:
         arr = np.where(arr <= 0.04045, arr / 12.92,
                        ((arr + 0.055) / 1.055) ** 2.4).astype(np.float32)
@@ -426,8 +428,8 @@ def load_image_layer(path_or_bytes, resolution: int | None = None, srgb: bool = 
 
 def texture_array_from_images(sources, resolution: int = 256, srgb: bool = True,
                               generate_mipmaps: bool = True, device="cuda") -> TextureArray:
-    """Image files (paths or PNG bytes) → one mipmapped texture array, every
-    layer resized to ``resolution`` (ref: import.rs:120)."""
+    """Image files (paths or the files' bytes, JPEG or PNG) → one mipmapped
+    texture array, every layer resized to ``resolution`` (ref: import.rs:120)."""
     if not sources:
         raise ValueError("empty list of sources for texture array")
     layers = np.stack([load_image_layer(s, resolution, srgb) for s in sources])

@@ -341,20 +341,23 @@ class StepPlan(NamedTuple):
 
 
 def step_plan(params: EngineParams, config, enable_absorption: bool, enable_fracturing: bool,
-              fracture_uniforms=None) -> StepPlan:
+              fracture_uniforms=None, *, remesh_budget: int | None = None) -> StepPlan:
     """The plan of the engine step of ``params`` under ``config`` (shared by
-    ``make_engine_step`` and ``parallel.step.make_sharded_engine_step``)."""
+    ``make_engine_step`` and ``parallel.step.make_sharded_engine_step``).
+    ``remesh_budget`` None takes the reference's default budget."""
     tc = config.tpu
     o_max = tc.max_voxel_objects
     impact_cfg = config.voxel.interaction.fracturing.impact
+    if remesh_budget is None:
+        remesh_budget = (min(o_max, max(4, tc.max_fracture_fragments * tc.max_fracture_events))
+                         if enable_fracturing else min(o_max, 4))
     return StepPlan(
         dt=config.physics.simulator.initial_time_step_duration,
         n_substeps=config.physics.simulator.n_substeps,
         solver_cfg=config.physics.constraint_solver,
         max_contacts=tc.max_contacts,
         o_max=o_max,
-        remesh_budget=(min(o_max, max(4, tc.max_fracture_fragments * tc.max_fracture_events))
-                       if enable_fracturing else min(o_max, 4)),
+        remesh_budget=int(remesh_budget),
         impact_cfg=impact_cfg,
         n_seeds=max(2, min(impact_cfg.max_fragment_count, tc.max_fracture_fragments, o_max)),
         n_events=min(tc.max_fracture_events, o_max),
@@ -372,20 +375,22 @@ def step_plan(params: EngineParams, config, enable_absorption: bool, enable_frac
 def make_engine_step(params: EngineParams, config, mesh_vert_cap: int, mesh_tri_cap: int,
                      enable_voxel_contacts: bool = True, enable_absorption: bool = True,
                      enable_splitting: bool = True, enable_fracturing: bool = True,
-                     fracture_uniforms=None):
+                     remesh_budget: int | None = None, fracture_uniforms=None):
     """The engine step ``step(sim) -> SimState`` for the scene constants
     ``params``, with the features fixed (ref: runtime/engine.py:214-222:
     without voxel contacts the physics step gets no probe contacts, without
-    absorption the absorbers carve nothing). Up to ``remesh_budget`` dirty objects are synced and re-meshed
-    per step (as the reference: max_fracture_fragments × max_fracture_events
-    with fracturing, else 4; the rest stay dirty). ``fracture_uniforms(
+    absorption the absorbers carve nothing). Up to ``remesh_budget`` dirty
+    objects are synced and re-meshed per step, lowest slots first, the rest
+    staying dirty (None: the reference's default, max_fracture_fragments ×
+    max_fracture_events with fracturing, else 4, at most the pool). ``fracture_uniforms(
     generator, n_seeds)`` draws an event's uniforms (default
     ``draw_fracture_uniforms``; the tests pass JAX's)."""
     tc = config.tpu
     chunked = bool(tc.chunked_remesh)
     (dt, n_substeps, solver_cfg, max_contacts, o_max, remesh_budget, impact_cfg, n_seeds,
      n_events, n_split_objs, n_split_regions, draw, absorb, rules) = step_plan(
-        params, config, enable_absorption, enable_fracturing, fracture_uniforms)
+        params, config, enable_absorption, enable_fracturing, fracture_uniforms,
+        remesh_budget=remesh_budget)
 
     def host(t):
         step.host_syncs += 1

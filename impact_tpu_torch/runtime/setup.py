@@ -143,6 +143,10 @@ class SceneBuild:
 MESH_FILE_PATHS: dict[int, str] = {}
 
 
+
+# the reference's name of the compiled scene (same fields, same order)
+SceneBuildResult = SceneBuild
+
 def register_mesh_file(path) -> int:
     """Register an OBJ or PLY file for TriangleMeshFile setup; returns the
     FNV-1a hash of its path, the component's ``path_hash``."""
@@ -159,8 +163,8 @@ TEXTURE_SOURCES: dict[int, object] = {}
 
 def register_texture(name: str, source) -> int:
     """Register a texture for the textured-material setup components;
-    returns its FNV-1a id. ``source``: an image file path (PNG) or a float
-    array [H,W] or [H,W,C] in [0,1]."""
+    returns its FNV-1a id. ``source``: an image file path (JPEG, or PNG of
+    any kind) or its bytes, or a float array [H,W] or [H,W,C] in [0,1]."""
     h = int(hash_str_to_u64(str(name)))
     TEXTURE_SOURCES[h] = source
     return h
@@ -226,7 +230,7 @@ def _collidable_pools(spheres, planes, capsules, n_bodies: int, dev) -> Collidab
 
 
 def _resolve_texture(textures: dict, tid, resolution: int, srgb: bool):
-    """A texture by id → float [S,S,C]: PNG paths are decoded (sRGB to
+    """A texture by id → float [S,S,C]: image files are decoded (sRGB to
     linear when ``srgb``) and Lanczos-resized, arrays resized
     nearest-neighbour, as the reference resolves a registered texture id.
     An id that was never registered raises KeyError."""

@@ -84,3 +84,17 @@ def material_corner_table(registry: VoxelTypeRegistry) -> torch.Tensor:
     f0 = spec * (1.0 - metal) + registry.color * metal
     emissive = registry.color * registry.emissive_luminance[:, None]
     return torch.cat([albedo, f0, registry.roughness[:, None], emissive], dim=-1)
+
+
+def material_params_for_types(registry: VoxelTypeRegistry, vtypes):
+    """Voxel types [...] → (albedo [...,3], f0 [...,3], roughness [...],
+    emissive [...,3]) in the metalness workflow of the reference's shading
+    templates; types clamp to the registry."""
+    t = torch.clamp(vtypes, 0, registry.n_types - 1).long()
+    color = registry.color[t]
+    metal = registry.metalness[t][..., None]
+    spec = registry.specular_reflectance[t][..., None]
+    albedo = color * (1.0 - metal)
+    f0 = spec * (1.0 - metal) + color * metal
+    emissive = color * registry.emissive_luminance[t][..., None]
+    return albedo, f0, registry.roughness[t], emissive

@@ -1,26 +1,37 @@
 """Engine configuration: the port's copy of the ``impact_tpu/utils/config.py``
 fields the render, the engine step and the runtime read, with the same
-names and defaults (ref: engine.rs:86-99 sub-configs; ``tpu`` holds the
-static capacities). ``EngineConfig.from_ron_file`` and ``from_ron_str`` read
-the reference's RON config files with serde-default semantics, as the
-reference package does (ref: engine/src/engine.rs:573-592): missing keys
-take their defaults and unknown keys, whole sections the port never reads
-(controller, input, user interface, ...) included, are ignored.
+names and defaults (ref: engine.rs:86-99 sub-configs: resources, rendering, physics,
+voxel, controller, game loop, input, screen capture, user interface; ``tpu``
+holds the static capacities). ``EngineConfig.from_ron_file`` and
+``from_ron_str`` read the reference's RON config files with serde-default
+semantics, as the reference package does (ref: engine/src/engine.rs:573-592):
+missing keys take their defaults and unknown keys are ignored, so that
+``dataclasses.asdict`` of a config equals the reference's for the same text.
+Sections the port does not act on (controller, game loop, input, resources,
+screen capture, user interface) are read and carried.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Any
+from typing import Any, Optional
 
 from . import ron
+
+
+@dataclass
+class BasicRenderingConfig:
+    enabled: bool = True
+    wireframe_mode_on: bool = False
+    timings_enabled: bool = False
 
 
 @dataclass
 class ShadowMappingConfig:
     enabled: bool = True
     omnidirectional_light_shadow_map_resolution: int = 1024
+    unidirectional_light_shadow_map_resolution: int = 1024
 
 
 @dataclass
@@ -66,12 +77,14 @@ class LuminanceBounds:
 class AverageLuminanceConfig:
     luminance_bounds: LuminanceBounds = field(default_factory=LuminanceBounds)
     current_frame_weight: float = 0.02
+    fetch_histogram: bool = False
 
 
 @dataclass
 class BloomConfig:
     enabled: bool = True
     n_downsamplings: int = 4
+    blur_filter_radius: float = 0.005
     blurred_luminance_weight: float = 0.04
 
 
@@ -94,6 +107,7 @@ class CapturingCameraConfig:
 
 @dataclass
 class RenderingConfig:
+    basic: BasicRenderingConfig = field(default_factory=BasicRenderingConfig)
     shadow_mapping: ShadowMappingConfig = field(default_factory=ShadowMappingConfig)
     ambient_occlusion: AmbientOcclusionConfig = field(default_factory=AmbientOcclusionConfig)
     temporal_anti_aliasing: TemporalAntiAliasingConfig = field(
@@ -106,6 +120,9 @@ class SimulatorConfig:
     enabled: bool = True
     n_substeps: int = 1
     initial_time_step_duration: float = 0.01667
+    match_frame_duration: bool = False
+    max_auto_time_step_duration: Optional[float] = None
+    simulation_speed_multiplier_increment_factor: float = 1.1
 
 
 @dataclass
@@ -128,7 +145,9 @@ class DragLoadMapConfig:
     """Drag-load map tables and their disk cache (``physics/drag_map.py``);
     ``directory`` None builds the tables without the cache."""
 
+    n_direction_samples: int = 5000
     n_theta_coords: int = 64
+    smoothness: float = 2.0
     save_generated_maps: bool = True
     overwrite_existing_map_files: bool = False
     use_saved_maps: bool = True
@@ -157,11 +176,16 @@ class FracturingImpactConfig:
     max_fragment_count: int = 512
     radial_falloff_power: float = 2.0
     angular_falloff_power: float = 0.5
+    radial_grid_size: int = 128
+    angular_grid_size: int = 128
+    max_position_rejections_per_sample: int = 128
+    seed: int = 0
 
 
 @dataclass
 class FracturingConfig:
     impact: FracturingImpactConfig = field(default_factory=FracturingImpactConfig)
+    min_relative_fragment_mass: float = 1e-3
 
 
 @dataclass
@@ -170,18 +194,61 @@ class VoxelInteractionConfig:
 
 
 @dataclass
+class VoxelTypesConfig:
+    texture_resolution: int = 256
+    voxel_types_path: Optional[str] = None
+
+
+@dataclass
 class VoxelConfig:
+    types: VoxelTypesConfig = field(default_factory=VoxelTypesConfig)
     interaction: VoxelInteractionConfig = field(default_factory=VoxelInteractionConfig)
+
+
+@dataclass
+class GameLoopConfig:
+    max_fps: Optional[float] = None
+    max_iterations: Optional[int] = None
+
+
+@dataclass
+class InputConfig:
+    mouse_sensitivity: float = 1.0
+
+
+@dataclass
+class ResourcesConfig:
+    resource_file_path: Optional[str] = None
+    lookup_table_dir: Optional[str] = None
+
+
+@dataclass
+class ControllerConfig:
+    motion: Any = None  # a ron.Variant, SemiDirectional((movement_speed, vertical_control))
+    orientation: Any = None  # a ron.Variant, RollFreeCamera(())
+
+
+@dataclass
+class ScreenCaptureConfig:
+    output_dir: Optional[str] = None
+    tagging: Any = "Timestamp"
+
+
+@dataclass
+class UserInterfaceConfig:
+    initially_interactive: bool = True
 
 
 @dataclass
 class TpuConfig:
     """Static capacities and render switches (names kept from the reference)."""
 
+    max_entities: int = 1024
     max_bodies: int = 1024
     max_contacts: int = 4096
     max_voxel_objects: int = 64
     voxel_grid_size: int = 32
+    max_lights: int = 8
     render_width: int = 256
     render_height: int = 192
     csm_cascades: int = 1
@@ -198,7 +265,9 @@ class TpuConfig:
     orthographic_camera: bool = False
     bf16_shading: bool = False  # BRDF math in bfloat16
     sky_luminance: tuple = (3000.0, 4500.0, 9000.0)
-    raster_backend: str = "kernel"  # "kernel" (K1) | "raster" (plain tile raster)
+    # "kernel" (K1) | "raster" (the plain tile raster); the reference's names
+    # read as the port's: "auto" and "pallas" are K1, "xla" the plain raster
+    raster_backend: str = "kernel"
     view_culling: bool = True
     solver_mode: str = "scan"  # "scan" (Gauss-Seidel parity) | "jacobi" (scale)
     max_fracture_fragments: int = 128
@@ -228,9 +297,15 @@ class TpuConfig:
 
 @dataclass
 class EngineConfig:
+    resources: ResourcesConfig = field(default_factory=ResourcesConfig)
     rendering: RenderingConfig = field(default_factory=RenderingConfig)
     physics: PhysicsConfig = field(default_factory=PhysicsConfig)
     voxel: VoxelConfig = field(default_factory=VoxelConfig)
+    controller: ControllerConfig = field(default_factory=ControllerConfig)
+    game_loop: GameLoopConfig = field(default_factory=GameLoopConfig)
+    input: InputConfig = field(default_factory=InputConfig)
+    screen_capture: ScreenCaptureConfig = field(default_factory=ScreenCaptureConfig)
+    user_interface: UserInterfaceConfig = field(default_factory=UserInterfaceConfig)
     tpu: TpuConfig = field(default_factory=TpuConfig)
 
     @staticmethod

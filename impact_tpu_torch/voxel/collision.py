@@ -32,6 +32,7 @@ from .object import VoxelObjectPool, adjacency_masks, occupancy, surface_mask, v
 PROBE_BLOCK = 4  # ref: collidable.rs:85, one probe per 4³ block
 VOXEL_KEY_BASE = 0x40000000
 GRID_BROAD_PHASE_MIN_OBJECTS = 64
+MORTON_BROAD_PHASE_MIN_OBJECTS = GRID_BROAD_PHASE_MIN_OBJECTS  # the reference's older name
 INTERLOCK_ALIGNMENT_THRESHOLD = 0.1  # ref: contact.rs:611
 _BIG = 3.0e38
 
@@ -173,6 +174,21 @@ def sample_sdf_trilinear_with_gradient(sdf, obj_idx, pts_grid, x0: int = 0):
 
     return _trilinear_from_corners(at(0, 0, 0), at(1, 0, 0), at(0, 1, 0), at(1, 1, 0),
                                    at(0, 0, 1), at(1, 0, 1), at(0, 1, 1), at(1, 1, 1), f)
+
+
+def sample_sdf_trilinear(sdf, pts_grid):
+    """One [G,G,G] grid trilinearly sampled at grid-space points [...,3]
+    (voxel centres at idx + 0.5, clamped to the edge)."""
+    obj = torch.zeros(pts_grid.shape[:-1], dtype=torch.int64, device=pts_grid.device)
+    return sample_sdf_trilinear_with_gradient(sdf[None], obj, pts_grid)[0]
+
+
+def sample_sdf_gradient(sdf, pts_grid, eps=0.5):
+    """Unit gradient of one [G,G,G] grid's trilinear interpolant at
+    grid-space points [...,3] (analytic partials; ``eps`` is not used, as in
+    the reference)."""
+    obj = torch.zeros(pts_grid.shape[:-1], dtype=torch.int64, device=pts_grid.device)
+    return sample_sdf_trilinear_with_gradient(sdf[None], obj, pts_grid)[1]
 
 
 def sample_cell_x(pts_grid, g: int, encoded: bool):

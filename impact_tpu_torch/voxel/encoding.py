@@ -8,6 +8,7 @@ import torch
 
 QUANTIZATION_STEP_SIZE = 0.02
 MAX_CODE = 127
+VOID_LIMIT = 100  # codes ≥ this are void (2.0 / 0.02)
 MIN_CODE = -128
 
 

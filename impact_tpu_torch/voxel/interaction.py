@@ -33,7 +33,8 @@ import torch
 from ..geometry.primitives import capsule_sdf
 from ..math import quaternion as quat
 from ..math.quaternion import cross
-from ..ops.ccl_pallas import connected_component_labels_batched, initial_labels, min_sweep
+from ..ops.ccl_pallas import (ccl_sweeps, connected_component_labels_batched, initial_labels,
+                               min_sweep)
 from .collision import bounding_radii, stable_topk
 from .encoding import encode_sdf_i8, far_value, is_encoded, sdf_scale, sdf_world
 from .object import CHUNK_SIZE, VoxelObjectPool, occupancy, voxel_positions_local
@@ -267,19 +268,25 @@ def apply_absorption_chunk_gated(pool: VoxelObjectPool, absorbers: AbsorberPools
 # --- split detection ----------------------------------------------------------------
 
 
-def connected_component_labels(occ):
+def connected_component_labels(occ, max_iters: int | None = None):
     """Labels of a bool [G,G,G] grid or [B,G,G,G] batch: i32, the minimum
     linear index of each 6-connected component, −1 where empty. On the card
     every G goes to the labels kernel. On the CPU the routing is the
     reference's (interaction.py:connected_component_labels): the two-level
     labelling for G ≥ 64 with G a multiple of the chunk size, the flat
-    sweep for every other G."""
+    sweep for every other G. A finite ``max_iters`` stops the flat sweep
+    after that many sweeps, as the reference's does (the sweep kernel on the
+    card); the two-level labelling ignores it, as the reference's does."""
     batch = occ if occ.ndim == 4 else occ[None]
     g = occ.shape[-1]
-    if occ.device.type == "cpu" and g >= 64 and g % CHUNK_SIZE == 0:
+    two_level = g >= 64 and g % CHUNK_SIZE == 0
+    if occ.device.type == "cpu" and two_level:
         labels = connected_component_labels_two_level(batch)
-    else:
+    elif max_iters is None or two_level:
         labels = connected_component_labels_batched(batch)
+    else:
+        swept, _ = ccl_sweeps(batch.contiguous(), initial_labels(batch), max_iters)
+        labels = torch.where(batch, swept, -1)
     return labels if occ.ndim == 4 else labels[0]
 
 
@@ -384,6 +391,43 @@ def _set_row(t, i, value, cond):
     out = t.clone()
     out[i] = torch.where(cond, value, t[i])
     return out
+
+
+def split_off_disconnected_region(pool: VoxelObjectPool, obj_index, free_slot):
+    """Move one disconnected region of object ``obj_index`` into
+    ``free_slot`` (ref: extraction.rs:78/:121): the component of the minimum
+    label or the rest of the object, whichever is smaller (the minimum-label
+    component on a tie). No-op when the object is connected, when
+    ``free_slot`` < 0 or when that slot is alive. Both slots are marked
+    dirty and split-pending. Returns (pool, did_split bool[],
+    disconnected bool[]); ``disconnected`` stays true when the move is
+    blocked on the slot."""
+    occ = occupancy(pool)[obj_index]
+    labels = connected_component_labels(occ)
+    dev = occ.device
+    min_label = torch.where(occ, labels, 1 << 30).min()
+    in_min = occ & (labels == min_label)
+    n_min, n_tot = in_min.sum(), occ.sum()
+    disconnected = (n_min > 0) & (n_min < n_tot)
+    free_slot = torch.as_tensor(free_slot, device=dev)
+    slot = torch.clamp(free_slot, min=0)
+    can = disconnected & (free_slot >= 0) & ~pool.alive[slot]
+    region = torch.where(n_min <= n_tot - n_min, in_min, occ & ~in_min)
+    src_sdf = pool.sdf[obj_index]
+    far = far_value(pool.sdf.dtype, pool.voxel_extent[obj_index])
+    true = torch.ones((), dtype=torch.bool, device=dev)
+    pending = _set_row(_set_row(pool.split_pending, obj_index, true, can), slot, true, can)
+    dirty = _set_row(_set_row(pool.mesh_dirty, obj_index, true, can), slot, true, can)
+    sdf = _set_row(pool.sdf, obj_index, torch.where(region, far, src_sdf), can)
+    sdf = _set_row(sdf, slot, torch.where(region, src_sdf, far), can)
+    pool = pool._replace(
+        split_pending=pending, sdf=sdf,
+        vtype=_set_row(pool.vtype, slot, pool.vtype[obj_index], can),
+        voxel_extent=_set_row(pool.voxel_extent, slot, pool.voxel_extent[obj_index], can),
+        origin=_set_row(pool.origin, slot, pool.origin[obj_index], can),
+        alive=_set_row(pool.alive, slot, true, can),
+        mesh_dirty=dirty)
+    return pool, can, disconnected
 
 
 def split_off_disconnected_regions(pool: VoxelObjectPool, obj_index: int, free_slots,

@@ -11,6 +11,7 @@ order — and with it compaction order — is the same in both packages.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple
 
@@ -73,6 +74,17 @@ def surface_nets(sdf, vtype, merge_levels: int = 0) -> SurfaceNetsMesh:
         tri_active=torch.cat([emit.reshape(nb, -1) for emit, _ in blocks], dim=1),
         tri_indices=torch.cat([idx.reshape(nb, -1, 3) for _, idx in blocks], dim=1),
     )
+
+
+def surface_nets_batched(sdf, vtype) -> SurfaceNetsMesh:
+    """A batch [B,G,G,G] meshed without quad merging (the reference's vmap
+    of ``surface_nets``)."""
+    return surface_nets(sdf, vtype)
+
+
+def make_surface_nets_batched(merge_levels: int):
+    """Batched surface nets with a fixed quad-merge level count."""
+    return functools.partial(surface_nets, merge_levels=merge_levels)
 
 
 def surface_nets_blocks(sdf, vtype, merge_levels: int = 0, x0: int = 0):
@@ -374,6 +386,10 @@ def compact_mesh(mesh: SurfaceNetsMesh, vert_cap: int, tri_cap: int) -> CompactM
         n_dropped_verts=mesh.vert_active.sum(dim=1) - vact.sum(dim=1),
         n_dropped_tris=mesh.tri_active.sum(dim=1) - tact.sum(dim=1),
     )
+
+
+# the reference's vmap of ``compact_mesh``: the port's takes a batch itself
+compact_mesh_batched = compact_mesh
 
 
 def bake_mesh_materials(mesh, material_table):

@@ -41,6 +41,27 @@ class VoxelObjectPool(NamedTuple):
         return self.sdf.shape[-1]
 
 
+def empty_voxel_object_pool(n_objects: int, grid_size: int, sdf_dtype=torch.float32,
+                            device=None) -> VoxelObjectPool:
+    """A pool of ``n_objects`` dead slots of [G,G,G] grids: far SDF (127
+    codes for an int8 pool, 1e3 otherwise), type 0, shadow casters."""
+    g = grid_size
+    if sdf_dtype == torch.int8:
+        sdf0 = torch.full((n_objects, g, g, g), 127, dtype=torch.int8, device=device)
+    else:
+        sdf0 = torch.full((n_objects, g, g, g), 1e3, dtype=torch.float32, device=device)
+    return VoxelObjectPool(
+        alive=torch.zeros(n_objects, dtype=torch.bool, device=device),
+        body_index=torch.zeros(n_objects, dtype=torch.int64, device=device),
+        voxel_extent=torch.ones(n_objects, dtype=torch.float32, device=device),
+        origin=torch.zeros((n_objects, 3), dtype=torch.float32, device=device),
+        sdf=sdf0,
+        vtype=torch.zeros((n_objects, g, g, g), dtype=torch.int32, device=device),
+        mesh_dirty=torch.zeros(n_objects, dtype=torch.bool, device=device),
+        split_pending=torch.zeros(n_objects, dtype=torch.bool, device=device),
+        casts_shadows=torch.ones(n_objects, dtype=torch.bool, device=device))
+
+
 def grid_coords(grid_size: int, device=None, x0: int = 0, gx: int | None = None):
     """Voxel centers in grid units: [G,G,G,3] of (i+0.5, j+0.5, k+0.5); with
     ``x0``/``gx`` only the slab of x planes [x0, x0+gx), [gx,G,G,3]."""
