@@ -2785,7 +2785,7 @@ def parity_frame(name, dev, cfg=None):
     from impact_tpu_torch.utils.image import load_png, rgb_hybrid_compare
 
     t0 = time.perf_counter()
-    rt = ps.build_runtime(name, cfg if cfg is not None else EngineConfig(), device=dev)
+    rt = ps.build_runtime(name, cfg=cfg if cfg is not None else EngineConfig(), device=dev)
     img = rt.render()
     torch.cuda.synchronize()
     img = img.cpu().numpy()
@@ -3083,7 +3083,8 @@ def parity_phase(dev, record, kernels):
             registry = make_voxel_type_registry([
                 {"name": "Basalt", "color": (0.9, 0.1, 0.2), "roughness": 0.3},
                 {"name": "Copper", "color": (0.2, 0.8, 0.4), "metalness": 1.0},
-                {"name": "Glass", "color": (0.1, 0.3, 0.9), "emissive_luminance": 2.0}])
+                {"name": "Glass", "color": (0.1, 0.3, 0.9), "emissive_luminance": 2.0}],
+                device="cpu")
             pool_cpu = type(build.sim.meshes)(*(x.cpu() for x in build.sim.meshes))
             rt = HeadlessRuntime(build, cfg, registry=registry, enable_fracturing=False)
             cpu = bake_mesh_materials(pool_cpu, material_corner_table(registry))
@@ -3938,7 +3939,15 @@ def surface_phase(dev, record, kernels):
     grid, its labels launch held against the plain version and the pool
     equal to the CPU's; (d) ``rasterize(method="chunk")`` against
     ``method="tiled"`` at 480x270 on the bench scene's triangles, at the
-    raster bars (depth within 2e-3, coverage equal on > 0.99 of pixels)."""
+    raster bars (depth within 2e-3, coverage equal on > 0.99 of pixels);
+    (e) the class members and record layouts: after a remesh of a tumbler
+    at 16^3 with mixed voxel types, ``sim.meshes``' ``vert_type``,
+    ``vert_type2`` and ``vert_blend`` equal the card's and the CPU's
+    ``compact_mesh`` of the same Surface Nets mesh; ``Isometry.identity``,
+    ``Similarity.identity``, ``BodyState.is_kinematic`` and
+    ``HeadlessRuntime.registry`` on the card; ``RenderConfig``,
+    ``EngineParams``, ``PhysicsConfig`` and ``TpuConfig`` built
+    positionally equal to the runtime's own."""
     import numpy as np
     import torch
 
@@ -4110,6 +4119,10 @@ def surface_phase(dev, record, kernels):
                                     chunk_ms=chunk_ms, tiled_ms=tiled_ms,
                                     triangles=int(act.sum()))
 
+    with Phase("surface (e): the vertex materials after a remesh, identity, is_kinematic, "
+               "the registry and the records built positionally, on the card"):
+        rows["members"] = surface_members_check(dev)
+
     for name, k1 in k1_rows.items():
         entry = next((k for k in kernels if k["name"] == name), None)
         if entry is not None:
@@ -4134,6 +4147,114 @@ def surface_phase(dev, record, kernels):
             library_ms=None))
     rows["phase_s"] = time.perf_counter() - t_phase
     log(f"surface phase: {rows['phase_s']:.2f} s")
+
+
+def reference_field_order(path, name):
+    """The fields of class ``name`` in the JAX package's ``path``, in their
+    declared order, read from its source text (nothing of it is imported)."""
+    import ast
+
+    with open(os.path.join(HERE, "impact_tpu", path)) as f:
+        tree = ast.parse(f.read())
+    cls = next(n for n in tree.body if isinstance(n, ast.ClassDef) and n.name == name)
+    return [s.target.id for s in cls.body
+            if isinstance(s, ast.AnnAssign) and isinstance(s.target, ast.Name)]
+
+
+def surface_members_check(dev):
+    """Check (e) of the surface phase; returns its numbers."""
+    import dataclasses
+
+    import torch
+
+    from impact_tpu_torch.math.transform import Isometry, Similarity
+    from impact_tpu_torch.models import voxel_box_tumbler
+    from impact_tpu_torch.physics.state import KIND_KINEMATIC
+    from impact_tpu_torch.render.pipeline import RenderConfig
+    from impact_tpu_torch.runtime import HeadlessRuntime, compile_scene
+    from impact_tpu_torch.runtime.engine import EngineParams, make_engine_step
+    from impact_tpu_torch.utils.config import EngineConfig, PhysicsConfig, TpuConfig
+    from impact_tpu_torch.voxel.encoding import sdf_world
+    from impact_tpu_torch.voxel.mesh import SurfaceNetsMesh, compact_mesh, surface_nets
+
+    cfg = EngineConfig()
+    t = cfg.tpu
+    t.max_voxel_objects, t.max_bodies, t.max_contacts, t.voxel_grid_size = 4, 8, 64, 16
+    rt = HeadlessRuntime(compile_scene(voxel_box_tumbler(n_boxes=2, seed=0), cfg, device=dev),
+                         cfg)
+    v = rt.sim.voxels
+    gen = torch.Generator(device="cpu").manual_seed(7)
+    vtype = torch.randint(0, 3, tuple(v.vtype.shape), generator=gen, dtype=torch.int32)
+    rt.sim = rt.sim._replace(voxels=v._replace(vtype=vtype.to(dev), mesh_dirty=v.alive.clone()))
+    rt.step(1)
+    v = rt.sim.voxels
+    idx = torch.nonzero(v.alive).flatten()
+    if idx.numel() != 2 or bool(v.mesh_dirty.any()):
+        raise AssertionError(f"the remesh did not run: alive {idx.tolist()}, dirty "
+                             f"{v.mesh_dirty.tolist()}")
+    caps = rt.info["mesh_vert_cap"], rt.info["mesh_tri_cap"]
+    sn = surface_nets(sdf_world(v.sdf[idx], v.voxel_extent[idx]), v.vtype[idx],
+                      t.mesh_merge_levels)
+    card = compact_mesh(sn, *caps)
+    cpu = compact_mesh(SurfaceNetsMesh(*(f.cpu() for f in sn)), *caps)
+    for f in ("vert_type", "vert_type2", "vert_blend"):
+        got = getattr(rt.sim.meshes, f)[idx]
+        if got.device.type != "cuda" or not torch.equal(got, getattr(card, f)) \
+                or not torch.equal(got.cpu(), getattr(cpu, f)):
+            raise AssertionError(f"sim.meshes.{f} after the remesh differs from compact_mesh's")
+    active = rt.sim.meshes.vert_active[idx]
+    n_blended = int((rt.sim.meshes.vert_blend[idx][active] > 0).sum())
+    if n_blended == 0:
+        raise AssertionError("no two-material vertex after the remesh")
+    log(f"surface members: sim.meshes.vert_type, vert_type2, vert_blend after the remesh of "
+        f"{idx.numel()} objects equal the card's and the CPU's compact_mesh "
+        f"({int(active.sum())} active vertices, {n_blended} of them two-material)")
+
+    for cls in (Isometry, Similarity):
+        got = cls.identity((3,), device=dev)
+        want = cls.identity((3,), device="cpu")
+        if any(a.device.type != "cuda" or not torch.equal(a.cpu(), b)
+               for a, b in zip(got, want)):
+            raise AssertionError(f"{cls.__name__}.identity on the card")
+    bodies = rt.sim.phys.bodies._replace(kind=torch.tensor([0, 1, 2, 2, 1, 0, 0, 0],
+                                                           dtype=torch.int32, device=dev))
+    kin = bodies.is_kinematic
+    if kin.device.type != "cuda" or kin.tolist() != [k == KIND_KINEMATIC
+                                                      for k in bodies.kind.tolist()]:
+        raise AssertionError(f"is_kinematic on the card: {kin.tolist()}")
+    reg = rt.registry
+    if reg.n_types != 3 or reg.mass_density.device.type != "cuda" \
+            or rt.textures is not None:
+        raise AssertionError(f"HeadlessRuntime.registry: {reg.n_types} types on "
+                             f"{reg.mass_density.device}")
+    log(f"surface members: Isometry.identity and Similarity.identity on the card equal the "
+        f"CPU's; is_kinematic {kin.tolist()} on the card; HeadlessRuntime.registry the default "
+        f"{reg.n_types} types ({', '.join(reg.names)}) on {reg.mass_density.device}")
+
+    # each record built positionally from distinct marks in the field order
+    # that the JAX package's source declares: a port field out of that
+    # order takes another field's mark
+    records = {}
+    for cls, src in ((RenderConfig, "render/pipeline.py"), (EngineParams, "runtime/engine.py"),
+                     (PhysicsConfig, "utils/config.py"), (TpuConfig, "utils/config.py")):
+        order = reference_field_order(src, cls.__name__)
+        built = cls(*order)
+        records[cls.__name__] = len(order)
+        wrong = [n for n in order if getattr(built, n) != n]
+        if wrong or len(order) != len(getattr(cls, "_fields", None)
+                                        or dataclasses.fields(cls)):
+            raise AssertionError(f"{cls.__name__} built positionally in the reference's order "
+                                 f"misplaces {wrong}")
+    params = EngineParams(*(getattr(rt.params, n)
+                            for n in reference_field_order("runtime/engine.py", "EngineParams")))
+    step = make_engine_step(params, cfg, *caps)
+    stepped = step(rt.sim)
+    if not body_state_finite(stepped):
+        raise AssertionError("the step of the positionally built EngineParams is not finite")
+    log(f"surface members: {', '.join(f'{k} ({n} fields)' for k, n in records.items())} built "
+        f"positionally in the JAX package's declared order put every value in its field; "
+        f"the engine step of EngineParams so built from the runtime's values stays finite")
+    return dict(n_blended=n_blended, active_vertices=int(active.sum()))
 
 
 def finish(t_all, record, kernels, kind, count) -> int:

@@ -60,6 +60,13 @@ def reference_paths() -> dict:
     return paths
 
 
+# the reference checkout's goldens and config as the reference harness names
+# them (None where the harness is not beside the port)
+_REFERENCE = reference_paths()
+REF_DIR = _REFERENCE.get("REF_DIR")
+REF_CONFIG = str(_REFERENCE["REF_CONFIG"]) if "REF_CONFIG" in _REFERENCE else None
+
+
 def load_base_config(path=None):
     """(EngineConfig, where it came from): ``path``, else the reference
     checkout's engine_config.ron where it exists, else the defaults."""
@@ -113,18 +120,41 @@ def parity_config(name: str, cfg):
     return cfg
 
 
-def build_runtime(name: str, cfg=None, device="cuda"):
+def build_runtime(name: str, backend: str | None = None, cfg=None, device="cuda"):
     """The scene's HeadlessRuntime with the harness's overrides applied to a
-    copy of ``cfg`` (default: ``load_base_config()``'s), fracturing,
-    absorption and splitting off as in the reference harness."""
+    copy of ``cfg`` (default: ``load_base_config()``'s), ``backend`` (when
+    given) as ``tpu.raster_backend``, fracturing, absorption and splitting
+    off as in the reference harness."""
     from ..models.parity_scenes import PARITY_SCENES
     from ..runtime import HeadlessRuntime, compile_scene
 
     cfg = parity_config(name, copy.deepcopy(cfg) if cfg is not None else load_base_config()[0])
+    if backend is not None:
+        cfg.tpu.raster_backend = backend
     builder, _ = PARITY_SCENES[name]
     build = compile_scene(builder(), cfg, device=device)
     return HeadlessRuntime(build, cfg, enable_fracturing=False, enable_absorption=False,
                            enable_splitting=False)
+
+
+def score_reference_scene(name: str, backend: str | None = None, device="cuda",
+                          goldens=None) -> dict:
+    """Render scene ``name`` with ``backend`` (None: the configuration's)
+    and score it against its golden in ``goldens`` (None: the reference
+    checkout's ``REF_DIR``) → {"score", "raster_drops"}; the score means
+    something only where the drop count is 0. Raises FileNotFoundError
+    where the golden is absent, as the reference harness does."""
+    from ..utils.image import load_png, rgb_hybrid_compare
+
+    goldens = REF_DIR if goldens is None else goldens
+    golden = pathlib.Path(goldens) / f"{name}.png" if goldens is not None else None
+    if golden is None or not golden.exists():
+        raise FileNotFoundError(f"no golden for {name!r} in {goldens}")
+    rt = build_runtime(name, backend, device=device)
+    img = rt.render().cpu().numpy()
+    ref = load_png(golden)[..., :3]
+    return {"score": float(rgb_hybrid_compare(img, ref)),
+            "raster_drops": int(rt.dropped_raster_candidates())}
 
 
 def run(names, cfg=None, device="cuda", goldens=JAX_RENDERS, out_dir=OUT_DIR):
@@ -137,7 +167,7 @@ def run(names, cfg=None, device="cuda", goldens=JAX_RENDERS, out_dir=OUT_DIR):
     scores, drops = {}, {}
     for name in names:
         t0 = time.perf_counter()
-        rt = build_runtime(name, cfg, device)
+        rt = build_runtime(name, cfg=cfg, device=device)
         img = rt.render().cpu().numpy()
         drops[name] = rt.dropped_raster_candidates()
         if drops[name] != 0:
@@ -174,7 +204,8 @@ def main(argv=None) -> int:
     goldens, golden_label = golden_dir(args.golden_dir)
     print(f"[parity] config: {cfg_label}", flush=True)
     print(f"[parity] goldens: {golden_label}", flush=True)
-    scores, drops = run(names, cfg, args.device, goldens, args.out_dir)
+    scores, drops = run(names, cfg=cfg, device=args.device, goldens=goldens,
+                        out_dir=args.out_dir)
     summary = {
         "scenes": {k: round(v, 4) for k, v in scores.items()},
         "n_pass": sum(1 for s in scores.values() if s >= MIN_SCORE),

@@ -149,18 +149,18 @@ def snapshot_config(raster_backend: str | None = None):
     return cfg
 
 
-def build_runtime(name: str, device="cuda", raster_backend: str | None = None):
+def build_runtime(scene_name: str, device="cuda", raster_backend: str | None = None):
     """The scene's HeadlessRuntime at the tester's configuration."""
     from ..models import SCENES, rendering_test
     from ..runtime import HeadlessRuntime, compile_scene
 
     cfg = snapshot_config(raster_backend)
-    if name in FEATURE_SCENES:
-        kwargs, mutate = FEATURE_SCENES[name]
+    if scene_name in FEATURE_SCENES:
+        kwargs, mutate = FEATURE_SCENES[scene_name]
         mutate(cfg)
         scene = rendering_test(**kwargs)
     else:
-        scene = SCENES[name]()
+        scene = SCENES[scene_name]()
     return HeadlessRuntime(compile_scene(scene, cfg, device=device), cfg)
 
 

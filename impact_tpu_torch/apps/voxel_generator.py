@@ -85,8 +85,8 @@ def stats(graph, device="cuda", grid_size: int = GRID, extent: float = EXTENT) -
     return out
 
 
-def cmd_stats(path, device="cuda"):
-    print(stats(load_any_graph(path), device)["line"])
+def cmd_stats(path, grid_size: int = GRID, extent: float = EXTENT, device="cuda"):
+    print(stats(load_any_graph(path), device, grid_size, extent)["line"])
 
 
 def preview_frame(graph, device="cuda", raster_backend: str = "kernel", grid_size: int = GRID,
@@ -130,10 +130,11 @@ def preview_frame(graph, device="cuda", raster_backend: str = "kernel", grid_siz
     return img
 
 
-def cmd_preview(path, out_png, device="cuda"):
+def cmd_preview(path, out_png, grid_size: int = GRID, extent: float = EXTENT, device="cuda"):
     from ..utils.image import save_png
 
-    save_png(out_png, preview_frame(load_any_graph(path), device).cpu().numpy())
+    img = preview_frame(load_any_graph(path), device, grid_size=grid_size, extent=extent)
+    save_png(out_png, img.cpu().numpy())
     print(f"wrote {out_png}")
 
 
@@ -168,11 +169,11 @@ def main(argv=None) -> int:
     if args.cmd == "example":
         cmd_example(args.out)
     elif args.cmd == "stats":
-        cmd_stats(args.graph, args.device)
+        cmd_stats(args.graph, device=args.device)
     elif args.cmd == "preview":
-        cmd_preview(args.graph, args.out, args.device)
+        cmd_preview(args.graph, args.out, device=args.device)
     else:
-        cmd_vary(args.graph, args.out_dir, args.n, args.device)
+        cmd_vary(args.graph, args.out_dir, args.n, device=args.device)
     return 0
 
 

@@ -7,7 +7,7 @@ from __future__ import annotations
 import torch
 
 
-def perspective_projection_matrix(aspect_ratio, vertical_fov, near, far, device=None):
+def perspective_projection_matrix(aspect_ratio, vertical_fov, near, far, device="cuda"):
     """[4,4] perspective projection. Scalars may be floats or 0-d tensors."""
     vertical_fov, near, far = (
         torch.as_tensor(x, dtype=torch.float32, device=device)
@@ -24,7 +24,7 @@ def perspective_projection_matrix(aspect_ratio, vertical_fov, near, far, device=
     return m
 
 
-def orthographic_projection_matrix(left, right, bottom, top, near, far, device=None):
+def orthographic_projection_matrix(left, right, bottom, top, near, far, device="cuda"):
     """[4,4] orthographic projection onto [-1,1]² × [0,1] looking down −z."""
     left, right, bottom, top, near, far = (
         torch.as_tensor(x, dtype=torch.float32, device=device)

@@ -12,7 +12,7 @@ import torch
 IDENTITY = torch.tensor([0.0, 0.0, 0.0, 1.0])  # (x, y, z, w), on the CPU
 
 
-def identity(batch_shape=(), dtype=torch.float32, device=None):
+def identity(batch_shape=(), dtype=torch.float32, device="cuda"):
     q = torch.zeros((*batch_shape, 4), dtype=dtype, device=device)
     q[..., 3] = 1.0
     return q

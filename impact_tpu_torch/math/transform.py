@@ -18,11 +18,22 @@ class Isometry(NamedTuple):
     translation: torch.Tensor  # [..., 3]
     rotation: torch.Tensor  # [..., 4]
 
+    @staticmethod
+    def identity(batch_shape=(), dtype=torch.float32, device="cuda"):
+        return Isometry(torch.zeros((*batch_shape, 3), dtype=dtype, device=device),
+                        quat.identity(batch_shape, dtype, device))
+
 
 class Similarity(NamedTuple):
     translation: torch.Tensor  # [..., 3]
     rotation: torch.Tensor  # [..., 4]
     scaling: torch.Tensor  # [...]
+
+    @staticmethod
+    def identity(batch_shape=(), dtype=torch.float32, device="cuda"):
+        return Similarity(torch.zeros((*batch_shape, 3), dtype=dtype, device=device),
+                          quat.identity(batch_shape, dtype, device),
+                          torch.ones(batch_shape, dtype=dtype, device=device))
 
 
 def iso_apply(iso: Isometry, p):

@@ -51,8 +51,9 @@ the per-object results are combined over the row:
   of its own slots.
 
 A step without an event moves no grid between ranks and no slab: only
-planes, pieces of meshes and per-object vectors. Chunked mode raises
-(ROADMAP.md, Queue 1).
+planes, pieces of meshes and per-object vectors. Chunked mode raises, as
+the reference's sharding does (ROADMAP.md, Queue 3, "Chunked states under
+sharding").
 """
 
 from __future__ import annotations

@@ -49,7 +49,7 @@ class CollidablePools(NamedTuple):
     cap_mask: torch.Tensor  # bool[Nc]
 
 
-def empty_collidable_pools(n_spheres=64, n_planes=8, n_capsules=16, device=None) -> CollidablePools:
+def empty_collidable_pools(n_spheres=64, n_planes=8, n_capsules=16, device="cuda") -> CollidablePools:
     """Pools with every slot masked off; planes face +y and are static."""
     def z(*shape, dtype=torch.float32):
         return torch.zeros(shape, dtype=dtype, device=device)

@@ -62,7 +62,7 @@ class MotionDriverPools(NamedTuple):
     orb_mask: torch.Tensor
 
 
-def empty_motion_driver_pools(cap: int = 16, device=None) -> MotionDriverPools:
+def empty_motion_driver_pools(cap: int = 16, device="cuda") -> MotionDriverPools:
     def z(*s):
         return torch.zeros(s, device=device)
 

@@ -53,7 +53,7 @@ class ForcePools(NamedTuple):
 
 
 def empty_force_pools(n_bodies: int, cap_accel: int = 64, cap_local: int = 16,
-                      cap_springs: int = 64, cap_align: int = 16, device=None) -> ForcePools:
+                      cap_springs: int = 64, cap_align: int = 16, device="cuda") -> ForcePools:
     def z3(c):
         return torch.zeros((c, 3), device=device)
 

@@ -86,7 +86,7 @@ def rotated_inertia(inertia, rotation_matrix):
     return torch.einsum("...ij,...jk,...lk->...il", rotation_matrix, inertia, rotation_matrix)
 
 
-def mesh_inertial_properties(vertices, triangles, mass_density=1.0, device=None):
+def mesh_inertial_properties(vertices, triangles, mass_density=1.0, device="cuda"):
     """(mass, centre of mass [3], inertia [3,3] about it) of a closed,
     consistently wound triangle mesh of uniform density (ref: inertia.rs:69
     of_uniform_triangle_mesh): signed tetrahedra about the origin, summed in

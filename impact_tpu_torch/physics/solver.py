@@ -54,7 +54,7 @@ class SolverCache(NamedTuple):
     position: torch.Tensor  # f32[C,3] contact point at prepare time
 
 
-def empty_solver_cache(max_contacts: int, device=None) -> SolverCache:
+def empty_solver_cache(max_contacts: int, device="cuda") -> SolverCache:
     z3 = torch.zeros((max_contacts, 3), device=device)
     zi = torch.zeros(max_contacts, dtype=torch.int64, device=device)
     return SolverCache(
@@ -363,7 +363,7 @@ class JointPools(NamedTuple):
     mask: torch.Tensor  # bool[J]
 
 
-def empty_joint_pools(cap: int = 16, device=None) -> JointPools:
+def empty_joint_pools(cap: int = 16, device="cuda") -> JointPools:
     zi = torch.zeros(cap, dtype=torch.int64, device=device)
     return JointPools(body_a=zi, body_b=zi.clone(), anchor_a=torch.zeros((cap, 3), device=device),
                       anchor_b=torch.zeros((cap, 3), device=device),

@@ -45,11 +45,15 @@ class BodyState(NamedTuple):
         return self.kind == KIND_DYNAMIC
 
     @property
+    def is_kinematic(self):
+        return self.kind == KIND_KINEMATIC
+
+    @property
     def alive(self):
         return self.kind != KIND_NONE
 
 
-def empty_body_state(n: int, device=None) -> BodyState:
+def empty_body_state(n: int, device="cuda") -> BodyState:
     z3 = torch.zeros((n, 3), device=device)
     return BodyState(
         kind=torch.zeros(n, dtype=torch.int32, device=device),

@@ -82,7 +82,7 @@ def physics_step(phys: PhysicsState, params: PhysicsParams, dt: float, n_substep
     return phys
 
 
-def init_physics_state(n_bodies: int, max_contacts: int, device=None) -> PhysicsState:
+def init_physics_state(n_bodies: int, max_contacts: int, device="cuda") -> PhysicsState:
     return PhysicsState(bodies=body_state.empty_body_state(n_bodies, device),
                         solver_cache=empty_solver_cache(max_contacts, device),
                         time=torch.tensor(0.0, device=device))

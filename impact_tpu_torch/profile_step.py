@@ -15,8 +15,9 @@ their fragments fill the 24 object slots). Two warm-up steps (100 for
 ``game``), then --steps steps timed one by one
 (wall ms after ``torch.cuda.synchronize``), then the same number under
 ``torch.profiler``. Prints the card (nvidia-smi name, power.limit), the
-median step, the host syncs per step, the device busy share and the CUDA
-kernels by total device time. The busy share is the profiled kernel time
+median step, the host syncs per step, the device memory allocated once
+the scene is built and at its peak over the timed steps, the device busy
+share and the CUDA kernels by total device time. The busy share is the profiled kernel time
 per step over the median step measured without the profiler (the
 profiler's host overhead stretches the profiled steps, not the kernels).
 Needs a CUDA device; imports no JAX.
@@ -71,6 +72,8 @@ def main(argv=None) -> int:
         rt = HeadlessRuntime(compile_scene(bench.bench_step_scene(), cfg), cfg,
                              enable_fracturing=False)
     rt.step(100 if args.what == "game" else 2)
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     times, syncs = [], rt.host_syncs
     for _ in range(args.steps):
         rt.step(1)
@@ -78,6 +81,8 @@ def main(argv=None) -> int:
     step_ms = statistics.median(times)
     print(f"{args.what} step: median {step_ms:.3f} ms, runs {times}, "
           f"{(rt.host_syncs - syncs) / args.steps:.2f} host syncs per step", flush=True)
+    print(f"device memory: {resident} B allocated after the warm-up steps, peak "
+          f"{torch.cuda.max_memory_allocated()} B over the timed steps", flush=True)
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()

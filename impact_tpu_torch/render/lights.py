@@ -37,7 +37,7 @@ class LightPools(NamedTuple):
     uni_mask: torch.Tensor  # bool[D]
 
 
-def empty_light_pools(n_omni: int = 4, n_uni: int = 2, device=None) -> LightPools:
+def empty_light_pools(n_omni: int = 4, n_uni: int = 2, device="cuda") -> LightPools:
     """Light pools with every slot masked off, unidirectional lights
     pointing down."""
     return LightPools(

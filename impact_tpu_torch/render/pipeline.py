@@ -87,8 +87,6 @@ class RenderConfig(NamedTuple):
     tone_mapping: str = "ACES"
     shadows_enabled: bool = True
     csm_cascades: int = 1
-    soft_shadows: bool = False
-    bf16_shading: bool = False  # BRDF math in bfloat16 (render/lights.py:shade)
     sky_luminance: tuple = (0.0, 0.0, 0.0)
     # textured-material path: triplanar voxel-type texture layers, and the
     # textured mesh entities' full-PBR layers, applied in deferred_shade
@@ -97,8 +95,10 @@ class RenderConfig(NamedTuple):
     normal_map_strength: float = 1.0
     shadow_pcf_downsample: int = 1
     ao_downsample: int = 1
+    soft_shadows: bool = False
     procedural_sky: bool = False
     orthographic: bool = False
+    bf16_shading: bool = False  # BRDF math in bfloat16 (render/lights.py:shade)
     max_triangles: int = 65536
     view_culling: bool = True
     # "kernel" = the K1 tile kernel (render/raster_pallas.py: CUDA on the card,
@@ -113,8 +113,9 @@ class RenderState(NamedTuple):
     history_luminance: torch.Tensor  # f32[H,W,3] TAA history
     avg_luminance: torch.Tensor  # f32 smoothed scene luminance
     frame_index: int
-    # cumulative raster candidates lost to window/big-block overflow
-    n_raster_drops: torch.Tensor  # i64[]
+    # cumulative raster candidates lost to window/big-block overflow; a
+    # plain 0 where a state is built without it, as in the reference
+    n_raster_drops: torch.Tensor | int = 0  # i64[]
 
 
 def init_render_state(config: RenderConfig, device="cuda") -> RenderState:
@@ -329,7 +330,8 @@ def apply_textures(gb: GBuffer, cam: Camera, config: RenderConfig, textures) -> 
 
     vm = view_matrix(cam)
     has_tex = gb.material >= 0
-    layer = torch.clamp(gb.material, min=0).long()
+    # a layer past the last reads the last, as the reference's gathers clamp
+    layer = torch.clamp(gb.material, 0, textures.albedo.mips[0].shape[0] - 1).long()
     # mip level from the texel footprint of one pixel at this depth
     view_depth = -(vm[2, 0] * gb.world_pos[..., 0] + vm[2, 1] * gb.world_pos[..., 1]
                    + vm[2, 2] * gb.world_pos[..., 2] + vm[2, 3])

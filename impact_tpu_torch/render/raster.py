@@ -235,7 +235,7 @@ def _tile_chunks(b: _Binned, k, tile, tiles_per_chunk, budget, fit_k):
         s0 += tc
 
 
-def clear_target(height: int, width: int, device=None) -> RasterTarget:
+def clear_target(height: int, width: int, device="cuda") -> RasterTarget:
     """A cleared target: depth 1.0, no triangle (ref: clearing_pass.rs:20
     CLEAR_DEPTH = 1.0)."""
     return RasterTarget(

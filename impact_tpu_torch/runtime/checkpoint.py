@@ -5,17 +5,16 @@ The whole ``SimState`` (bodies, voxel grids, meshes, solver cache, render
 history, the fracture generator) goes into one compressed npz, keyed by
 the reference's stringified field paths ("phys/bodies/position",
 "voxels/sdf", "render/frame_index", ...), so a checkpoint that
-``impact_tpu`` wrote loads here wherever the port's state has the same
-field. The keys that differ:
-
-* ``rng_state``: the port's fracture ``torch.Generator`` state (uint8). The
-  reference stores its PRNG key under ``rng``; loading a file that has only
-  ``rng`` seeds the generator from that key
-  (``bridge._generator_from_key``), so a run started under JAX resumes in
-  the port, drawing other fracture numbers than threefry would.
-* The chunk-submesh pool's ``meshes/tri_blend`` (the reference's top-2 type
-  blend) has no port field and is not read; a dense-path checkpoint loads
-  whole.
+``impact_tpu`` wrote loads here whole: the port's state has every field of
+the reference's, the dense meshes' vertex materials
+(``meshes/vert_type``, ``meshes/vert_type2``, ``meshes/vert_blend``) and
+the chunk-submesh pool's top-2 type blend (``meshes/tri_type2``,
+``meshes/tri_blend``) included. The one key that differs is
+``rng_state``: the port's fracture ``torch.Generator`` state (uint8). The
+reference stores its PRNG key under ``rng``; loading a file that has only
+``rng`` seeds the generator from that key (``bridge._generator_from_key``),
+so a run started under JAX resumes in the port, drawing other fracture
+numbers than threefry would.
 
 Integer index fields load into the port's widths (the reference keeps body
 and slot indices in int32, the port in int64); every other field must have

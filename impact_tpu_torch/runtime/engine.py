@@ -105,7 +105,7 @@ class DistanceRulePools(NamedTuple):
     mask: torch.Tensor  # bool[Dr]
 
 
-def empty_distance_rule_pools(cap: int = 16, device=None) -> DistanceRulePools:
+def empty_distance_rule_pools(cap: int = 16, device="cuda") -> DistanceRulePools:
     return DistanceRulePools(
         body=torch.zeros(cap, dtype=torch.int64, device=device),
         anchor_body=torch.zeros(cap, dtype=torch.int64, device=device),
@@ -152,10 +152,10 @@ class EngineParams(NamedTuple):
     fracture_radius: torch.Tensor  # f32[O]
     camera: Camera
     static_geometry: StaticGeometry
-    material_table: torch.Tensor  # f32[T,10]
+    dist_rules: DistanceRulePools  # empty_distance_rule_pools where a scene has none
+    casts_shadows_base: torch.Tensor  # bool[O] shadow casting from the scene
     mesh_instances: MeshInstancePool  # renderable mesh-model entities
-    dist_rules: DistanceRulePools | None = None
-    casts_shadows_base: torch.Tensor | None = None  # bool[O] shadow casting from the scene
+    material_table: torch.Tensor  # f32[T,10]
 
 
 def gather_objects(pool: VoxelObjectPool, idx) -> VoxelObjectPool:
@@ -368,7 +368,7 @@ def step_plan(params: EngineParams, config, enable_absorption: bool, enable_frac
         # rules (the pools are scene constants)
         absorb=enable_absorption and bool(params.absorbers.sph_mask.any()
                                           or params.absorbers.cap_mask.any()),
-        rules=params.dist_rules is not None and bool(params.dist_rules.mask.any()),
+        rules=bool(params.dist_rules.mask.any()),
     )
 
 

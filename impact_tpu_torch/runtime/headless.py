@@ -38,7 +38,12 @@ from ..render.pipeline import (
     shadow_pass,
 )
 from ..scene.assembly import build_render_scene
-from ..scene.materials import VoxelTypeRegistry, material_corner_table, registry_to
+from ..scene.materials import (
+    VoxelTypeRegistry,
+    default_registry,
+    material_corner_table,
+    registry_to,
+)
 from ..utils.config import EngineConfig
 from ..utils.timing import EngineMetrics, TaskTimer
 from ..voxel.chunk_mesh import ChunkMeshPool
@@ -60,11 +65,15 @@ class HeadlessRuntime:
         self.params = build.params
         self.info = build.info
         self.sim = build.sim
+        # the given registry, else the default one (as the reference keeps
+        # it): the texture layers of invalidate_render follow its n_types
+        self.registry = (registry_to(registry, self.device) if registry is not None
+                         else default_registry(self.device))
         if registry is not None:
             # a custom registry: rebake the scene's material table and meshes
             # (compile_scene baked with the registry it was given); a chunk
             # pool, which keeps no vertex census, rebakes from its top-2 blend
-            table = material_corner_table(registry_to(registry, self.device))
+            table = material_corner_table(self.registry)
             self.params = self.params._replace(material_table=table)
             self.sim = self.sim._replace(meshes=bake_mesh_materials(self.sim.meshes, table))
         self._initial_sim = self.sim
@@ -106,7 +115,10 @@ class HeadlessRuntime:
         """Derive the render configuration and the texture set from the
         config and the scene: textured mesh entities turn the textured shade
         path on, and their layers follow the voxel-type layers (when
-        ``tpu.textured_voxels`` is on) in the scene's texture arrays."""
+        ``tpu.textured_voxels`` is on) in the scene's texture arrays. The
+        voxel-type layers number ``self.registry.n_types``, as in the
+        reference, also where the scene was compiled with another registry
+        (``ROADMAP.md`` Queue 3)."""
         rc = render_config_from_engine_config(self.config)
         self._voxel_textured = rc.textured
         entity_layers = self.info.get("entity_texture_layers", [])
@@ -114,7 +126,7 @@ class HeadlessRuntime:
         if entity_layers:
             rc = rc._replace(textured=True)
             # entity-local layer indices → indices into the scene's arrays
-            offset = self.params.material_table.shape[0] if self._voxel_textured else 0
+            offset = self.registry.n_types if self._voxel_textured else 0
             mi = mi._replace(material=torch.where(mi.material >= 0, mi.material + offset,
                                                   -1).to(mi.material.dtype))
         self._mesh_instances = mi
@@ -124,7 +136,7 @@ class HeadlessRuntime:
             from ..render.textures import build_scene_texture_set
 
             self.textures = build_scene_texture_set(
-                self.params.material_table.shape[0], entity_layers,
+                self.registry.n_types, entity_layers,
                 self.config.tpu.texture_resolution, include_voxel_layers=self._voxel_textured,
                 device=self.sim.phys.bodies.position.device)
 

@@ -54,7 +54,7 @@ from ..physics.drag_map import get_or_build_drag_load_map
 from ..physics.driven_motion import MotionDriverPools, empty_motion_driver_pools
 from ..physics.forces import apply_forces_and_torques, empty_force_pools
 from ..physics.inertia import capsule_inertia, capsule_mass, sphere_inertia, sphere_mass
-from ..physics.solver import empty_joint_pools
+from ..physics.solver import JointPools, empty_joint_pools
 from ..physics.state import KIND_DYNAMIC, KIND_KINEMATIC, synchronize_momenta
 from ..physics.step import PhysicsParams, init_physics_state
 from ..render.camera import Camera, look_at
@@ -100,7 +100,13 @@ from ..voxel.encoding import encode_sdf_i8, sdf_world
 from ..voxel.interaction import empty_absorber_pools
 from ..voxel.mesh import CompactMesh, bake_mesh_materials, compact_mesh, surface_nets
 from ..voxel.object import VoxelObjectPool, generate_sdf_grid
-from .engine import EngineParams, SimState, _sync_voxel_bodies, empty_distance_rule_pools
+from .engine import (
+    DistanceRulePools,
+    EngineParams,
+    SimState,
+    _sync_voxel_bodies,
+    empty_distance_rule_pools,
+)
 
 
 @dataclass
@@ -399,7 +405,7 @@ def _joint_pools(specs, body_of, dev):
         f["anchor_a"][j] = torch.tensor([_f32(e) for e in sj.anchor_a])
         f["anchor_b"][j] = torch.tensor([_f32(e) for e in sj.anchor_b])
         f["mask"][j] = True
-    return type(empty_joint_pools())(**f)
+    return JointPools(**f)
 
 
 def _distance_rule_pools(rules, body_of, dev):
@@ -414,7 +420,7 @@ def _distance_rule_pools(rules, body_of, dev):
         f["no_shadow_d2"][j] = _f32(r.no_shadowing_dist_squared)
         f["removal_d2"][j] = _f32(r.removal_dist_squared)
         f["mask"][j] = True
-    return type(empty_distance_rule_pools())(**f)
+    return DistanceRulePools(**f)
 
 
 def _object_grids(ob, g: int, i8: bool, dev):
@@ -513,7 +519,7 @@ def compile_scene(world, config: EngineConfig, registry: VoxelTypeRegistry | Non
     scene = lower_world(world, TEXTURE_SOURCES, sdf_generators, MESH_FILE_PATHS)
     if scene.camera is not None and scene.camera.orthographic:
         tc.orthographic_camera = True  # in place, as the reference does
-    registry = registry_to(registry or default_registry(), dev)
+    registry = registry_to(registry, dev) if registry is not None else default_registry(dev)
     o_max = tc.max_voxel_objects
     g = tc.voxel_grid_size
     n_regular = tc.max_bodies - o_max

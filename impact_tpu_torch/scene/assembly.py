@@ -56,12 +56,12 @@ class MeshInstancePool(NamedTuple):
     orientation: torch.Tensor  # f32[M,4]
     alive: torch.Tensor  # bool[M]
     casts_shadows: torch.Tensor  # bool[M]
-    material: torch.Tensor  # i32[M] texture layer, -1 = uniform only
+    material: torch.Tensor | None = None  # i32[M] texture layer, -1 = uniform only
     corner_pos: torch.Tensor | None = None  # f32[M,Tm,9] local, baked at setup
     corner_normal: torch.Tensor | None = None  # f32[M,Tm,9]
 
 
-def empty_mesh_instances(m: int, vm: int, tm: int, device=None) -> MeshInstancePool:
+def empty_mesh_instances(m: int, vm: int, tm: int, device="cuda") -> MeshInstancePool:
     return MeshInstancePool(
         vert_pos=torch.zeros((m, vm, 3), device=device),
         vert_normal=torch.zeros((m, vm, 3), device=device),
@@ -90,7 +90,7 @@ def bake_mesh_instance_corners(mi: MeshInstancePool) -> MeshInstancePool:
                        corner_normal=mi.vert_normal[rows, mi.tri_indices].reshape(m, tm, 9))
 
 
-def empty_static_geometry(device=None) -> StaticGeometry:
+def empty_static_geometry(device="cuda") -> StaticGeometry:
     z3 = torch.zeros((0, 3), dtype=torch.float32, device=device)
     return StaticGeometry(
         vert_pos=z3, vert_normal=z3, vert_albedo=z3, vert_f0=z3,
@@ -103,7 +103,7 @@ def empty_static_geometry(device=None) -> StaticGeometry:
 
 def ground_plane_geometry(y: float = 0.0, half_size: float = 100.0,
                           albedo=(0.35, 0.35, 0.38), roughness: float = 0.9,
-                          device=None) -> StaticGeometry:
+                          device="cuda") -> StaticGeometry:
     """A 2-triangle y-up quad wound so its +y face survives backface culling."""
     v = torch.tensor([[-half_size, y, -half_size], [half_size, y, -half_size],
                       [half_size, y, half_size], [-half_size, y, half_size]],

@@ -22,7 +22,7 @@ class VoxelTypeRegistry(NamedTuple):
     names: tuple
 
 
-def make_voxel_type_registry(specs: Sequence[dict], device=None) -> VoxelTypeRegistry:
+def make_voxel_type_registry(specs: Sequence[dict], device="cuda") -> VoxelTypeRegistry:
     def col(key, default):
         return torch.tensor([s.get(key, default) for s in specs],
                             dtype=torch.float32, device=device)
@@ -41,7 +41,7 @@ def make_voxel_type_registry(specs: Sequence[dict], device=None) -> VoxelTypeReg
     )
 
 
-def registry_from_ron_file(path, device=None) -> VoxelTypeRegistry:
+def registry_from_ron_file(path, device="cuda") -> VoxelTypeRegistry:
     """Load the reference's voxel-types RON format (ref: voxel_types.rs
     VoxelTypeSpecification list): a list of specs, or a struct holding one
     under ``voxel_types``."""
@@ -62,7 +62,7 @@ def registry_to(registry: VoxelTypeRegistry, device) -> VoxelTypeRegistry:
                                 if isinstance(v, torch.Tensor)})
 
 
-def default_registry(device=None) -> VoxelTypeRegistry:
+def default_registry(device="cuda") -> VoxelTypeRegistry:
     return make_voxel_type_registry(
         [
             {"name": "Rock", "mass_density": 2500.0, "color": (0.45, 0.38, 0.32),

@@ -162,9 +162,9 @@ class RigidBodyForceConfig:
 @dataclass
 class PhysicsConfig:
     simulator: SimulatorConfig = field(default_factory=SimulatorConfig)
+    rigid_body_force: RigidBodyForceConfig = field(default_factory=RigidBodyForceConfig)
     constraint_solver: ConstraintSolverConfig = field(default_factory=ConstraintSolverConfig)
     medium: MediumConfig = field(default_factory=MediumConfig)
-    rigid_body_force: RigidBodyForceConfig = field(default_factory=RigidBodyForceConfig)
 
 
 @dataclass
@@ -251,34 +251,22 @@ class TpuConfig:
     max_lights: int = 8
     render_width: int = 256
     render_height: int = 192
+    solver_mode: str = "scan"  # "scan" (Gauss-Seidel parity) | "jacobi" (scale)
     csm_cascades: int = 1
     max_render_triangles: int = 65536
     mesh_vert_cap: int = 0  # 0 = auto: min(4096, (G-1)³)
     mesh_tri_cap: int = 0  # 0 = auto: min(8192, 6·(G-1)³)
     mesh_merge_levels: int = 2
     render_tris_per_object: int = 0
-    procedural_sky: bool = False
-    soft_shadows: bool = False  # PCSS-style soft shadows from light extents
     textured_voxels: bool = False  # triplanar voxel-type texture arrays
     texture_resolution: int = 64  # procedural texture-array base size
-    sdf_encoding: str = "f32"  # "f32" | "i8"
-    orthographic_camera: bool = False
-    bf16_shading: bool = False  # BRDF math in bfloat16
-    sky_luminance: tuple = (3000.0, 4500.0, 9000.0)
-    # "kernel" (K1) | "raster" (the plain tile raster); the reference's names
-    # read as the port's: "auto" and "pallas" are K1, "xla" the plain raster
-    raster_backend: str = "kernel"
-    view_culling: bool = True
-    solver_mode: str = "scan"  # "scan" (Gauss-Seidel parity) | "jacobi" (scale)
-    max_fracture_fragments: int = 128
-    max_fracture_events: int = 2
-    max_split_objects: int = 4
-    max_split_regions: int = 3
     # absorption runs dense only on the ≤cap objects whose bounding spheres
     # overlap an absorber; in chunked mode the carve visits only the ≤budget
     # (object, chunk) 16³ windows that overlap one (the rest defer a step)
     absorption_gate_cap: int = 8
     absorption_chunk_budget: int = 32
+    max_fracture_fragments: int = 128
+    max_fracture_events: int = 2
     # chunk-gated meshing: surface meshes live in a shared pool of chunk
     # submesh slots, up to chunk_remesh_budget dirty chunks re-meshed a step
     chunked_remesh: bool | None = None  # None = on for G ≥ 64 (resolved by compile_scene)
@@ -286,13 +274,25 @@ class TpuConfig:
     chunk_tri_cap: int = 1024  # triangle slots per chunk submesh
     chunk_vert_cap: int = 1024  # vertex budget per chunk compaction
     chunk_remesh_budget: int = 16  # dirty chunks re-meshed per step
+    max_split_objects: int = 4
+    max_split_regions: int = 3
+    soft_shadows: bool = False  # PCSS-style soft shadows from light extents
+    procedural_sky: bool = False
+    sdf_encoding: str = "f32"  # "f32" | "i8"
+    orthographic_camera: bool = False
+    bf16_shading: bool = False  # BRDF math in bfloat16
+    sky_luminance: tuple = (3000.0, 4500.0, 9000.0)
+    # the reference's lax.scan step batching; the port steps once per call
+    # and only carries the field
+    steps_per_dispatch: int = 8
+    # "kernel" (K1) | "raster" (the plain tile raster); the reference's names
+    # read as the port's: "auto" and "pallas" are K1, "xla" the plain raster
+    raster_backend: str = "kernel"
+    view_culling: bool = True
     # renderable mesh-model entities (sphere meshes of BallPit's balls)
     max_mesh_entities: int = 16
     max_mesh_entity_verts: int = 1024  # vertex capacity per mesh entity
     max_mesh_entity_tris: int = 2048
-    # the reference's lax.scan step batching; the port steps once per call
-    # and only carries the field
-    steps_per_dispatch: int = 8
 
 
 @dataclass

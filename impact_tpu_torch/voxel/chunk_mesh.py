@@ -75,7 +75,7 @@ def n_chunks_per_object(grid_size: int) -> int:
 
 
 def empty_chunk_mesh_pool(n_slots: int, tri_cap: int, n_objects: int, grid_size: int,
-                          device=None) -> ChunkMeshPool:
+                          device="cuda") -> ChunkMeshPool:
     c = n_chunks_per_object(grid_size)
     s, t = n_slots, tri_cap
 

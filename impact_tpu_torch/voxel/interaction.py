@@ -61,7 +61,7 @@ class AbsorberPools(NamedTuple):
     cap_mask: torch.Tensor  # bool[A]
 
 
-def empty_absorber_pools(cap: int = 8, device=None) -> AbsorberPools:
+def empty_absorber_pools(cap: int = 8, device="cuda") -> AbsorberPools:
     def z(*shape, dtype=torch.float32):
         return torch.zeros(shape, dtype=dtype, device=device)
 

@@ -310,6 +310,9 @@ class CompactMesh(NamedTuple):
     vert_active: torch.Tensor  # bool[Vc]
     vert_pos: torch.Tensor  # f32[Vc,3] grid units
     vert_normal: torch.Tensor  # f32[Vc,3]
+    vert_type: torch.Tensor  # i32[Vc]
+    vert_type2: torch.Tensor  # i32[Vc] second material (== vert_type where pure)
+    vert_blend: torch.Tensor  # f32[Vc] weight of vert_type2 in [0, 0.5]
     vert_ctype: torch.Tensor  # i32[Vc,8]
     vert_cweight: torch.Tensor  # f32[Vc,8]
     tri_active: torch.Tensor  # bool[Tc]
@@ -357,12 +360,14 @@ def compact_mesh(mesh: SurfaceNetsMesh, vert_cap: int, tri_cap: int) -> CompactM
 
     vpos = _take_rows(mesh.vert_pos, vsel)
     vnrm = _take_rows(mesh.vert_normal, vsel)
+    vtype, vtype2, vblend = (torch.gather(f, 1, vsel)
+                             for f in (mesh.vert_type, mesh.vert_type2, mesh.vert_blend))
     flat = tidx.reshape(nb, -1)
     tri_pos = _take_rows(vpos, flat).reshape(nb, -1, 9)
     tri_normal = _take_rows(vnrm, flat).reshape(nb, -1, 9)
 
     def corners(vert_field):
-        return torch.gather(torch.gather(vert_field, 1, vsel), 1, flat).reshape(nb, -1, 3)
+        return torch.gather(vert_field, 1, flat).reshape(nb, -1, 3)
 
     n_t = tidx.shape[1]
     z9 = torch.zeros((nb, n_t, 9), dtype=torch.float32, device=dev)
@@ -370,15 +375,18 @@ def compact_mesh(mesh: SurfaceNetsMesh, vert_cap: int, tri_cap: int) -> CompactM
         vert_active=vact,
         vert_pos=vpos,
         vert_normal=vnrm,
+        vert_type=vtype,
+        vert_type2=vtype2,
+        vert_blend=vblend,
         vert_ctype=_take_rows(mesh.vert_ctype, vsel),
         vert_cweight=_take_rows(mesh.vert_cweight, vsel),
         tri_active=tact,
         tri_indices=tidx,
         tri_pos=tri_pos,
         tri_normal=tri_normal,
-        tri_type=corners(mesh.vert_type),
-        tri_type2=corners(mesh.vert_type2),
-        tri_blend=corners(mesh.vert_blend),
+        tri_type=corners(vtype),
+        tri_type2=corners(vtype2),
+        tri_blend=corners(vblend),
         tri_albedo=z9,
         tri_f0=z9.clone(),
         tri_rough=torch.zeros((nb, n_t, 3), dtype=torch.float32, device=dev),
@@ -541,6 +549,9 @@ def compact_mesh_slab(verts, blocks, n_own: int, index: int, vert_cap: int, tri_
         vert_active=out["vert_active"],
         vert_pos=vpos,
         vert_normal=vnrm,
+        vert_type=out["vert_type"],
+        vert_type2=out["vert_type2"],
+        vert_blend=out["vert_blend"],
         vert_ctype=out["vert_ctype"],
         vert_cweight=out["vert_cweight"],
         tri_active=tact,

@@ -42,7 +42,7 @@ class VoxelObjectPool(NamedTuple):
 
 
 def empty_voxel_object_pool(n_objects: int, grid_size: int, sdf_dtype=torch.float32,
-                            device=None) -> VoxelObjectPool:
+                            device="cuda") -> VoxelObjectPool:
     """A pool of ``n_objects`` dead slots of [G,G,G] grids: far SDF (127
     codes for an int8 pool, 1e3 otherwise), type 0, shadow casters."""
     g = grid_size
@@ -62,7 +62,7 @@ def empty_voxel_object_pool(n_objects: int, grid_size: int, sdf_dtype=torch.floa
         casts_shadows=torch.ones(n_objects, dtype=torch.bool, device=device))
 
 
-def grid_coords(grid_size: int, device=None, x0: int = 0, gx: int | None = None):
+def grid_coords(grid_size: int, device="cuda", x0: int = 0, gx: int | None = None):
     """Voxel centers in grid units: [G,G,G,3] of (i+0.5, j+0.5, k+0.5); with
     ``x0``/``gx`` only the slab of x planes [x0, x0+gx), [gx,G,G,3]."""
     r = torch.arange(grid_size, dtype=torch.float32, device=device) + 0.5
@@ -72,7 +72,7 @@ def grid_coords(grid_size: int, device=None, x0: int = 0, gx: int | None = None)
 
 
 def generate_sdf_grid(graph, grid_size: int, voxel_extent: float, center=True,
-                      device=None):
+                      device="cuda"):
     """Evaluate an SDF graph over a grid centred on the graph origin.
     Returns (sdf [G,G,G] clamped to ±2 voxel extents, origin [3])."""
     coords = grid_coords(grid_size, device) * voxel_extent

@@ -59,7 +59,7 @@ def main(argv=None):
         with pytest.MonkeyPatch.context() as mp:
             mp.setattr(ps, "WIDTH", w)
             mp.setattr(ps, "HEIGHT", h)
-            rt = ps.build_runtime(args.scene, cut(EngineConfig(), bf16), device="cpu")
+            rt = ps.build_runtime(args.scene, cfg=cut(EngineConfig(), bf16), device="cpu")
             return rt.render().numpy()
 
     j32, j16, t32, t16 = reference(False), reference(True), port(False), port(True)

@@ -101,7 +101,7 @@ def test_registry_rebake_matches_reference():
     build = reference_build()
     table_j = jtable(jregistry(SPECS))
     ref = jmesh.bake_mesh_materials(build.sim.meshes, table_j)
-    registry = make_voxel_type_registry(SPECS)
+    registry = make_voxel_type_registry(SPECS, device="cpu")
     table = material_corner_table(registry)
     np.testing.assert_allclose(table.numpy(), np.asarray(table_j), rtol=0, atol=1e-7)
     pool = bridge.sim_state_from_reference(build.sim, "cpu").meshes

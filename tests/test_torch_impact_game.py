@@ -113,6 +113,10 @@ def test_reference_checkpoint_resumes_in_the_port(reference_run):
                          fracture_uniforms=jax_fracture_uniforms(reference_run["key"]))
     assert rt.load_checkpoint(reference_run["path"]) == {"frame": CHECKPOINT_FRAME}
     assert rt.sim.render.frame_index == 0 and float(rt.sim.phys.time) > 0.5
+    # the meshes' vertex materials load from the reference's file
+    with np.load(reference_run["path"]) as data:
+        for f in ("vert_type", "vert_type2", "vert_blend"):
+            np.testing.assert_array_equal(getattr(rt.sim.meshes, f).numpy(), data[f"meshes/{f}"])
     # at the checkpoint the targets have shattered: fragments fill the pool
     assert int(rt.sim.voxels.alive.sum()) == 24
     for k, want in enumerate(reference_run["frames"]):

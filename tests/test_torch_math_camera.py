@@ -66,10 +66,10 @@ def test_projection_and_frustum(seed):
     rng = np.random.default_rng(seed)
     fov, near, far = float(rng.uniform(0.5, 1.5)), 0.05, float(rng.uniform(50, 500))
     aspect = 16 / 9
-    pt = tproj.perspective_projection_matrix(aspect, fov, near, far)
+    pt = tproj.perspective_projection_matrix(aspect, fov, near, far, device="cpu")
     pj = jproj.perspective_projection_matrix(aspect, fov, near, far)
     _close(pt, pj)
-    ot = tproj.orthographic_projection_matrix(-3.0, 4.0, -2.0, 5.0, 0.1, 40.0)
+    ot = tproj.orthographic_projection_matrix(-3.0, 4.0, -2.0, 5.0, 0.1, 40.0, device="cpu")
     oj = jproj.orthographic_projection_matrix(-3.0, 4.0, -2.0, 5.0, 0.1, 40.0)
     _close(ot, oj)
     nt, dt = tfr.frustum_planes_from_view_proj(pt)

@@ -164,7 +164,7 @@ def test_bodies_that_do_not_divide_raise(world, n_bodies, divides):
 def test_body_placements_follow_the_reference_rule():
     """``tests/test_parallel.py:220-229``: P("objects") for a leaf with
     ndim ≥ 1 and a leading dim of N, P() for any other."""
-    b = empty_body_state(16)
+    b = empty_body_state(16, device="cpu")
     assert all(p == OBJECTS for _, p in leaves_with_path(body_shardings(None, b)))
     assert OBJECTS == (Shard(0), Replicate())
     odd = b._replace(mass=torch.ones(()), total_torque=torch.zeros((3, 3)))

@@ -5,8 +5,9 @@ axis, ``impact_tpu_torch/parallel/step.py``) on CPU ranks over gloo.
   label pairs resolved over the row) equal the whole grid's labels exactly,
   the port's and the reference's (``impact_tpu/voxel/interaction.py``).
 * Slab meshes and probes (``step.slab_meshes_and_probes``) equal the whole
-  grids' ``remesh_objects`` and ``extract_probes`` exactly, at merge levels
-  0 and 2 and with caps that cut.
+  grids' ``remesh_objects`` and ``extract_probes`` exactly (the vertex
+  materials ``vert_type``, ``vert_type2`` and ``vert_blend`` included), at
+  merge levels 0 and 2 and with caps that cut.
 * The tumbler on 2×2 and 4×2 meshes equals the port's single-process step
   on every leaf and stays within ``tests/test_parallel.py:88-103``'s bars
   of the reference's single-device step.
@@ -162,6 +163,9 @@ def test_slab_meshes_and_probes_equal_whole_grids(world, merge_levels, caps, enc
     want_probes = extract_probes(whole, torch.as_tensor(resp))
     want = {f"meshes/{k}": v.numpy() for k, v in want_mesh._asdict().items()}
     want.update({f"probes/{k}": v.numpy() for k, v in want_probes._asdict().items()})
+    # the vertex materials merge across the slabs as the positions do
+    assert {"meshes/vert_type", "meshes/vert_type2", "meshes/vert_blend"} <= set(want)
+    assert (want["meshes/vert_blend"][want["meshes/vert_active"]] > 0).any()
     for r in res[:n_space]:
         assert differing(r, want) == {}
     if caps[0] < 1000:  # the caps cut: vertices and triangles dropped

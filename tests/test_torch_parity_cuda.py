@@ -84,7 +84,7 @@ def test_chunked_registry_rebake_on_the_card(card):
     registry = make_voxel_type_registry([
         {"name": "Basalt", "color": (0.9, 0.1, 0.2), "roughness": 0.3},
         {"name": "Copper", "color": (0.2, 0.8, 0.4), "metalness": 1.0},
-        {"name": "Glass", "color": (0.1, 0.3, 0.9), "emissive_luminance": 2.0}])
+        {"name": "Glass", "color": (0.1, 0.3, 0.9), "emissive_luminance": 2.0}], device="cpu")
     pool_cpu = type(build.sim.meshes)(*(x.cpu() for x in build.sim.meshes))
     rt = HeadlessRuntime(build, cfg, registry=registry, enable_fracturing=False)
     cpu = bake_mesh_materials(pool_cpu, material_corner_table(registry))

@@ -95,7 +95,7 @@ def port_handoff(name, mp):
                or "build")
     mp.setattr("impact_tpu_torch.runtime.HeadlessRuntime",
                lambda build, cfg, **flags: seen.update(flags=flags))
-    ps.build_runtime(name, EngineConfig(), device="cpu")
+    ps.build_runtime(name, cfg=EngineConfig(), device="cpu")
     return seen
 
 

@@ -50,7 +50,7 @@ def port_runtime(name, bf16=False, monkeypatch=None):
     """The port's harness runtime of ``name`` at the cut size on the CPU."""
     monkeypatch.setattr(ps, "WIDTH", W)
     monkeypatch.setattr(ps, "HEIGHT", H)
-    return ps.build_runtime(name, cut(EngineConfig(), bf16), device="cpu")
+    return ps.build_runtime(name, cfg=cut(EngineConfig(), bf16), device="cpu")
 
 
 def check_frame(name, monkeypatch, bf16=False):

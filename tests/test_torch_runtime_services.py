@@ -239,7 +239,8 @@ def test_feature_flags_reach_the_step():
 def test_custom_registry_rebakes_the_materials():
     cfg = tiny_config()
     build = compile_scene(voxel_box_tumbler(n_boxes=1, seed=0), cfg, device="cpu")
-    red = make_voxel_type_registry([{"name": "Red", "color": (1.0, 0.0, 0.0), "roughness": 0.5}])
+    red = make_voxel_type_registry([{"name": "Red", "color": (1.0, 0.0, 0.0), "roughness": 0.5}],
+                                   device="cpu")
     rt = HeadlessRuntime(build, cfg, registry=red)
     assert torch.equal(rt.params.material_table, material_corner_table(red))
     tris = rt.sim.meshes.tri_active[0]

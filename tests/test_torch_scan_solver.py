@@ -193,7 +193,7 @@ def test_inactive_slots_renormalize_orientations():
     tb = port(tstate.BodyState, jb)._replace(orientation=torch.from_numpy(ori))
     c = random_contacts(jb, 16, 4)
     prep = tsolver.prepare_contacts(tb, port(tsolver.ContactBuffer, c),
-                                    tsolver.empty_solver_cache(16), ConstraintSolverConfig())
+                                    tsolver.empty_solver_cache(16, device="cpu"), ConstraintSolverConfig())
     pairs = torch.tensor([[1, 2], [4, 4], [1, 6], [2, 1]] * 4)
     prep = prep._replace(active=torch.zeros(16, dtype=torch.bool), body_a=pairs[:, 0],
                          body_b=pairs[:, 1])
@@ -218,7 +218,7 @@ def test_cpu_tensors_take_the_plain_loop_without_a_launch():
     jb = random_bodies(12, 5)
     tb = port(tstate.BodyState, jb)
     prep = tsolver.prepare_contacts(tb, port(tsolver.ContactBuffer, random_contacts(jb, 24, 6)),
-                                    tsolver.empty_solver_cache(24), ConstraintSolverConfig())
+                                    tsolver.empty_solver_cache(24, device="cpu"), ConstraintSolverConfig())
     v, w = tstate.compute_velocities(tb)
     args = (v, w, tb.position, tb.orientation, tb.inv_mass, tstate.world_inv_inertia(tb),
             prep, prep.warm_impulses, 8, 3, 0.2)

@@ -150,7 +150,7 @@ def test_exact_ties_go_to_the_lower_slot_across_chunks():
                                   method="chunk")
     np.testing.assert_array_equal(got.tri_id.numpy(), np.asarray(ref.tri_id))
     np.testing.assert_allclose(got.depth.numpy(), np.asarray(ref.depth), atol=2e-3, rtol=0)
-    empty = traster.clear_target(h, w)
+    empty = traster.clear_target(h, w, device="cpu")
     jempty = jraster.clear_target(h, w)
     assert np.array_equal(empty.depth.numpy(), np.asarray(jempty.depth))
     assert np.array_equal(empty.tri_id.numpy(), np.asarray(jempty.tri_id))
@@ -159,7 +159,7 @@ def test_exact_ties_go_to_the_lower_slot_across_chunks():
 def test_uni_shadow_visibility_sky_cubemap_and_material_params():
     rng = np.random.default_rng(7)
     depth = rng.uniform(0.2, 0.8, (32, 32)).astype(np.float32)
-    vp = orthographic_projection_matrix(-4.0, 4.0, -4.0, 4.0, 0.1, 20.0)
+    vp = orthographic_projection_matrix(-4.0, 4.0, -4.0, 4.0, 0.1, 20.0, device="cpu")
     pos = rng.uniform(-5.0, 5.0, (500, 3)).astype(np.float32)
     pos[:, 2] = rng.uniform(-16.0, -2.0, 500)
     got = tlights.uni_shadow_visibility(torch.from_numpy(depth), vp, torch.from_numpy(pos))
@@ -180,7 +180,7 @@ def test_uni_shadow_visibility_sky_cubemap_and_material_params():
                   roughness=0.2),
              dict(name="c", color=(1.0, 0.3, 0.05), emissive_luminance=5000.0)]
     vt = rng.integers(-1, 5, (6, 7))
-    got = tmat.material_params_for_types(tmat.make_voxel_type_registry(specs), torch.from_numpy(vt))
+    got = tmat.material_params_for_types(tmat.make_voxel_type_registry(specs, device="cpu"), torch.from_numpy(vt))
     ref = jmat.material_params_for_types(jmat.make_voxel_type_registry(specs), jnp.asarray(vt))
     for g, r in zip(got, ref):
         np.testing.assert_allclose(g.numpy(), np.asarray(r), atol=1e-6, rtol=1e-6)

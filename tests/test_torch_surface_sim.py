@@ -156,9 +156,10 @@ def test_samplers_pools_and_meshing_names():
         np.asarray(jvcoll.sample_sdf_gradient(jnp.asarray(sdf), jnp.asarray(pts))),
         atol=1e-6, rtol=1e-6)
     for dt, tdt in ((jnp.float32, torch.float32), (jnp.int8, torch.int8)):
-        assert_pool_equal(tobject.empty_voxel_object_pool(3, 8, tdt),
+        assert_pool_equal(tobject.empty_voxel_object_pool(3, 8, tdt, device="cpu"),
                           jobject.empty_voxel_object_pool(3, 8, dt))
-    ref, got = jcoll.empty_collidable_pools(5, 3, 2), tcoll.empty_collidable_pools(5, 3, 2)
+    ref = jcoll.empty_collidable_pools(5, 3, 2)
+    got = tcoll.empty_collidable_pools(5, 3, 2, device="cpu")
     for name in ref._fields:
         assert np.array_equal(getattr(got, name).numpy(), np.asarray(getattr(ref, name))), name
     occ = two_blobs((3, 2))[:8, :8, :8]
@@ -201,7 +202,7 @@ def test_inertia_drag_native_and_scene_build_names():
     v = np.array([[x, y, z] for x in (0, 2) for y in (0, 1) for z in (0, 3)], np.float64) + 0.7
     faces = np.array([[0, 1, 3], [0, 3, 2], [4, 6, 7], [4, 7, 5], [0, 4, 5], [0, 5, 1],
                       [2, 3, 7], [2, 7, 6], [0, 2, 6], [0, 6, 4], [1, 5, 7], [1, 7, 3]])
-    for g, r in zip(tinertia.mesh_inertial_properties(v, faces, 2.5),
+    for g, r in zip(tinertia.mesh_inertial_properties(v, faces, 2.5, device="cpu"),
                     jinertia.mesh_inertial_properties(v, faces, 2.5)):
         assert g.dtype == torch.float32
         _close(g, r)

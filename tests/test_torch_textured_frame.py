@@ -13,6 +13,9 @@
   compiled and rendered by each package from its
   own scene description, at ≥ 0.95 to each other; the port's texture set
   equals the reference's (within 1e-6, mip means summed in another order).
+* A scene compiled with 5 voxel types and run with no registry: the layer
+  counts and offsets of both runtimes, and the frame with voxels of types 3
+  and 4 in view against the reference's shade of the same scene.
 """
 
 import jax
@@ -138,3 +141,69 @@ def test_textured_box_entity_matches_reference_render():
     rt2 = HeadlessRuntime(compile_scene(flat, cfg, device="cpu"), cfg, enable_fracturing=False)
     assert np.abs(rt2.render().numpy().astype(int) - img.astype(int)).max() > 8
     assert torch.equal(rt.params.mesh_instances.material, torch.tensor([0], dtype=torch.int32))
+
+
+FIVE_TYPES = [{"name": f"type{i}", "color": (0.2 * i, 0.5, 0.9 - 0.1 * i)} for i in range(5)]
+
+
+def test_texture_layers_follow_the_runtime_registry():
+    """A scene compiled with a registry of 5 voxel types and run with none:
+    both runtimes keep the default registry (3 types), so the voxel-type
+    texture layers number 3 and the box entity's layer is offset by 3, to
+    layer 3, where voxel type 3 reads too (a reference fault, reproduced).
+    Two voxel boxes of types 3 and 4 in view render as the reference's
+    shade renders them: its gathers clamp type 4 to the last layer, 3.
+    Run with the same registry, the layers number 5 and the offset is 5."""
+    import inspect
+
+    from impact_tpu.scene.materials import make_voxel_type_registry as jregistry
+    from impact_tpu_torch.scene.materials import make_voxel_type_registry
+
+    jcfg = textured_box_config(JConfig())
+    jcfg.tpu.textured_voxels = True
+    jrt = JRuntime(jcompile(reference_box_world(), jcfg, registry=jregistry(FIVE_TYPES)), jcfg,
+                   enable_fracturing=False)
+    ref_params = inspect.getclosurevars(jrt._scene_of.__wrapped__).nonlocals["params"]
+    cfg = textured_box_config(EngineConfig())
+    cfg.tpu.textured_voxels = True
+    cfg.tpu.max_voxel_objects = 2
+    world = textured_box_scene()
+    for x, voxel_type in ((-1.5, 3), (1.5, 4)):
+        world.create_entity(TC.ReferenceFrame(position=(x, 0.0, 2.8)),
+                            TC.VoxelBox(voxel_extent=0.3, extent_x=3.0, extent_y=3.0,
+                                        extent_z=3.0),
+                            TC.SameVoxelType(voxel_type=voxel_type))
+    reg = make_voxel_type_registry(FIVE_TYPES, device="cpu")
+    build = compile_scene(world, cfg, registry=reg, device="cpu")
+    assert build.params.material_table.shape[0] == 5
+    rt = HeadlessRuntime(build, cfg, enable_fracturing=False)
+    assert rt.registry.n_types == jrt.registry.n_types == 3
+    assert rt._mesh_instances.material.tolist() == np.asarray(
+        ref_params.mesh_instances.material).tolist() == [3]
+    assert rt.textures.albedo.mips[0].shape[0] == jrt._textures.albedo.mips[0].shape[0] == 4
+    assert rt.textures.full_pbr.tolist() == [0.0, 0.0, 0.0, 1.0]
+
+    # the frame: the port's against the reference's shade of the same scene
+    # with the reference's own texture set
+    img = rt.render().numpy()
+    scene = rt.scene()
+    assert torch.unique(scene.tri_material[scene.tri_active]).tolist() == [3, 4]
+    rc = jrender_config(jcfg)
+
+    @jax.jit
+    def frame(jscene, lights, cam, textures):
+        gb, _ = jpipe.geometry_pass(jscene, cam, cam, 0, rc)
+        omni, uni, _ = jpipe.shadow_pass(jscene, lights, cam, rc)
+        lum = jpipe.deferred_shade(gb, lights, cam, omni, uni, rc, textures)
+        return jpipe.postprocess(lum, gb.motion, jpipe.init_render_state(rc), rc)[0]
+
+    ref = np.asarray(frame(jpipe.RenderScene(*(J(a) for a in scene)),
+                           JLightPools(*(J(a) for a in rt.params.lights)),
+                           JCamera(*(J(a) for a in rt.params.camera)), jrt._textures))
+    parity = rgb_hybrid_compare(img, ref)
+    assert parity >= PARITY_BAR, parity
+
+    with_registry = HeadlessRuntime(build, cfg, registry=reg, enable_fracturing=False)
+    assert with_registry.registry.n_types == 5
+    assert with_registry._mesh_instances.material.tolist() == [5]
+    assert with_registry.textures.albedo.mips[0].shape[0] == 6

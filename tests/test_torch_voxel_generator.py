@@ -51,10 +51,10 @@ def graph_files(tmp_path_factory, jgen):
     return d
 
 
-def printed(fn, *args):
+def printed(fn, *args, **kwargs):
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
-        fn(*args)
+        fn(*args, **kwargs)
     return out.getvalue().strip()
 
 
@@ -68,7 +68,7 @@ def test_example_files_are_interchangeable(graph_files, jgen):
 @pytest.mark.parametrize("graph", ["example.json", "meta.json"])
 def test_stats_print_the_reference_counts(graph, graph_files, jgen):
     path = str(graph_files / graph)
-    got = printed(tgen.cmd_stats, path, "cpu")
+    got = printed(tgen.cmd_stats, path, device="cpu")
     assert got == printed(jgen.cmd_stats, path)
     s = tgen.stats(tgen.load_any_graph(path), "cpu")
     assert s["line"] == got and s["solid"] > 0 and s["triangles"] > 0
@@ -76,7 +76,7 @@ def test_stats_print_the_reference_counts(graph, graph_files, jgen):
 
 def test_preview_scores_against_the_reference(graph_files, jgen, tmp_path):
     path = str(graph_files / "example.json")
-    tgen.cmd_preview(path, str(tmp_path / "port.png"), "cpu")
+    tgen.cmd_preview(path, str(tmp_path / "port.png"), device="cpu")
     jgen.cmd_preview(path, str(tmp_path / "ref.png"))
     got, ref = load_png(tmp_path / "port.png"), load_png(tmp_path / "ref.png")
     assert got.shape == ref.shape == (tgen.HEIGHT, tgen.WIDTH, 3)

@@ -21,7 +21,7 @@ G = 32
 def _box_grids(extent_voxels, ve=0.25):
     e = extent_voxels * ve
     sj, oj = jobj.generate_sdf_grid(jsdf.box((e, e, e)), G, ve)
-    st, ot = tobj.generate_sdf_grid(tsdf.box((e, e, e)), G, ve)
+    st, ot = tobj.generate_sdf_grid(tsdf.box((e, e, e)), G, ve, device="cpu")
     return (np.asarray(sj), np.asarray(oj)), (st.numpy(), ot.numpy())
 
 
@@ -64,7 +64,7 @@ def test_surface_nets_and_compaction(extent, merge_levels):
     np.testing.assert_allclose(ct.tri_pos.numpy(), np.asarray(cj.tri_pos), atol=1e-5)
 
     tab_j = jmat.material_corner_table(jmat.default_registry())
-    tab_t = tmat.material_corner_table(tmat.default_registry())
+    tab_t = tmat.material_corner_table(tmat.default_registry(device="cpu"))
     np.testing.assert_allclose(tab_t.numpy(), np.asarray(tab_j), atol=1e-7)
     bj = jmesh.bake_mesh_materials(cj, tab_j)
     bt = tmesh.bake_mesh_materials(ct, tab_t)
